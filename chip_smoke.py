@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -9,18 +9,34 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel under ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together);
-3. hold each kernel against its plain PyTorch version on the card, in
-   bf16 and f32, at the shapes the serving path gives it, and time both;
-4. a small-input check: the smoke ``rwkv6`` in f32 on the card, the
-   kernel-path prefill and three decode steps against the exact-recurrence
-   path, and greedy tokens equal;
-5. the main path: full-width ``rwkv6-1.6b`` (bf16, ``wkv_impl="kernel"``,
-   random weights from ``--seed``) serves 8 requests of 512-token prompts
-   and 32 new tokens through ``GenerationEngine.generate``; the kernel
-   launch counts are zeroed just before and read just after;
-6. prefill time, decode rate and peak memory of that configuration, and
-   a ``torch.profiler`` window over one prefill and four decode steps
-   (device busy share, kernel time by kind).
+3. hold each kernel against its plain PyTorch version on the card, at the
+   shapes its path gives it, and time both: the WKV kernel in bf16 and
+   f32; ``fused_add`` at 64, 100, 1024 and 2^20+3 elements, at the
+   training run's largest reduce and its largest bucket payload, in f32
+   and bf16, out of place and in place (bit-equal), beside ``torch.add``
+   (both timed by CUDA-graph replay: device time without the host's);
+4. small-input checks: the smoke ``rwkv6`` in f32 (kernel-path prefill
+   and decode against the exact recurrence, greedy tokens equal); the
+   virtual-mesh schedules (ring, halving-doubling and double-binary-tree
+   all-reduce and the ring reduce-scatter over 8 ranks in a reordered
+   ring: postconditions, kernel path == ``+`` path and ``run_overlapped``
+   == ``run_schedule`` bit for bit); the smoke ``qwen2-0.5b`` in f32,
+   whose overlapped 8-rank step (bucketed and fused) matches the
+   one-card baseline step;
+5. the serving path: full-width ``rwkv6-1.6b`` (bf16,
+   ``wkv_impl="kernel"``, random weights from ``--seed``) serves 8
+   requests of 512-token prompts and 32 new tokens through
+   ``GenerationEngine.generate``; launch counts zeroed just before, read
+   just after; then prefill time, decode rate, peak memory and a
+   ``torch.profiler`` window;
+6. the training path: full-width ``qwen2-0.5b`` (bf16, random weights
+   from ``--seed``) over 8 virtual data-parallel ranks of 2 x 1024
+   tokens each, its gradients reduced by a certified ring all-reduce in
+   the rank order [3,1,4,7,5,0,2,6] (chunk factor 2, bucketed, every
+   reduce through ``fused_add``): the reducer's output on step 0's grads
+   against a plain f32 mean and against the ``+`` path, then a warm-up
+   step and 3 timed steps with launch counts zeroed just before and read
+   just after, and a ``torch.profiler`` window over one more step.
 
 Its last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -44,6 +60,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
 BATCH, PROMPT, NEW = 8, 512, 32
+# the training path: 8 virtual ranks x 2 rows x 1024 tokens, a certified
+# ring in this rank order (tests/test_overlap.py:300-301)
+TRAIN_ARCH, RANKS, ROWS_PER_RANK, SEQ, TRAIN_STEPS = "qwen2-0.5b", 8, 2, 1024, 3
+TRAIN_PERM = [3, 1, 4, 7, 5, 0, 2, 6]
+MESH_PERM = [0, 3, 1, 7, 2, 6, 4, 5]      # tests/test_system.py:134-141
+LR = 1e-3
 # kernel vs plain on the same inputs: the same f32 math summed in another
 # order (f32: the chunk-form tolerance of the CPU tests); bf16 y also
 # rounds once to bf16 (2 ulps relative)
@@ -71,13 +93,40 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, iters: int) -> float:
+    """Device time of one ``fn`` call: ``iters`` calls captured in a CUDA
+    graph and replayed between CUDA events, so the host's cost per call
+    (the Python wrapper, the launch) stays out of a short kernel's time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _check_close(name, got, want, atol, rtol) -> float:
     import torch
 
     err = (got.float() - want.float()).abs()
     limit = atol + rtol * want.float().abs()
     if not bool(torch.isfinite(got.float()).all()) or bool((err > limit).any()):
-        raise AssertionError(f"{name}: kernel disagrees with its plain version "
+        raise AssertionError(f"{name}: disagrees with its reference "
                              f"(max abs err {err.max().item():.3e}, "
                              f"atol {atol}, rtol {rtol})")
     return err.max().item()
@@ -175,17 +224,24 @@ def check_small_model(seed: int) -> None:
          "exact recurrence (atol/rtol 1e-4); greedy tokens equal")
 
 
-def serve_full_width(seed: int, card: str, kernels: list) -> dict:
-    """Phases 5 and 6: the main path at full width, counted, then timed."""
+def _counted() -> dict:
+    """Every kernel wrapper, by name: each counts its own launches."""
+    from repro_torch.kernels import ring_collective, rwkv6_chunked
+
+    return {"wkv_chunked": rwkv6_chunked.wkv_chunked_matmul,
+            "fused_add": ring_collective.fused_add}
+
+
+def serve_full_width(seed: int, card: str) -> dict:
+    """Phase 5: the serving path at full width, counted, then timed."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import rwkv6_chunked
     from repro_torch.models import get_model
     from repro_torch.serve import GenerationConfig, GenerationEngine
 
-    counted = {"wkv_chunked": rwkv6_chunked.wkv_chunked_matmul}
+    counted = _counted()
     cfg = dataclasses.replace(get_config("rwkv6-1.6b"), wkv_impl="kernel")
     model = get_model(cfg, device="cuda")
     gen = torch.Generator(device="cuda")
@@ -209,10 +265,6 @@ def serve_full_width(seed: int, card: str, kernels: list) -> dict:
     launches = {name: fn.launches for name, fn in counted.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        if k["launches"] < 1:
-            raise AssertionError(f"{k['name']} never launched on the main path")
     if launches["wkv_chunked"] != cfg.n_layers:
         raise AssertionError(f"wkv_chunked launched {launches['wkv_chunked']} "
                              f"times in one prefill, expected {cfg.n_layers}")
@@ -255,12 +307,365 @@ def serve_full_width(seed: int, card: str, kernels: list) -> dict:
     return res
 
 
+def train_layout() -> dict:
+    """The training run's schedule and buckets, from the shapes alone.
+
+    The largest ``fused_add`` call of the run is one reduce step of one
+    piece of the largest bucket: ``[n, 1, piece_len]``.
+    """
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.train import certified_allreduce, partition_tree
+
+    cfg = get_config(TRAIN_ARCH)
+    model = DecoderLM(cfg, device="cuda")
+    shapes = L.map_spec(model.param_spec(), lambda e: torch.empty(
+        e[0], dtype=model.dtype, device="meta"))
+    leaves = list(_leaves(shapes))
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    bucket_bytes = param_bytes / 3.5
+    sched = certified_allreduce(RANKS, bucket_bytes, "ring", perm=TRAIN_PERM,
+                                chunk_factor=2)
+    buckets = partition_tree(shapes, bucket_bytes)
+    quantum = sched.n_chunks * sched.chunk_factor
+    padded = [b.n_elems + (-b.n_elems) % quantum for b in buckets]
+    reduce_steps = sum(1 for rnd in sched.rounds for st in rnd
+                       if st.op == "reduce")
+    return {
+        "cfg": cfg, "param_bytes": param_bytes, "bucket_bytes": bucket_bytes,
+        "schedule": sched, "buckets": buckets,
+        "n_params": sum(t.numel() for t in leaves),
+        "largest_call": max(padded) // sched.chunk_factor,
+        "largest_payload": RANKS * max(padded),
+        # one launch per reduce step, per piece, per bucket
+        "launches_per_step": len(buckets) * reduce_steps * sched.chunk_factor,
+    }
+
+
+def check_fused_add_kernel(seed: int, layout: dict) -> dict:
+    """Phase 3: ``fused_add`` against its plain version, bit for bit; times."""
+    import torch
+
+    from repro_torch.kernels import ring_collective as rc
+
+    sizes = [64, 100, 1024, (1 << 20) + 3, layout["largest_call"],
+             layout["largest_payload"]]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    for n in sizes:
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.randn(n, generator=gen, device="cuda").to(dtype)
+            b = torch.randn(n, generator=gen, device="cuda").to(dtype)
+            want = rc.fused_add_plain(a, b)
+            got = rc.fused_add(a, b)
+            rc.fused_add(a, b, out=a)                  # in place
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(a, want)):
+                bad = (got.float() - want.float()).abs().max().item()
+                raise AssertionError(f"fused_add {dtype} n={n}: kernel != plain "
+                                     f"(max abs err {bad:.3e})")
+            del a, b, want, got
+        torch.cuda.empty_cache()
+    _say(f"fused_add == plain bit for bit, f32 and bf16, in and out of place, "
+         f"at n = {sizes}")
+
+    n = layout["largest_call"]
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        a = torch.randn(n, generator=gen, device="cuda").to(dtype)
+        b = torch.randn(n, generator=gen, device="cuda").to(dtype)
+        out = torch.empty_like(a)
+        times[dtype] = (
+            _graph_ms(lambda: rc.fused_add(a, b, out=out), 50),
+            _time_ms(lambda: rc.fused_add_plain(a, b), 20),
+            _graph_ms(lambda: torch.add(a, b, out=out), 50),
+        )
+        moved = rc.work(n, a.element_size())
+        _say(f"fused_add {dtype} n={n}: kernel {times[dtype][0]:.4f} ms, plain "
+             f"{times[dtype][1]:.4f} ms, torch.add {times[dtype][2]:.4f} ms; "
+             f"bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms ({moved} bytes at "
+             f"3.35 TB/s)")
+        del a, b, out
+    torch.cuda.empty_cache()
+    k, p, lib = times[torch.bfloat16]
+    return {
+        "name": "fused_add",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_add.cu",
+        "replaces": "src/repro/kernels/ring_collective.py:62",
+        "launches": None,            # filled from the training path's run
+        "max_abs_err": 0.0,          # bit-equal to the plain version above
+        "ms": k, "plain_ms": p,
+        "ms_f32": times[torch.float32][0],
+        "plain_ms_f32": times[torch.float32][1],
+        "library_ms_f32": times[torch.float32][2],
+        "elements": n,
+        "bound_ms": rc.work(n, 2) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": lib,           # torch.add on the same tensors
+    }
+
+
+def check_virtual_mesh(seed: int) -> None:
+    """Phase 4b: certified schedules on the card's virtual mesh."""
+    import torch
+
+    from repro_torch.kernels import ring_collective as rc
+    from repro_torch.kernels.overlap import run_overlapped
+    from repro_torch.kernels.ref import ring_reduce_scatter_ref
+    from repro_torch.kernels.schedule_runner import check_postcondition, run_schedule
+    from repro_torch.train import certified_allreduce
+
+    n, per_rank = 8, 1 << 20
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randn((n, per_rank), generator=gen, device="cuda")
+    for algo, k in (("ring", 2), ("halving_doubling", 1),
+                    ("double_binary_tree", 1)):
+        sched = certified_allreduce(n, per_rank * 4, algo, perm=MESH_PERM,
+                                    chunk_factor=k)
+        before = rc.fused_add.launches
+        out = run_schedule(x, sched)
+        torch.cuda.synchronize()
+        if rc.fused_add.launches == before:
+            raise AssertionError(f"{algo}: no fused_add launch")
+        bad = check_postcondition(sched, x, out, atol=1e-4)
+        if bad:
+            raise AssertionError(f"{algo}: postcondition fails: {bad[:3]}")
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt)
+            ker = run_schedule(xd, sched)
+            if not torch.equal(ker, run_schedule(xd, sched, use_kernel_add=False)):
+                raise AssertionError(f"{algo} {dt}: kernel path != + path")
+            if not torch.equal(ker, run_overlapped(xd, sched)[0]):
+                raise AssertionError(f"{algo} {dt}: run_overlapped != run_schedule")
+    rs = rc.ring_reduce_scatter(x, perm=MESH_PERM)
+    err = (rs - ring_reduce_scatter_ref(x, n)).abs().max().item()
+    if err > 1e-4:
+        raise AssertionError(f"ring reduce-scatter off the oracle by {err:.3e}")
+    if not torch.equal(rs, rc.ring_reduce_scatter(x, perm=MESH_PERM,
+                                                  use_kernel_add=False)):
+        raise AssertionError("ring reduce-scatter: kernel path != + path")
+    _say(f"virtual mesh n={n}, {per_rank} f32 per rank, perm {MESH_PERM}: ring "
+         f"(k=2), halving-doubling, double binary tree all-reduce meet their "
+         f"postcondition; kernel == + and overlapped == runner bit for bit in "
+         f"f32 and bf16; ring reduce-scatter within {err:.2e} of the oracle")
+
+
+def check_small_train(seed: int) -> None:
+    """Phase 4c: the smoke qwen2-0.5b (f32): overlapped 8-rank step == baseline."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM, host_batch
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (
+        OverlapGradReducer, certified_allreduce, init_state,
+        make_overlap_train_step, make_train_step)
+
+    cfg = get_config(TRAIN_ARCH).smoke()
+    model = get_model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    state = init_state(model, gen)
+    batch = host_batch(SyntheticLM(cfg.vocab_size, 16, RANKS, seed=seed), 0)
+    opt = AdamWConfig(lr=LR)
+    base, base_m = make_train_step(model, opt)(state, batch)
+    pb = sum(t.numel() * t.element_size() for t in _leaves(state.params))
+    sched = certified_allreduce(RANKS, pb / 3.5, "ring", perm=TRAIN_PERM,
+                                chunk_factor=2)
+    for mode in ("bucketed", "fused"):
+        red = OverlapGradReducer(sched, bucket_bytes=pb / 3.5, mode=mode)
+        new, met = make_overlap_train_step(model, opt, red)(state, batch)
+        # tests/test_overlap.py:306-325
+        _check_close(f"smoke loss ({mode})", met["loss"], base_m["loss"], 2e-6, 2e-5)
+        _check_close(f"smoke grad_norm ({mode})", met["grad_norm"],
+                     base_m["grad_norm"], 1e-5, 2e-4)
+        for a, b in zip(_leaves(new.params), _leaves(base.params)):
+            _check_close(f"smoke params ({mode})", a, b, 1e-4, 0.0)
+    _say(f"smoke {TRAIN_ARCH} f32 on the card: the overlapped {RANKS}-rank step "
+         f"(bucketed, fused) == the baseline step (loss rtol 2e-5, grad_norm "
+         f"rtol 2e-4, params atol 1e-4)")
+
+
+class _TimedReducer:
+    """The reducer, with CUDA events around each call (read after the step)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.n = inner.n
+        self.events = []
+
+    def __call__(self, stacked, compute=()):
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.inner(stacked, compute)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def last_ms(self) -> float:
+        start, end = self.events[-1]
+        return start.elapsed_time(end)
+
+
+def check_reducer_at_full_width(model, state, batch, layout: dict) -> dict:
+    """Phase 6a: the reducer on step 0's stacked bf16 grads.
+
+    Against a plain f32 mean of the same grads: the ring sums 8 bf16
+    values with one rounding per add, so an element may be off by at
+    most ``8 * 2^-8 * mean_r |g_r|`` (the summation bound: n-1 adds plus
+    the final rounding, at bf16's unit roundoff 2^-8).  Against the
+    ``+`` path: bit for bit.
+    """
+    import torch
+
+    from repro_torch.train import OverlapGradReducer, stacked_grads
+    from repro_torch.train.train_step import batch_on
+    from repro_torch.tree import tree_leaves
+
+    _, gstack = stacked_grads(model, state.params, batch_on(batch, "cuda"), RANKS)
+    sched, bb = layout["schedule"], layout["bucket_bytes"]
+    reducer = OverlapGradReducer(sched, bb, "bucketed")
+    ker, _ = reducer(gstack)
+    prof = profile_window("reducer", lambda: reducer(gstack))
+    plus, _ = OverlapGradReducer(sched, bb, "bucketed", use_kernel_add=False)(gstack)
+    worst = 0.0
+    with torch.no_grad():
+        for g, k, p in zip(tree_leaves(gstack), tree_leaves(ker), tree_leaves(plus)):
+            if not torch.equal(k, p):
+                raise AssertionError("reducer: kernel path != + path")
+            gf = g.float()
+            limit = RANKS * 2.0 ** -8 * gf.abs().mean(0) + 1e-30
+            ratio = ((k.float() - gf.mean(0)).abs() / limit).max().item()
+            if not ratio <= 1.0:
+                raise AssertionError(f"reducer off the f32 mean by {ratio:.3f} "
+                                     f"of the bound")
+            worst = max(worst, ratio)
+            del gf, limit
+    del gstack, ker, plus
+    torch.cuda.empty_cache()
+    _say(f"reducer on step 0's bf16 grads: kernel path == + path bit for bit; "
+         f"worst element at {worst:.4f} of the bf16 summation bound of the "
+         f"f32 mean")
+    return {"reducer_err_of_bound": worst, "reducer_profile": prof}
+
+
+def train_full_width(seed: int, card: str, layout: dict) -> dict:
+    """Phase 6: the training path at full width, counted, then profiled."""
+    import math
+
+    import torch
+
+    from repro_torch.data import SyntheticLM, host_batch
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import OverlapGradReducer, init_state, make_overlap_train_step
+
+    cfg = layout["cfg"]
+    model = get_model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    state = init_state(model, gen)
+    ds = SyntheticLM(cfg.vocab_size, SEQ, RANKS * ROWS_PER_RANK, seed=seed)
+    batches = [host_batch(ds, s) for s in range(TRAIN_STEPS + 2)]   # set-up
+    checks = check_reducer_at_full_width(model, state, batches[0], layout)
+    # learning, apart from batch-to-batch noise: the loss on the last
+    # batch (never trained on) before and after the steps
+    from repro_torch.train.train_step import batch_on
+    held_out = batch_on(batches[-1], "cuda")
+    with torch.no_grad():
+        held_out_before = float(model.loss(state.params, held_out))
+
+    reducer = _TimedReducer(OverlapGradReducer(
+        layout["schedule"], layout["bucket_bytes"], "bucketed"))
+    step_fn = make_overlap_train_step(model, AdamWConfig(lr=LR), reducer)
+    tokens = RANKS * ROWS_PER_RANK * SEQ
+    counted = _counted()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+    steps = []
+    for s in range(1 + TRAIN_STEPS):
+        before = counted["fused_add"].launches
+        t0 = time.monotonic()
+        state, met = step_fn(state, batches[s])
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        row = {"step": s, "warmup": s == 0, "loss": float(met["loss"]),
+               "grad_norm": float(met["grad_norm"]), "step_ms": dt * 1e3,
+               "tokens_per_s": tokens / dt, "reducer_ms": reducer.last_ms(),
+               "fused_add_launches": counted["fused_add"].launches - before,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        steps.append(row)
+        _say("train step " + json.dumps(row))
+    launches = {name: fn.launches for name, fn in counted.items()}
+
+    want = layout["launches_per_step"]
+    if any(r["fused_add_launches"] != want for r in steps):
+        raise AssertionError(f"fused_add launches per step "
+                             f"{[r['fused_add_launches'] for r in steps]}, "
+                             f"expected {want} (every reduce of every bucket)")
+    losses = [r["loss"] for r in steps]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+        raise AssertionError(f"step 0 loss {losses[0]:.4f} is not within 0.5 of "
+                             f"ln V = {math.log(cfg.vocab_size):.4f}")
+    if not sum(losses[1:]) / TRAIN_STEPS < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+
+    with torch.no_grad():
+        held_out_after = float(model.loss(state.params, held_out))
+    prof = profile_window("train step", lambda: step_fn(state, batches[-1]))
+    timed = steps[1:]
+    res = {
+        "arch": cfg.name, "params": layout["n_params"], "dtype": cfg.dtype,
+        "ranks": RANKS, "rows_per_rank": ROWS_PER_RANK, "seq": SEQ,
+        "tokens_per_step": tokens, "perm": TRAIN_PERM,
+        "buckets": len(layout["buckets"]),
+        "bucket_bytes": layout["bucket_bytes"],
+        "losses": losses,
+        "held_out_loss": [held_out_before, held_out_after],
+        "step_ms": [r["step_ms"] for r in timed],
+        "tokens_per_s": [r["tokens_per_s"] for r in timed],
+        "reducer_ms": [r["reducer_ms"] for r in timed],
+        "fused_add_launches_per_step": want,
+        "peak_mem_gb": max(r["peak_mem_gb"] for r in steps),
+        "launches": launches, "profile": prof, "card": card, **checks,
+    }
+    _say(f"train {cfg.name} ({layout['n_params']} params, bf16), {RANKS} ranks x "
+         f"{ROWS_PER_RANK} x {SEQ} tokens, ring perm {TRAIN_PERM}: losses "
+         f"{[round(v, 4) for v in losses]} (held-out batch "
+         f"{held_out_before:.4f} -> {held_out_after:.4f}); step "
+         f"{[round(v, 1) for v in res['step_ms']]} ms; reducer "
+         f"{[round(v, 2) for v in res['reducer_ms']]} ms; fused_add launches "
+         f"{launches['fused_add']} ({want} a step); peak memory "
+         f"{res['peak_mem_gb']:.3f} GB [{card}]")
+    _say("train " + json.dumps(res))
+    return res
+
+
 def _kind(kernel_name: str) -> str:
     n = kernel_name.lower()
     if "wkv_chunked" in n:
         return "wkv_chunked"
+    if "fused_add" in n:
+        return "fused_add"
     if any(s in n for s in ("nvjet", "gemm", "gemv", "xmma", "cutlass")):
         return "matmul"
+    if any(s in n for s in ("copy", "catarray")):
+        return "copy"
+    if any(s in n for s in ("index", "gather", "scatter")):
+        return "index"
     return "other"
 
 
@@ -344,9 +749,21 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 _say(f"ptxas {name}: {line.strip()}")
 
-    kernels = [check_wkv_kernel(args.seed)]
+    layout = train_layout()
+    kernels = [check_wkv_kernel(args.seed),
+               check_fused_add_kernel(args.seed, layout)]
     check_small_model(args.seed)
-    serve_full_width(args.seed, card, kernels)
+    check_virtual_mesh(args.seed)
+    check_small_train(args.seed)
+    served = serve_full_width(args.seed, card)
+    torch.cuda.empty_cache()
+    trained = train_full_width(args.seed, card, layout)
+    # each kernel's launches come from the path it carries
+    paths = {"wkv_chunked": served, "fused_add": trained}
+    for k in kernels:
+        k["launches"] = paths[k["name"]]["launches"][k["name"]]
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} never launched on its path")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,9 +3,9 @@
 The port keeps the JAX layout (``[in, out]`` weights, block parameters
 stacked along a leading layer dimension), so converting is a leaf-by-leaf
 copy: the dtype is kept, and the tree's names and shapes are checked
-against the model's :meth:`param_spec`.  The input is the JAX tree with
-its leaves turned into numpy arrays (``jax.tree.map(np.asarray, params)``),
-so this module needs no JAX.
+against the model's :meth:`param_spec` (``Rwkv6LM``'s or ``DecoderLM``'s).
+The input is the JAX tree with its leaves turned into numpy arrays
+(``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
 """
 
 from __future__ import annotations

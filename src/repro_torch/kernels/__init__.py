@@ -3,5 +3,6 @@
 Building a kernel (``nvcc``) happens at its first launch, never at import.
 """
 
-from .ops import wkv_chunked_op  # noqa: F401
+from .ops import fused_add, wkv_chunked_op  # noqa: F401
+from .ring_collective import fused_add_plain, ring_all_reduce, ring_reduce_scatter  # noqa: F401
 from .rwkv6_chunked import wkv_chunked_matmul, wkv_chunked_matmul_plain  # noqa: F401

@@ -7,9 +7,10 @@ plain PyTorch version for CPU tensors.
 
 from __future__ import annotations
 
+from .ring_collective import fused_add
 from .rwkv6_chunked import wkv_chunked_matmul
 
-__all__ = ["wkv_chunked_op"]
+__all__ = ["fused_add", "wkv_chunked_op"]
 
 
 def wkv_chunked_op(r, k, v, w, u, chunk=16):

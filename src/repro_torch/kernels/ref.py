@@ -4,6 +4,8 @@
 RWKV6 model runs it on the decode path (one token, carried state) and on
 prefill when the chunked kernel does not apply; the tests hold the chunk
 kernel's plain version and the CUDA kernel to it.
+:func:`ring_reduce_scatter_ref` is the reduce-scatter semantics the ring
+(:mod:`repro_torch.kernels.ring_collective`) is held to.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["wkv_chunk_ref", "wkv_recurrence"]
+__all__ = ["ring_reduce_scatter_ref", "wkv_chunk_ref", "wkv_recurrence"]
 
 
 def wkv_recurrence(
@@ -44,3 +46,14 @@ def wkv_recurrence(
 def wkv_chunk_ref(r, k, v, w, u, state=None):
     """Token-by-token WKV recurrence (identical to :func:`wkv_recurrence`)."""
     return wkv_recurrence(r, k, v, w, u, state)
+
+
+def ring_reduce_scatter_ref(x: torch.Tensor, n_shards: int, axis: int = 0
+                            ) -> torch.Tensor:
+    """Reduce-scatter semantics oracle: sum over shards, split along axis.
+
+    x: [n_shards, ...] stacked per-rank contributions; returns the stacked
+    per-rank results [n_shards, chunk, ...].
+    """
+    total = x.sum(dim=0)                              # the all-reduced value
+    return torch.stack(torch.chunk(total, n_shards, dim=axis))

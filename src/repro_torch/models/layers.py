@@ -1,13 +1,33 @@
-"""Shared layers (the part of ``repro.models.layers`` the port's models use)."""
+"""Shared layers (the part of ``repro.models.layers`` the port's models use).
+
+Parameters keep the reference's layout and names: attention ``wq
+[D, H*hd]``, ``wk/wv [D, KV*hd]``, ``wo [H*hd, D]`` (+ ``bq/bk/bv`` with
+``qkv_bias``); gated MLP ``w1`` (gate) and ``w3`` (up) ``[D, F]``, ``w2``
+(down) ``[F, D]``.  A model declares its parameters as a *spec* — a tree
+of ``name -> (shape, init)`` — and draws them with :func:`init_from_spec`;
+the same spec is the schema :func:`repro_torch.convert.params_from_jax`
+checks.  Only the dense path is here: MoE and MLA come with their slice
+(ROADMAP.md §1).
+"""
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ["dense_init", "rms_norm"]
+__all__ = [
+    "apply_rope", "attention", "attention_spec", "dense_init",
+    "init_from_spec", "make_rope", "map_spec", "mlp", "mlp_spec",
+    "rms_norm", "unbind_layers",
+]
+
+Params = Dict[str, Any]
+
+ZEROS, ONES = ("const", 0.0), ("const", 1.0)
 
 
 def dense_init(generator: torch.Generator, shape: Sequence[int],
@@ -25,9 +45,203 @@ def dense_init(generator: torch.Generator, shape: Sequence[int],
     return (x * scale).to(dtype)
 
 
+# ---------------------------------------------------------------------------
+# parameter specs
+# ---------------------------------------------------------------------------
+
+def map_spec(spec: Params, fn: Callable[[Any], Any]) -> Params:
+    """``fn`` applied to every ``(shape, init)`` entry of a spec tree."""
+    return {k: map_spec(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in spec.items()}
+
+
+def init_from_spec(generator: torch.Generator, spec: Params,
+                   dtype: torch.dtype) -> Params:
+    """Draw a parameter tree from ``spec``, in the spec's key order.
+
+    ``init`` is ``("normal", scale)`` — ``scale=None`` means
+    ``1/sqrt(fan-in)``, the ``in`` of a (possibly layer-stacked)
+    ``[..., in, out]`` weight — or ``("const", value)``.
+    """
+    def make(entry):
+        shape, (kind, val) = entry
+        if kind == "const":
+            return torch.full(shape, val, dtype=dtype, device=generator.device)
+        scale = shape[-2] ** -0.5 if val is None else val
+        return dense_init(generator, shape, scale=scale, dtype=dtype)
+
+    return map_spec(spec, make)
+
+
+def unbind_layers(tree: Params, n: int) -> list:
+    """The ``n`` layers of a stacked block tree, as views (``torch.unbind``).
+
+    One unbind per leaf: its backward stacks the layers' gradients once,
+    where indexing layer by layer would add a full-size zero tensor per
+    layer.
+    """
+    def split(t):
+        return {k: split(v) for k, v in t.items()} if isinstance(t, dict) \
+            else torch.unbind(t)
+
+    parts = split(tree)
+
+    def pick(t, i):
+        return {k: pick(v, i) for k, v in t.items()} if isinstance(t, dict) \
+            else t[i]
+
+    return [pick(parts, i) for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Mixed-precision RMSNorm, as the reference computes it: the variance
     in f32, the scale cast to ``x.dtype``, then ``x * scale * w``."""
     var = x.float().square().mean(-1, keepdim=True)
     scale = torch.rsqrt(var + eps).to(x.dtype)
     return x * scale * w.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def make_rope(positions: torch.Tensor, dim: int, theta: float
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for ``positions`` [..., S] -> [..., S, dim/2]."""
+    freqs = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                          device=positions.device) / dim))
+    angles = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: [B, H, S, hd]; cos/sin: [S, hd/2] or [B, S, hd/2] (half-split)."""
+    if cos.dim() == 2:
+        cos, sin = cos[None, None], sin[None, None]
+    else:
+        cos, sin = cos[:, None], sin[:, None]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (plain tensor ops; the flash kernel is a later slice)
+# ---------------------------------------------------------------------------
+
+def attention_spec(cfg) -> Params:
+    """Attention parameters of one layer: ``name -> (shape, init)``."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": ((d, h * hd), ("normal", None)),
+        "wk": ((d, kv * hd), ("normal", None)),
+        "wv": ((d, kv * hd), ("normal", None)),
+        "wo": ((h * hd, d), ("normal", None)),
+    }
+    if cfg.qkv_bias:
+        p.update(bq=((h * hd,), ZEROS), bk=((kv * hd,), ZEROS),
+                 bv=((kv * hd,), ZEROS))
+    return p
+
+
+def _qkv(p: Params, x: torch.Tensor, cfg):
+    B, S, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(B, S, h, hd).transpose(1, 2)
+    k = k.reshape(B, S, kv, hd).transpose(1, 2)
+    v = v.reshape(B, S, kv, hd).transpose(1, 2)
+    return q, k, v
+
+
+def _sdpa(q, k, v, *, causal: bool, window: int = 0,
+          q_positions=None, kv_positions=None, q_chunk: int = 0) -> torch.Tensor:
+    """Grouped scaled-dot-product attention, f32 softmax (``layers.py:198-240``).
+
+    q: [B, H, Sq, hd]; k/v: [B, KV, Sk, hd] with H % KV == 0; GQA by
+    reshaping q to ``[B, KV, G, Sq, hd]``.  ``q_chunk`` > 0 evaluates the
+    queries in chunks, each checkpointed, bounding the transient
+    ``[.., q_chunk, Sk]`` scores in the forward and the backward pass.
+    """
+    B, H, Sq, hd = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    dev = q.device
+    qp = q_positions if q_positions is not None else torch.arange(Sq, device=dev)
+    kp = kv_positions if kv_positions is not None else \
+        torch.arange(k.shape[2], device=dev)
+
+    def block(q_blk, qp_blk):
+        # q_blk: [B, KV, G, c, hd]
+        scores = torch.einsum("bkgqd,bksd->bkgqs", q_blk, k).float()
+        scores = scores / math.sqrt(hd)
+        if causal or window:
+            rel = qp_blk[:, None] - kp[None, :]
+            mask = rel >= 0 if causal else torch.ones_like(rel, dtype=torch.bool)
+            if window:
+                mask = mask & (rel < window)
+            scores = torch.where(mask, scores, -1e30)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        return torch.einsum("bkgqs,bksd->bkgqd", probs, v)
+
+    qg = q.reshape(B, KV, G, Sq, hd)
+    if q_chunk and Sq > 2 * q_chunk and Sq % q_chunk == 0:
+        out = torch.cat([
+            checkpoint(block, qg[:, :, :, i:i + q_chunk], qp[i:i + q_chunk],
+                       use_reentrant=False)
+            for i in range(0, Sq, q_chunk)], dim=3)
+    else:
+        out = block(qg, qp)
+    return out.reshape(B, H, Sq, v.shape[-1])
+
+
+def attention(
+    p: Params,
+    x: torch.Tensor,
+    cfg,
+    *,
+    causal: bool = True,
+    positions: Optional[torch.Tensor] = None,
+    use_rope: bool = True,
+    window: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence self-attention.  Returns (out [B,S,D], kv for caching)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q, k, v = _qkv(p, x, cfg)
+    if use_rope:
+        cos, sin = make_rope(positions, cfg.head_dim, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    out = _sdpa(q, k, v, causal=causal, window=window,
+                q_positions=positions, kv_positions=positions,
+                q_chunk=cfg.attn_q_chunk)
+    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"], {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_spec(d: int, f: int) -> Params:
+    """Gated-MLP parameters of one layer: ``name -> (shape, init)``."""
+    return {"w1": ((d, f), ("normal", None)),
+            "w3": ((d, f), ("normal", None)),
+            "w2": ((f, d), ("normal", None))}
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]

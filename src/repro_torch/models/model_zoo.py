@@ -3,13 +3,13 @@
 Every model exposes::
 
     init(generator) -> params
+    param_spec() -> {name: (shape, init)}
     forward(params, tokens) -> (logits, aux)
-    prefill(params, tokens) -> (logits[B,V], cache)
-    decode_step(params, tokens[B], cache) -> (logits[B,V], cache')
-    init_cache(batch, s_max) -> cache
 
-Only the RWKV6 family is ported so far; the others name the ROADMAP.md
-item that ports them.
+and, where it serves, ``prefill`` / ``decode_step`` / ``init_cache``
+(``Rwkv6LM`` only so far); where it trains, ``loss(params, batch)``
+(``DecoderLM``).  The RWKV6 (``ssm``) and dense families are ported; the
+others name the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -19,22 +19,24 @@ from typing import Any
 from repro_torch.configs.base import ModelConfig
 
 from .rwkv6 import Rwkv6LM
+from .transformer import DecoderLM
 
 __all__ = ["get_model"]
 
 #: family -> where ROADMAP.md queues its port
 _NOT_YET = {
-    "dense": "ROADMAP.md §1 slice 2, item 9 (DecoderLM)",
-    "moe": "ROADMAP.md §1 slice 4, item 18 (MoE)",
-    "vlm": "ROADMAP.md §1 slice 2, item 9 (DecoderLM backbone)",
-    "hybrid": "ROADMAP.md §1 slice 4, item 17 (RG-LRU)",
-    "encdec": "ROADMAP.md §1 slice 4, item 17 (Whisper)",
+    "moe": "ROADMAP.md §1 slice 5, item 10 (MoE and MLA)",
+    "vlm": "ROADMAP.md §1 slice 5, item 9 (the VLM front end)",
+    "hybrid": "ROADMAP.md §1 slice 5, item 9 (RG-LRU)",
+    "encdec": "ROADMAP.md §1 slice 5, item 9 (Whisper)",
 }
 
 
 def get_model(cfg: ModelConfig, device: Any = "cuda"):
     if cfg.family == "ssm":
         return Rwkv6LM(cfg, device=device)
+    if cfg.family == "dense":
+        return DecoderLM(cfg, device=device)
     if cfg.family in _NOT_YET:
         raise NotImplementedError(
             f"repro_torch has no {cfg.family!r} model yet ({cfg.name}); "

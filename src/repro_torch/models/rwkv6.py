@@ -43,17 +43,6 @@ def _shift(x: torch.Tensor, init: Optional[torch.Tensor] = None) -> torch.Tensor
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
-def _layer(tree: Params, i: int) -> Params:
-    """Layer ``i`` of a tree of stacked block parameters."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
-def _map_spec(spec, fn):
-    return {k: _map_spec(v, fn) if isinstance(v, dict) else fn(v)
-            for k, v in spec.items()}
-
-
 class Rwkv6LM:
     """The RWKV6 LM: ``init`` / ``forward`` / ``prefill`` / ``decode_step``.
 
@@ -78,7 +67,7 @@ class Rwkv6LM:
         cfg = self.cfg
         d, n, H, K, R = (cfg.d_model, cfg.n_layers, self.n_heads,
                          self.head_dim, LORA_R)
-        zeros, ones = ("const", 0.0), ("const", 1.0)
+        zeros, ones = L.ZEROS, L.ONES
         tm = {
             "maa_x": ((d,), zeros),
             "maa": ((5, d), zeros),                  # w, k, v, r, g
@@ -107,7 +96,7 @@ class Rwkv6LM:
                  "time_mix": tm, "channel_mix": cm}
         return {
             "embed": ((cfg.vocab_size, d), ("normal", 0.02)),
-            "blocks": _map_spec(block, lambda e: ((n, *e[0]), e[1])),
+            "blocks": L.map_spec(block, lambda e: ((n, *e[0]), e[1])),
             "final_norm": ((d,), ones),
             "lm_head": ((d, cfg.vocab_size), ("normal", 0.02)),
         }
@@ -117,17 +106,7 @@ class Rwkv6LM:
         if generator.device.type != self.device.type:
             raise ValueError(f"generator is on {generator.device}, "
                              f"the model on {self.device}")
-
-        def make(entry):
-            shape, (kind, val) = entry
-            if kind == "const":
-                return torch.full(shape, val, dtype=self.dtype,
-                                  device=generator.device)
-            # scale None: 1/sqrt(fan-in), the `in` of a stacked [L, in, out]
-            scale = shape[-2] ** -0.5 if val is None else val
-            return L.dense_init(generator, shape, scale=scale, dtype=self.dtype)
-
-        return _map_spec(self.param_spec(), make)
+        return L.init_from_spec(generator, self.param_spec(), self.dtype)
 
     # -- time mix ---------------------------------------------------------
     def _time_mix_inputs(self, p: Params, x, sx):
@@ -196,10 +175,11 @@ class Rwkv6LM:
     def _layers(self, params: Params, x, cache: Optional[Params] = None):
         """Run every block; returns ``x`` and the stacked per-layer states."""
         outs = []
-        for i in range(self.cfg.n_layers):
+        blocks = L.unbind_layers(params["blocks"], self.cfg.n_layers)
+        for i, bp in enumerate(blocks):
             carry = (() if cache is None else
                      (cache["att_sx"][i], cache["ffn_sx"][i], cache["wkv"][i]))
-            x, o = self._block(_layer(params["blocks"], i), x, *carry)
+            x, o = self._block(bp, x, *carry)
             outs.append(o)
         att_sx, ffn_sx, wkv = (torch.stack([o[j] for o in outs]) for j in range(3))
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)

@@ -1,0 +1,155 @@
+"""Decoder-only transformer LM, the dense path (port of ``repro.models.transformer``).
+
+GQA attention with RoPE and a gated MLP per block (qwen2-0.5b, glm4-9b,
+granite-8b, minitron-8b).  Parameters keep the JAX layout — ``[in, out]``
+weights, block parameters stacked along a leading layer dimension — so
+:func:`repro_torch.convert.params_from_jax` is a copy.  The layers run
+in a Python loop (the reference's ``lax.scan``); ``remat="block"``
+checkpoints each block with ``torch.utils.checkpoint``.
+
+The training surface is here (``init``, ``param_spec``, ``forward``,
+``loss``); ``prefill`` and ``decode_step`` come with the dense serving
+path (ROADMAP.md §1 slice 4, item 6), and MoE and MLA with theirs
+(slice 5, item 10).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+
+from . import layers as L
+
+__all__ = ["DecoderLM", "lm_loss"]
+
+Params = Dict[str, Any]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class DecoderLM:
+    """The dense decoder LM: ``init`` / ``param_spec`` / ``forward`` / ``loss``.
+
+    Parameters are a nested dict of tensors passed to each call, as in the
+    reference; the model object holds the config and the device.
+    """
+
+    def __init__(self, cfg: ModelConfig, device: Any = "cuda"):
+        if cfg.n_experts or cfg.use_mla:
+            raise NotImplementedError(
+                f"repro_torch's DecoderLM has the dense path only; {cfg.name} "
+                f"needs MoE/MLA, queued in ROADMAP.md §1 slice 5, item 10")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = _DTYPES[cfg.dtype]
+
+    # -- parameters -------------------------------------------------------
+    def param_spec(self) -> Params:
+        """The parameter tree: ``name -> (shape, init)``, blocks stacked."""
+        cfg = self.cfg
+        d, n = cfg.d_model, cfg.n_layers
+        block = {
+            "attn_norm": ((d,), L.ONES),
+            "mlp_norm": ((d,), L.ONES),
+            "attn": L.attention_spec(cfg),
+            "mlp": L.mlp_spec(d, cfg.d_ff),
+        }
+        spec: Params = {
+            "embed": ((cfg.vocab_size, d), ("normal", 0.02)),
+            "blocks": L.map_spec(block, lambda e: ((n, *e[0]), e[1])),
+            "final_norm": ((d,), L.ONES),
+        }
+        if not cfg.tie_embeddings:
+            spec["lm_head"] = ((d, cfg.vocab_size), ("normal", 0.02))
+        return spec
+
+    def init(self, generator: torch.Generator) -> Params:
+        """Random parameters drawn from ``generator``, on its device."""
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator is on {generator.device}, "
+                             f"the model on {self.device}")
+        return L.init_from_spec(generator, self.param_spec(), self.dtype)
+
+    def _head(self, params: Params) -> torch.Tensor:
+        return params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+
+    # -- blocks -----------------------------------------------------------
+    def _block_fwd(self, p: Params, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        attn_out, _ = L.attention(p["attn"], h, cfg, causal=True,
+                                  positions=positions, window=cfg.attn_window)
+        x = x + attn_out
+        h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+        return x + L.mlp(p["mlp"], h)
+
+    def _features(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """Final-norm hidden states ``[B, S, D]``."""
+        cfg = self.cfg
+        x = params["embed"][tokens]
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        remat = cfg.remat == "block" and torch.is_grad_enabled()
+        for bp in L.unbind_layers(params["blocks"], cfg.n_layers):
+            if remat:
+                x = checkpoint(self._block_fwd, bp, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._block_fwd(bp, x, positions)
+        return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+    def forward(self, params: Params, tokens: torch.Tensor,
+                return_features: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens [B, S] -> (logits [B, S, V], aux loss 0)."""
+        x = self._features(params, tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if return_features:
+            return x, aux
+        return x @ self._head(params), aux
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross entropy; never builds the whole logits."""
+        feats = self._features(params, batch["tokens"])
+        return lm_loss(feats, self._head(params), batch["labels"],
+                       self.cfg.loss_chunk_size)
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+def _chunk_loss(xi: torch.Tensor, head: torch.Tensor,
+                li: torch.Tensor) -> torch.Tensor:
+    # f32 logits from the model-dtype operands (the reference's
+    # preferred_element_type=f32): a bf16 matmul would round its output,
+    # so both operands are upcast here, inside the checkpointed chunk
+    logits = xi.float() @ head.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
+
+
+def lm_loss(features: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+            chunk: int = 0) -> torch.Tensor:
+    """Cross entropy from final hidden states, never materialising the
+    full ``[B, S, V]`` logits: sequence chunks are projected and reduced
+    inside a checkpoint, so the peak is ``[B, chunk, V]`` in f32 in the
+    forward and the backward pass."""
+    B, S, _ = features.shape
+    if chunk <= 0 or S <= chunk or S % chunk != 0:
+        return _xent(features @ head, labels)
+    total = torch.zeros((), dtype=torch.float32, device=features.device)
+    for i in range(0, S, chunk):
+        total = total + checkpoint(_chunk_loss, features[:, i:i + chunk],
+                                   head, labels[:, i:i + chunk],
+                                   use_reentrant=False)
+    return total / (B * S)

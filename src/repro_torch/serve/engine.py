@@ -44,6 +44,11 @@ def make_serve_step(model) -> Callable:
 
 class GenerationEngine:
     def __init__(self, model, params, gen_cfg: Optional[GenerationConfig] = None):
+        if not hasattr(model, "prefill"):
+            raise NotImplementedError(
+                f"repro_torch serves no {model.cfg.family!r} model yet "
+                f"({model.cfg.name}): its prefill and decode_step come with "
+                f"the dense serving path, ROADMAP.md §1 slice 4, item 6")
         self.model = model
         self.params = params
         self.cfg = gen_cfg or GenerationConfig()

@@ -55,7 +55,7 @@ def test_importing_every_module_loads_no_jax_or_repro():
                        text=True, env=env, cwd=ROOT, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     assert "BAD []" in r.stdout, r.stdout
-    assert int(r.stdout.split("LOADED ")[1].split()[0]) >= 15
+    assert int(r.stdout.split("LOADED ")[1].split()[0]) >= 40
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
@@ -76,12 +76,26 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     assert get_model(cfg, device="cpu").device.type == "cpu"
 
 
-def test_non_ssm_families_name_their_roadmap_item():
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-small",
+                                  "deepseek-v2-236b", "llava-next-mistral-7b"])
+def test_non_ssm_families_name_their_roadmap_item(arch):
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model(get_config("qwen2-0.5b").smoke(), device="cpu")
+        get_model(get_config(arch).smoke(), device="cpu")
+
+
+def test_dense_family_gives_a_decoder_that_trains_but_does_not_serve():
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.serve import GenerationEngine
+
+    model = get_model(get_config("qwen2-0.5b").smoke(), device="cpu")
+    assert isinstance(model, DecoderLM) and model.device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        GenerationEngine(model, {})
 
 
 def test_lazy_exports():
