@@ -14,9 +14,17 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    f32; ``fused_add`` at 64, 100, 1024 and 2^20+3 elements, at the
    training run's largest reduce and its largest bucket payload, in f32
    and bf16, out of place and in place (bit-equal), beside ``torch.add``
-   (both timed by CUDA-graph replay: device time without the host's);
+   (both timed by CUDA-graph replay: device time without the host's); the
+   flash-attention kernel on the seven ``FLASH_CASES`` shapes of
+   ``tests/test_kernels.py`` and on ragged tails, head width 256 and a
+   window in f32 and bf16, and on one glm4-9b layer at
+   the serving shape (8 x 32 heads / 2 kv heads x 2048 x 128, causal) in
+   bf16 and f32, timed beside ``F.scaled_dot_product_attention`` (the
+   library yardstick, never on the path);
 4. small-input checks: the smoke ``rwkv6`` in f32 (kernel-path prefill
    and decode against the exact recurrence, greedy tokens equal); the
+   smoke ``glm4-9b`` in f32 (the flash prefill against the plain one,
+   greedy tokens equal); the
    virtual-mesh schedules (ring, halving-doubling and double-binary-tree
    all-reduce and the ring reduce-scatter over 8 ranks in a reordered
    ring: postconditions, kernel path == ``+`` path and ``run_overlapped``
@@ -28,7 +36,10 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    requests of 512-token prompts and 32 new tokens through
    ``GenerationEngine.generate``; launch counts zeroed just before, read
    just after; then prefill time, decode rate, peak memory and a
-   ``torch.profiler`` window;
+   ``torch.profiler`` window; then full-width ``glm4-9b`` (bf16,
+   ``attention_impl="flash"``) serves 8 requests of 2048-token prompts
+   and 32 new tokens after a warm-up wave, counted (40 flash launches, one
+   a layer of the prefill), timed and profiled the same way;
 6. the training path: full-width ``qwen2-0.5b`` (bf16, random weights
    from ``--seed``) over 8 virtual data-parallel ranks of 2 x 1024
    tokens each, its gradients reduced by a certified ring all-reduce in
@@ -54,10 +65,12 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32
-#: FLOP/s outside the tensor cores; the WKV kernel's arithmetic is f32
+#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
+#: outside the tensor cores (the WKV kernel's arithmetic) and dense bf16
+#: tensor-core FLOP/s (the flash kernel's products)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 BATCH, PROMPT, NEW = 8, 512, 32
 # the training path: 8 virtual ranks x 2 rows x 1024 tokens, a certified
@@ -66,6 +79,31 @@ TRAIN_ARCH, RANKS, ROWS_PER_RANK, SEQ, TRAIN_STEPS = "qwen2-0.5b", 8, 2, 1024, 3
 TRAIN_PERM = [3, 1, 4, 7, 5, 0, 2, 6]
 MESH_PERM = [0, 3, 1, 7, 2, 6, 4, 5]      # tests/test_system.py:134-141
 LR = 1e-3
+# the dense serving path: glm4-9b, 8 requests x 2048-token prompts x 32 new
+DENSE_ARCH, DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = "glm4-9b", 8, 2048, 32
+# tests/test_kernels.py:21-29: (B, H, KV, S, hd, block_q, block_k, causal, window)
+FLASH_CASES = [
+    (2, 4, 2, 64, 16, 16, 16, True, 0),
+    (1, 8, 8, 128, 32, 32, 64, True, 0),
+    (2, 4, 1, 64, 16, 32, 16, False, 0),
+    (1, 4, 2, 128, 16, 32, 32, True, 32),
+    (1, 2, 2, 64, 16, 64, 64, True, 0),
+    (1, 2, 2, 64, 16, 16, 16, True, 0),
+    (2, 6, 3, 96, 8, 32, 32, True, 0),
+]
+# beyond them: ragged tails (S not a multiple of the kernel's tiles), head
+# width 256 with a window (recurrentgemma's local attention), GQA 16
+FLASH_EXTRA = [
+    (1, 4, 2, 130, 64, 130, 130, True, 0),
+    (2, 2, 1, 17, 8, 17, 17, True, 0),
+    (1, 4, 2, 256, 256, 128, 128, True, 100),
+    (1, 4, 1, 200, 32, 8, 8, False, 70),
+    (1, 32, 2, 256, 128, 128, 128, True, 0),
+]
+# flash kernel vs its plain version: f32 is the same math summed in another
+# order (the reference's f32 tolerance); bf16 also rounds each probability
+# to bf16 for the P.V product and the output once (about two bf16 ulps)
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 1.6e-2)}
 # kernel vs plain on the same inputs: the same f32 math summed in another
 # order (f32: the chunk-form tolerance of the CPU tests); bf16 y also
 # rounds once to bf16 (2 ulps relative)
@@ -224,12 +262,226 @@ def check_small_model(seed: int) -> None:
          "exact recurrence (atol/rtol 1e-4); greedy tokens equal")
 
 
+def check_flash_kernel(seed: int) -> dict:
+    """Phase 3: the flash kernel against its plain version, and its times.
+
+    Every ``FLASH_CASES`` shape in f32 and bf16, then one glm4-9b layer at
+    the serving shape in bf16 and f32, timed beside the plain version and
+    ``F.scaled_dot_product_attention`` (the library yardstick only).
+    """
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def inputs(B, H, KV, S, hd, dtype):
+        return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for shape in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd))]
+
+    def check(case, dtype):
+        B, H, KV, S, hd, bq, bk, causal, window = case
+        q, k, v = inputs(B, H, KV, S, hd, getattr(torch, dtype))
+        kw = dict(causal=causal, window=window, block_q=bq, block_k=bk)
+        got = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = _check_close(f"flash_attention {dtype} {case}", got,
+                           fa.flash_attention_plain(q, k, v, **kw),
+                           *FLASH_TOL[dtype])
+        return err, (q, k, v)
+
+    worst = {}
+    for case in FLASH_CASES + FLASH_EXTRA:
+        for dtype in ("float32", "bfloat16"):
+            err, _ = check(case, dtype)
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+    _say(f"flash_attention == plain on the {len(FLASH_CASES)} FLASH_CASES "
+         f"shapes and {len(FLASH_EXTRA)} more, in f32 and bf16: max abs err "
+         f"{worst}")
+
+    cfg = _dense_cfg()
+    B, H, KV, S, hd = (DENSE_BATCH, cfg.n_heads, cfg.n_kv_heads, DENSE_PROMPT,
+                       cfg.head_dim)
+    layer = (B, H, KV, S, hd, 128, 128, True, 0)
+    errs, times = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        errs[dtype], (q, k, v) = check(layer, dtype)
+        times[dtype] = (
+            _graph_ms(lambda: fa.flash_attention(q, k, v), 5),
+            _time_ms(lambda: fa.flash_attention_plain(q, k, v), 3, warmup=1),
+        )
+        if dtype == "bfloat16":
+            lib = _graph_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 5)
+        _say(f"flash_attention {dtype} [{B},{H}/{KV},{S},{hd}] causal: max abs "
+             f"err vs plain {errs[dtype]:.3e}; kernel {times[dtype][0]:.4f} ms, "
+             f"plain {times[dtype][1]:.4f} ms")
+        del q, k, v
+        torch.cuda.empty_cache()
+    flops, moved = fa.work(B, H, KV, S, hd, True, 0, itemsize=2)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    _say(f"flash_attention bf16 work: {flops} FLOP, {moved} bytes -> "
+         f"{t_ops:.4f} ms at 989 TFLOP/s bf16, {t_bytes:.4f} ms at 3.35 TB/s; "
+         f"kernel at {t_ops / times['bfloat16'][0]:.3f} of the bound; SDPA "
+         f"(library yardstick) {lib:.4f} ms")
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:119",
+        "launches": None,            # filled from the dense serving run
+        "max_abs_err": errs["bfloat16"],
+        "max_abs_err_f32": errs["float32"],
+        "max_abs_err_cases": worst,
+        "shape": [B, H, KV, S, hd],
+        "ms": times["bfloat16"][0],
+        "plain_ms": times["bfloat16"][1],
+        "ms_f32": times["float32"][0],
+        "plain_ms_f32": times["float32"][1],
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib,           # F.scaled_dot_product_attention, bf16
+    }
+
+
+def _dense_cfg(smoke: bool = False, impl: str = "flash"):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DENSE_ARCH)
+    return dataclasses.replace(cfg.smoke() if smoke else cfg, attention_impl=impl)
+
+
+def check_small_dense(seed: int) -> None:
+    """Phase 4d: the smoke glm4-9b (f32): the flash prefill == the plain one,
+    greedy tokens equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import get_model
+    from repro_torch.serve import GenerationConfig, GenerationEngine
+
+    ker = get_model(_dense_cfg(smoke=True), device="cuda")
+    ref = get_model(_dense_cfg(smoke=True, impl="xla"), device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = ref.init(gen)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, ker.cfg.vocab_size, (2, 40))).cuda()
+    before = fa.flash_attention.launches
+    with torch.inference_mode():
+        la, ca = ker.prefill(params, toks)
+        lb, cb = ref.prefill(params, toks)
+    if fa.flash_attention.launches - before != ker.cfg.n_layers:
+        raise AssertionError("the smoke flash prefill did not launch the kernel "
+                             "once a layer")
+    _check_close("smoke dense logits", la, lb, 1e-4, 1e-4)
+    for name in ("k", "v"):
+        _check_close(f"smoke dense cache {name}", ca["scan"][name],
+                     cb["scan"][name], 1e-4, 1e-4)
+    prompts = toks.tolist()
+    cfg = GenerationConfig(max_new_tokens=8, eos_token=-1)
+    a = GenerationEngine(ker, params, cfg).generate(prompts)
+    b = GenerationEngine(ref, params, cfg).generate(prompts)
+    if a != b:
+        raise AssertionError(f"smoke dense greedy tokens differ: {a} vs {b}")
+    _say(f"smoke {DENSE_ARCH} f32 on the card: flash prefill == xla prefill "
+         f"(logits and k/v cache, atol/rtol 1e-4); greedy tokens equal")
+
+
+def serve_dense_full_width(seed: int, card: str) -> dict:
+    """Phase 5b: dense serving at full width (glm4-9b, flash), counted, then
+    timed and profiled."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import get_model
+    from repro_torch.serve import GenerationConfig, GenerationEngine
+    from repro_torch.serve.engine import _grow_cache
+
+    counted = _counted()
+    cfg = _dense_cfg()
+    model = get_model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = model.init(gen)
+    torch.cuda.empty_cache()
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT)).tolist()
+    eng = GenerationEngine(model, params,
+                           GenerationConfig(max_new_tokens=DENSE_NEW, eos_token=-1))
+    eng.generate(prompts, max_new_tokens=2)    # warm-up wave, same shapes
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    outs = eng.generate(prompts)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times in one "
+                             f"prefill, expected {cfg.n_layers}")
+    if len(outs) != DENSE_BATCH or any(len(o) != DENSE_NEW for o in outs):
+        raise AssertionError(f"not every request got {DENSE_NEW} tokens: "
+                             f"{[len(o) for o in outs]}")
+    if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
+        raise AssertionError("generated token out of the vocabulary")
+
+    tokens = torch.tensor(prompts, device="cuda")
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, tokens)
+        if tuple(logits.shape) != (DENSE_BATCH, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits.float()).all()):
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                                 f"not finite / not [B, vocab]")
+        prefill_ms = _time_ms(lambda: model.prefill(params, tokens), 3, warmup=1)
+        cache = _grow_cache(cache, DENSE_PROMPT, DENSE_PROMPT + DENSE_NEW)
+        cur = logits.argmax(-1)
+        step_ms = _time_ms(lambda: model.decode_step(params, cur, cache), 10)
+        prof_prefill = profile_window("dense prefill",
+                                      lambda: model.prefill(params, tokens))
+        prof_decode = profile_window("dense decode x4", lambda: [
+            model.decode_step(params, cur, cache) for _ in range(4)])
+    res = {
+        "arch": cfg.name, "params": n_params, "batch": DENSE_BATCH,
+        "prompt_len": DENSE_PROMPT, "new_tokens": DENSE_NEW,
+        "attention_impl": cfg.attention_impl,
+        "generate_s": wall, "generated_tokens": sum(len(o) for o in outs),
+        "prefill_ms": prefill_ms,
+        "prefill_tok_per_s": DENSE_BATCH * DENSE_PROMPT / (prefill_ms / 1e3),
+        "decode_step_ms": step_ms,
+        "decode_tok_per_s": DENSE_BATCH / (step_ms / 1e3),
+        "peak_mem_gb": peak_gb, "launches": launches,
+        "profile_prefill": prof_prefill, "profile_decode": prof_decode,
+        "card": card,
+    }
+    _say(f"serve {cfg.name} ({n_params} params, bf16, flash) batch {DENSE_BATCH} "
+         f"x prompt {DENSE_PROMPT} x {DENSE_NEW} new: {res['generated_tokens']} "
+         f"tokens in {wall:.3f} s; prefill {prefill_ms:.3f} ms "
+         f"({res['prefill_tok_per_s']:.0f} tok/s); decode {step_ms:.3f} ms/step "
+         f"({res['decode_tok_per_s']:.1f} tok/s); peak memory {peak_gb:.3f} GB; "
+         f"flash_attention launches {launches['flash_attention']} [{card}]")
+    _say("serve dense " + json.dumps(res))
+    return res
+
+
 def _counted() -> dict:
     """Every kernel wrapper, by name: each counts its own launches."""
-    from repro_torch.kernels import ring_collective, rwkv6_chunked
+    from repro_torch.kernels import flash_attention, ring_collective, rwkv6_chunked
 
     return {"wkv_chunked": rwkv6_chunked.wkv_chunked_matmul,
-            "fused_add": ring_collective.fused_add}
+            "fused_add": ring_collective.fused_add,
+            "flash_attention": flash_attention.flash_attention}
 
 
 def serve_full_width(seed: int, card: str) -> dict:
@@ -660,6 +912,8 @@ def _kind(kernel_name: str) -> str:
         return "wkv_chunked"
     if "fused_add" in n:
         return "fused_add"
+    if "flash_fwd" in n:
+        return "flash_attention"
     if any(s in n for s in ("nvjet", "gemm", "gemv", "xmma", "cutlass")):
         return "matmul"
     if any(s in n for s in ("copy", "catarray")):
@@ -715,6 +969,17 @@ def profile_window(label: str, fn) -> dict:
     return res
 
 
+def _free() -> None:
+    """Drop the last phase's tensors before the next (glm4-9b's weights alone
+    are 18.8 GB)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -751,15 +1016,20 @@ def main(argv=None) -> int:
 
     layout = train_layout()
     kernels = [check_wkv_kernel(args.seed),
-               check_fused_add_kernel(args.seed, layout)]
+               check_fused_add_kernel(args.seed, layout),
+               check_flash_kernel(args.seed)]
     check_small_model(args.seed)
+    check_small_dense(args.seed)
     check_virtual_mesh(args.seed)
     check_small_train(args.seed)
     served = serve_full_width(args.seed, card)
-    torch.cuda.empty_cache()
+    _free()
+    served_dense = serve_dense_full_width(args.seed, card)
+    _free()
     trained = train_full_width(args.seed, card, layout)
     # each kernel's launches come from the path it carries
-    paths = {"wkv_chunked": served, "fused_add": trained}
+    paths = {"wkv_chunked": served, "fused_add": trained,
+             "flash_attention": served_dense}
     for k in kernels:
         k["launches"] = paths[k["name"]]["launches"][k["name"]]
         if k["launches"] < 1:

@@ -3,11 +3,14 @@
 Counterpart of ``repro serve`` (``repro/cli.py`` ``cmd_serve``) on one
 device without a collective plan::
 
+    python -m repro_torch serve --arch glm4-9b --attention-impl flash \\
+        --batch 8 --prompt-len 2048 --max-new 32
     python -m repro_torch serve --arch rwkv6-1.6b --wkv-impl kernel \\
         --batch 8 --prompt-len 512 --max-new 32
 
-Runs on CUDA unless ``--device cpu`` is given; ``--smoke`` picks the
-reduced same-family config.  Weights are random, drawn from ``--seed``.
+``--arch`` defaults to ``qwen2-0.5b``, as ``repro serve`` does.  Runs on
+CUDA unless ``--device cpu`` is given; ``--smoke`` picks the reduced
+same-family config.  Weights are random, drawn from ``--seed``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
     arch = get_config(args.arch)
     if args.smoke:
         arch = arch.smoke()
-    arch = dataclasses.replace(arch, wkv_impl=args.wkv_impl)
+    arch = dataclasses.replace(arch, wkv_impl=args.wkv_impl,
+                               attention_impl=args.attention_impl)
     model = get_model(arch, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
@@ -60,10 +64,15 @@ def build_parser() -> argparse.ArgumentParser:
                                  description="PyTorch/CUDA port of repro")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("serve", help="batched generation on one device")
-    p.add_argument("--arch", default="rwkv6-1.6b")
+    p.add_argument("--arch", default="qwen2-0.5b")
+    p.add_argument("--attention-impl", choices=["xla", "flash"], default="flash",
+                   help="dense family: flash: the flash-attention CUDA kernel "
+                        "for the prefill; xla: plain grouped attention (the "
+                        "reference's name)")
     p.add_argument("--wkv-impl", choices=["xla", "kernel"], default="kernel",
-                   help="kernel: chunked CUDA WKV kernel for the prefill; "
-                        "xla: the exact recurrence (the reference's name)")
+                   help="rwkv6: kernel: chunked CUDA WKV kernel for the "
+                        "prefill; xla: the exact recurrence (the reference's "
+                        "name)")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=16)
     p.add_argument("--max-new", type=int, default=32)

@@ -3,6 +3,9 @@
 Building a kernel (``nvcc``) happens at its first launch, never at import.
 """
 
-from .ops import fused_add, wkv_chunked_op  # noqa: F401
+# the wrapper is ``flash_attention.flash_attention``: the package keeps the
+# module's name for the module
+from .flash_attention import flash_attention_plain  # noqa: F401
+from .ops import attention_op, fused_add, wkv_chunked_op  # noqa: F401
 from .ring_collective import fused_add_plain, ring_all_reduce, ring_reduce_scatter  # noqa: F401
 from .rwkv6_chunked import wkv_chunked_matmul, wkv_chunked_matmul_plain  # noqa: F401

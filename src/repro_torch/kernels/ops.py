@@ -7,10 +7,18 @@ plain PyTorch version for CPU tensors.
 
 from __future__ import annotations
 
+from .flash_attention import flash_attention
 from .ring_collective import fused_add
 from .rwkv6_chunked import wkv_chunked_matmul
 
-__all__ = ["fused_add", "wkv_chunked_op"]
+__all__ = ["attention_op", "fused_add", "wkv_chunked_op"]
+
+
+def attention_op(q, k, v, causal=True, window=0, block_q=128, block_k=128):
+    """Flash attention forward: the CUDA kernel on CUDA tensors, its plain
+    version on CPU tensors (``repro.kernels.ops.attention_op``)."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           block_q=block_q, block_k=block_k)
 
 
 def wkv_chunked_op(r, k, v, w, u, chunk=16):

@@ -1,5 +1,7 @@
 """Plain PyTorch oracles for the kernels (counterpart of ``repro.kernels.ref``).
 
+:func:`attention_ref` is direct f32 softmax attention, the oracle the
+flash kernel (:mod:`repro_torch.kernels.flash_attention`) is held to.
 :func:`wkv_recurrence` is the exact token-by-token WKV recurrence.  The
 RWKV6 model runs it on the decode path (one token, carried state) and on
 prefill when the chunked kernel does not apply; the tests hold the chunk
@@ -10,11 +12,40 @@ kernel's plain version and the CUDA kernel to it.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["ring_reduce_scatter_ref", "wkv_chunk_ref", "wkv_recurrence"]
+__all__ = ["attention_ref", "ring_reduce_scatter_ref", "wkv_chunk_ref",
+           "wkv_recurrence"]
+
+
+def attention_ref(
+    q: torch.Tensor,           # [B, H, S, hd]
+    k: torch.Tensor,           # [B, KV, S, hd]
+    v: torch.Tensor,           # [B, KV, S, hd]
+    causal: bool = True,
+    window: int = 0,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Softmax attention in f32 with the whole ``[S, S]`` score matrix;
+    masked scores are ``-1e30``, GQA maps query head h to kv head
+    ``h // (H // KV)``.  The output comes back in ``q.dtype``."""
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    qh = q.reshape(B, KV, H // KV, S, hd).float()
+    s = torch.einsum("bkgqd,bksd->bkgqs", qh, k.float()) * sm_scale
+    pos = torch.arange(S, device=q.device)
+    rel = pos[:, None] - pos[None, :]
+    mask = rel >= 0 if causal else torch.ones_like(rel, dtype=torch.bool)
+    if window:
+        mask = mask & (rel < window)
+    s = torch.where(mask, s, -1e30)
+    o = torch.einsum("bkgqs,bksd->bkgqd", torch.softmax(s, dim=-1), v.float())
+    return o.reshape(B, H, S, hd).to(q.dtype)
 
 
 def wkv_recurrence(

@@ -6,8 +6,11 @@ Parameters keep the reference's layout and names: attention ``wq
 (down) ``[F, D]``.  A model declares its parameters as a *spec* — a tree
 of ``name -> (shape, init)`` — and draws them with :func:`init_from_spec`;
 the same spec is the schema :func:`repro_torch.convert.params_from_jax`
-checks.  Only the dense path is here: MoE and MLA come with their slice
-(ROADMAP.md §1).
+checks.  ``attention`` reads ``cfg.attention_impl``: ``"xla"`` is the
+plain grouped attention, ``"flash"`` the flash kernel
+(:func:`repro_torch.kernels.ops.attention_op`); ``attention_decode`` is the
+single-token step against a KV cache.  Only the dense path is here: MoE
+and MLA come with their slice (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import ops
+
 __all__ = [
-    "apply_rope", "attention", "attention_spec", "dense_init",
+    "apply_rope", "attention", "attention_decode", "attention_spec", "dense_init",
     "init_from_spec", "make_rope", "map_spec", "mlp", "mlp_spec",
     "rms_norm", "unbind_layers",
 ]
@@ -131,7 +136,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# attention (plain tensor ops; the flash kernel is a later slice)
+# attention (plain tensor ops, or the flash kernel through kernels/ops)
 # ---------------------------------------------------------------------------
 
 def attention_spec(cfg) -> Params:
@@ -225,10 +230,72 @@ def attention(
         cos, sin = make_rope(positions, cfg.head_dim, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    out = _sdpa(q, k, v, causal=causal, window=window,
-                q_positions=positions, kv_positions=positions,
-                q_chunk=cfg.attn_q_chunk)
+    if cfg.attention_impl == "flash":
+        out = _flash(q, k, v, causal=causal, window=window)
+    else:
+        out = _sdpa(q, k, v, causal=causal, window=window,
+                    q_positions=positions, kv_positions=positions,
+                    q_chunk=cfg.attn_q_chunk)
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"], {"k": k, "v": v}
+
+
+def _flash(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
+    """The flash kernel on the roped q/k and v, positions ``0..S-1``.
+
+    The kernel has no backward, so with grad enabled this raises rather
+    than fall back.  The plain version's key blocks are the largest
+    divisor of S up to 128, so every prompt length passes the reference's
+    ``S % block`` check; the CUDA kernel tiles on its own.
+    """
+    if torch.is_grad_enabled():
+        raise NotImplementedError(
+            "attention_impl='flash' is forward-only (no backward kernel yet, "
+            "ROADMAP.md §2, row 3): run it under torch.no_grad() or "
+            "torch.inference_mode(), or train with attention_impl='xla'")
+    block = math.gcd(q.shape[2], 128)
+    return ops.attention_op(q, k, v, causal=causal, window=window,
+                            block_q=block, block_k=block)
+
+
+def attention_decode(
+    p: Params,
+    x: torch.Tensor,                  # [B, 1, D]
+    cache: Dict[str, torch.Tensor],   # k/v: [B, KV, S_max, hd]
+    pos: torch.Tensor,                # 0-dim int: the write index
+    cfg,
+    *,
+    window: int = 0,
+    use_rope: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token decode against the KV cache (``layers.py:290-329``).
+
+    The new k/v are written into ``cache["k"]``/``cache["v"]`` at ``pos``
+    in place (the reference's ``dynamic_update_slice`` returns new
+    buffers); the returned dict holds the same tensors.  ``pos`` stays on
+    the device, so the step never waits on the host.
+    """
+    B = x.shape[0]
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    q, k_new, v_new = _qkv(p, x, cfg)
+    if use_rope:
+        cos, sin = make_rope(pos[None], hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k_new = apply_rope(k_new, cos, sin)
+    k, v = cache["k"], cache["v"]
+    at = pos.reshape(1).long()
+    k.index_copy_(2, at, k_new.to(k.dtype))
+    v.index_copy_(2, at, v_new.to(v.dtype))
+    kp = torch.arange(k.shape[2], device=k.device)
+    valid = kp <= pos
+    if window:
+        valid = valid & (kp > pos - window)
+    qh = q.reshape(B, KV, cfg.n_heads // KV, 1, hd)
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qh, k).float() / math.sqrt(hd)
+    scores = torch.where(valid, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bksd->bkgqd", probs, v)
+    out = out.reshape(B, 1, cfg.n_heads * hd)
     return out @ p["wo"], {"k": k, "v": v}
 
 

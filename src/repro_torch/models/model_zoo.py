@@ -6,10 +6,10 @@ Every model exposes::
     param_spec() -> {name: (shape, init)}
     forward(params, tokens) -> (logits, aux)
 
-and, where it serves, ``prefill`` / ``decode_step`` / ``init_cache``
-(``Rwkv6LM`` only so far); where it trains, ``loss(params, batch)``
-(``DecoderLM``).  The RWKV6 (``ssm``) and dense families are ported; the
-others name the ROADMAP.md item that ports them.
+and ``prefill`` / ``decode_step`` / ``init_cache``, which the generation
+engine serves; where it trains, ``loss(params, batch)`` (``DecoderLM``).
+The RWKV6 (``ssm``) family serves; the dense family serves and trains.
+The others name the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -25,10 +25,10 @@ __all__ = ["get_model"]
 
 #: family -> where ROADMAP.md queues its port
 _NOT_YET = {
-    "moe": "ROADMAP.md §1 slice 5, item 10 (MoE and MLA)",
-    "vlm": "ROADMAP.md §1 slice 5, item 9 (the VLM front end)",
-    "hybrid": "ROADMAP.md §1 slice 5, item 9 (RG-LRU)",
-    "encdec": "ROADMAP.md §1 slice 5, item 9 (Whisper)",
+    "moe": "ROADMAP.md §1 slice 5, item 8 (MoE and MLA)",
+    "vlm": "ROADMAP.md §1 slice 5, item 7 (the VLM front end)",
+    "hybrid": "ROADMAP.md §1 slice 5, item 7 (RG-LRU)",
+    "encdec": "ROADMAP.md §1 slice 5, item 7 (Whisper)",
 }
 
 

@@ -7,10 +7,12 @@ weights, block parameters stacked along a leading layer dimension — so
 in a Python loop (the reference's ``lax.scan``); ``remat="block"``
 checkpoints each block with ``torch.utils.checkpoint``.
 
-The training surface is here (``init``, ``param_spec``, ``forward``,
-``loss``); ``prefill`` and ``decode_step`` come with the dense serving
-path (ROADMAP.md §1 slice 4, item 6), and MoE and MLA with theirs
-(slice 5, item 10).
+It trains (``init``, ``param_spec``, ``forward``, ``loss``) and serves
+(``init_cache``, ``prefill``, ``decode_step``: the KV cache keeps the
+reference's layout ``{"scan": {"k", "v": [n, B, KV, S, hd]}, "pos"}``).
+``cfg.attention_impl == "flash"`` runs the prefill's attention through the
+flash kernel, which is forward-only; training keeps ``"xla"``.  MoE and
+MLA come with their slice (ROADMAP.md §1 slice 5, item 8).
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class DecoderLM:
-    """The dense decoder LM: ``init`` / ``param_spec`` / ``forward`` / ``loss``.
+    """The dense decoder LM: ``init`` / ``param_spec`` / ``forward`` /
+    ``loss`` / ``init_cache`` / ``prefill`` / ``decode_step``.
 
     Parameters are a nested dict of tensors passed to each call, as in the
     reference; the model object holds the config and the device.
@@ -43,7 +46,7 @@ class DecoderLM:
         if cfg.n_experts or cfg.use_mla:
             raise NotImplementedError(
                 f"repro_torch's DecoderLM has the dense path only; {cfg.name} "
-                f"needs MoE/MLA, queued in ROADMAP.md §1 slice 5, item 10")
+                f"needs MoE/MLA, queued in ROADMAP.md §1 slice 5, item 8")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.dtype]
@@ -79,12 +82,22 @@ class DecoderLM:
         return params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
 
     # -- blocks -----------------------------------------------------------
-    def _block_fwd(self, p: Params, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+    def _block_fwd(self, p: Params, x: torch.Tensor, positions: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Params]:
+        """One block over the whole sequence: ``(x, its roped k/v)``."""
         cfg = self.cfg
         h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        attn_out, _ = L.attention(p["attn"], h, cfg, causal=True,
-                                  positions=positions, window=cfg.attn_window)
+        attn_out, kv = L.attention(p["attn"], h, cfg, causal=True,
+                                   positions=positions, window=cfg.attn_window)
+        x = x + attn_out
+        h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+        return x + L.mlp(p["mlp"], h), kv
+
+    def _block_decode(self, p: Params, x: torch.Tensor, layer_cache: Params,
+                      pos: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        attn_out, _ = L.attention_decode(p["attn"], h, layer_cache, pos, cfg)
         x = x + attn_out
         h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
         return x + L.mlp(p["mlp"], h)
@@ -97,10 +110,10 @@ class DecoderLM:
         remat = cfg.remat == "block" and torch.is_grad_enabled()
         for bp in L.unbind_layers(params["blocks"], cfg.n_layers):
             if remat:
-                x = checkpoint(self._block_fwd, bp, x, positions,
-                               use_reentrant=False)
+                x, _ = checkpoint(self._block_fwd, bp, x, positions,
+                                  use_reentrant=False)
             else:
-                x = self._block_fwd(bp, x, positions)
+                x, _ = self._block_fwd(bp, x, positions)
         return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
     def forward(self, params: Params, tokens: torch.Tensor,
@@ -118,6 +131,58 @@ class DecoderLM:
         feats = self._features(params, batch["tokens"])
         return lm_loss(feats, self._head(params), batch["labels"],
                        self.cfg.loss_chunk_size)
+
+    # -- serving ----------------------------------------------------------
+    def init_cache(self, batch: int, s_max: int, dtype=None) -> Params:
+        """An empty KV cache for ``s_max`` positions."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, s_max, cfg.head_dim)
+        dt = dtype or self.dtype
+
+        def zeros():
+            return torch.zeros(shape, dtype=dt, device=self.device)
+
+        return {"scan": {"k": zeros(), "v": zeros()},
+                "pos": torch.zeros((), dtype=torch.int32, device=self.device)}
+
+    @torch.no_grad()
+    def prefill(self, params: Params, tokens: torch.Tensor
+                ) -> Tuple[torch.Tensor, Params]:
+        """The prompt ``[B, S]`` -> (last-position logits ``[B, V]``, the
+        cache sized to the prompt with every layer's roped k and v)."""
+        cfg = self.cfg
+        x = params["embed"][tokens]
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        ks, vs = [], []
+        for bp in L.unbind_layers(params["blocks"], cfg.n_layers):
+            x, kv = self._block_fwd(bp, x, positions)
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+        x = L.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
+        cache = {"scan": {"k": torch.stack(ks), "v": torch.stack(vs)},
+                 "pos": torch.tensor(tokens.shape[1], dtype=torch.int32,
+                                     device=x.device)}
+        return x @ self._head(params), cache
+
+    @torch.no_grad()
+    def decode_step(self, params: Params, tokens: torch.Tensor, cache: Params
+                    ) -> Tuple[torch.Tensor, Params]:
+        """tokens ``[B]`` -> (logits ``[B, V]``, the cache one position on).
+
+        The new k/v are written into ``cache``'s buffers in place; the
+        returned cache shares them and carries ``pos + 1``.
+        """
+        cfg = self.cfg
+        if cfg.attn_window:
+            raise NotImplementedError("windowed decode lives in the hybrid model")
+        pos = cache["pos"]
+        ks, vs = cache["scan"]["k"], cache["scan"]["v"]
+        x = params["embed"][tokens][:, None, :]
+        for i, bp in enumerate(L.unbind_layers(params["blocks"], cfg.n_layers)):
+            x = self._block_decode(bp, x, {"k": ks[i], "v": vs[i]}, pos)
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return (x @ self._head(params))[:, 0], {"scan": {"k": ks, "v": vs},
+                                                "pos": pos + 1}
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

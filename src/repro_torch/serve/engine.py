@@ -6,9 +6,11 @@ until every slot finishes (EOS or the token budget).  PyTorch runs
 eagerly, so the model's ``prefill`` and ``decode_step`` are called as they
 are (the reference ``jax.jit``s them).
 
-Serving without a collective plan, as ``repro serve --reorder none`` does
-on one device; the planned-collective members of the reference engine
-come with the planner slice.
+It serves the RWKV6 (``Rwkv6LM``, state caches) and dense (``DecoderLM``,
+KV caches grown by :func:`_grow_cache` to the wave's decode headroom)
+families.  Serving without a collective plan, as ``repro serve --reorder
+none`` does on one device; the reference engine's ``plan=``/``session=``
+members and ``arm_overlap`` are queued in ROADMAP.md §1 (slice 6, item 10).
 """
 
 from __future__ import annotations
@@ -44,11 +46,6 @@ def make_serve_step(model) -> Callable:
 
 class GenerationEngine:
     def __init__(self, model, params, gen_cfg: Optional[GenerationConfig] = None):
-        if not hasattr(model, "prefill"):
-            raise NotImplementedError(
-                f"repro_torch serves no {model.cfg.family!r} model yet "
-                f"({model.cfg.name}): its prefill and decode_step come with "
-                f"the dense serving path, ROADMAP.md §1 slice 4, item 6")
         self.model = model
         self.params = params
         self.cfg = gen_cfg or GenerationConfig()

@@ -25,7 +25,7 @@ rank computes the loss and its gradient on its contiguous batch shard
 (what the reference's ``shard_map`` does), the grads go into row r of
 stacked ``[n, ...]`` buffers, the reducer takes their mean, and AdamW
 applies it.  ``reducer_from_plan`` waits for the planner's ``Plan``
-(ROADMAP.md §1 slice 3, item 2).
+(ROADMAP.md §1 slice 4, item 2).
 """
 
 from __future__ import annotations

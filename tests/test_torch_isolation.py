@@ -86,16 +86,21 @@ def test_non_ssm_families_name_their_roadmap_item(arch):
         get_model(get_config(arch).smoke(), device="cpu")
 
 
-def test_dense_family_gives_a_decoder_that_trains_but_does_not_serve():
+def test_dense_family_gives_a_decoder_that_serves():
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
     from repro_torch.models.transformer import DecoderLM
-    from repro_torch.serve import GenerationEngine
+    from repro_torch.serve import GenerationConfig, GenerationEngine
 
     model = get_model(get_config("qwen2-0.5b").smoke(), device="cpu")
     assert isinstance(model, DecoderLM) and model.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        GenerationEngine(model, {})
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    eng = GenerationEngine(model, model.init(gen),
+                           GenerationConfig(max_new_tokens=2, eos_token=-1))
+    out = eng.generate([[1, 2, 3], [3, 2, 1]])
+    assert len(out) == 2 and all(len(row) == 2 for row in out)
+    assert all(0 <= t < model.cfg.vocab_size for row in out for t in row)
 
 
 def test_lazy_exports():
