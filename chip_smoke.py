@@ -9,6 +9,9 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel under ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together);
+2b. the planner (host only): probe a scrambled 8-node Clos datacenter,
+   compile the training mix of full-width ``qwen2-0.5b`` (988,065,536
+   gradient bytes) with the port's ``PlanCompiler`` and print the plan;
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes its path gives it, and time both: the WKV kernel in bf16 and
    f32; ``fused_add`` at 64, 100, 1024 and 2^20+3 elements, at the
@@ -20,7 +23,14 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    window in f32 and bf16, and on one glm4-9b layer at
    the serving shape (8 x 32 heads / 2 kv heads x 2048 x 128, causal) in
    bf16 and f32, timed beside ``F.scaled_dot_product_attention`` (the
-   library yardstick, never on the path);
+   library yardstick, never on the path); the peer-memory ring
+   reduce-scatter at n = 2, 3, 4, 8 (odd chunk lengths, several ring
+   orders, the plan's among them) and at every bucket shape of the planned
+   training path, bit for bit against its plain version and against
+   ``ring_reduce_scatter`` (gather + ``fused_add``) in f32 and bf16, f32
+   also against ``ring_reduce_scatter_ref``, a captured launch replayed
+   on fresh data, its status word read after every synchronise; timed at
+   the largest bucket and at 4 MB a rank beside ``x.sum(0)``;
 4. small-input checks: the smoke ``rwkv6`` in f32 (kernel-path prefill
    and decode against the exact recurrence, greedy tokens equal); the
    smoke ``glm4-9b`` in f32 (the flash prefill against the plain one,
@@ -29,7 +39,8 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    all-reduce and the ring reduce-scatter over 8 ranks in a reordered
    ring: postconditions, kernel path == ``+`` path and ``run_overlapped``
    == ``run_schedule`` bit for bit); the smoke ``qwen2-0.5b`` in f32,
-   whose overlapped 8-rank step (bucketed and fused) matches the
+   whose overlapped 8-rank step (bucketed and fused, and the planned step
+   through ``reducer_from_plan(..., transport="peer_ring")``) matches the
    one-card baseline step;
 5. the serving path: full-width ``rwkv6-1.6b`` (bf16,
    ``wkv_impl="kernel"``, random weights from ``--seed``) serves 8
@@ -47,7 +58,14 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    reduce through ``fused_add``): the reducer's output on step 0's grads
    against a plain f32 mean and against the ``+`` path, then a warm-up
    step and 3 timed steps with launch counts zeroed just before and read
-   just after, and a ``torch.profiler`` window over one more step.
+   just after, and a ``torch.profiler`` window over one more step;
+7. the planned training path: the same model and data through
+   ``reducer_from_plan(plan, 988065536, transport="peer_ring")``: the
+   plan's bucket size (12 buckets), a certified ring at the plan's rank
+   order, every bucket one launch of the peer-memory ring kernel; the
+   reducer on step 0's grads against an f32 mean, then a warm-up step and
+   3 steps, counted (one ``peer_ring`` launch a bucket a step), timed and
+   profiled.
 
 Its last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -79,6 +97,10 @@ TRAIN_ARCH, RANKS, ROWS_PER_RANK, SEQ, TRAIN_STEPS = "qwen2-0.5b", 8, 2, 1024, 3
 TRAIN_PERM = [3, 1, 4, 7, 5, 0, 2, 6]
 MESH_PERM = [0, 3, 1, 7, 2, 6, 4, 5]      # tests/test_system.py:134-141
 LR = 1e-3
+# the planned path: an 8-node Clos datacenter, scrambled, probed, and the
+# training mix of qwen2-0.5b's bf16 gradients (494,032,768 parameters)
+PLAN_FABRIC = dict(nodes_per_rack=4, racks_per_agg=2, seed=0)
+PLAN_SCRAMBLE_SEED, PLAN_PROBE_SEED, PLAN_PAYLOAD = 1, 0, 988_065_536
 # the dense serving path: glm4-9b, 8 requests x 2048-token prompts x 32 new
 DENSE_ARCH, DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = "glm4-9b", 8, 2048, 32
 # tests/test_kernels.py:21-29: (B, H, KV, S, hd, block_q, block_k, causal, window)
@@ -481,7 +503,8 @@ def _counted() -> dict:
 
     return {"wkv_chunked": rwkv6_chunked.wkv_chunked_matmul,
             "fused_add": ring_collective.fused_add,
-            "flash_attention": flash_attention.flash_attention}
+            "flash_attention": flash_attention.flash_attention,
+            "peer_ring": ring_collective.remote_ring_reduce_scatter}
 
 
 def serve_full_width(seed: int, card: str) -> dict:
@@ -587,7 +610,8 @@ def train_layout() -> dict:
     reduce_steps = sum(1 for rnd in sched.rounds for st in rnd
                        if st.op == "reduce")
     return {
-        "cfg": cfg, "param_bytes": param_bytes, "bucket_bytes": bucket_bytes,
+        "cfg": cfg, "shapes": shapes, "param_bytes": param_bytes,
+        "bucket_bytes": bucket_bytes,
         "schedule": sched, "buckets": buckets,
         "n_params": sum(t.numel() for t in leaves),
         "largest_call": max(padded) // sched.chunk_factor,
@@ -707,17 +731,24 @@ def check_virtual_mesh(seed: int) -> None:
          f"f32 and bf16; ring reduce-scatter within {err:.2e} of the oracle")
 
 
-def check_small_train(seed: int) -> None:
-    """Phase 4c: the smoke qwen2-0.5b (f32): overlapped 8-rank step == baseline."""
+def check_small_train(seed: int, plan) -> None:
+    """Phase 4c: the smoke qwen2-0.5b (f32): overlapped 8-rank step == baseline.
+
+    Bucketed and fused through the runner, and the planned step: the plan
+    compiled for the full-width payload (``Plan.lookup`` takes the nearest
+    octave, so the smoke tree gets the planned ring), every bucket through
+    the peer-memory ring kernel.
+    """
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM, host_batch
+    from repro_torch.kernels import ring_collective as rc
     from repro_torch.models import get_model
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import (
         OverlapGradReducer, certified_allreduce, init_state,
-        make_overlap_train_step, make_train_step)
+        make_overlap_train_step, make_train_step, reducer_from_plan)
 
     cfg = get_config(TRAIN_ARCH).smoke()
     model = get_model(cfg, device="cuda")
@@ -730,9 +761,17 @@ def check_small_train(seed: int) -> None:
     pb = sum(t.numel() * t.element_size() for t in _leaves(state.params))
     sched = certified_allreduce(RANKS, pb / 3.5, "ring", perm=TRAIN_PERM,
                                 chunk_factor=2)
-    for mode in ("bucketed", "fused"):
-        red = OverlapGradReducer(sched, bucket_bytes=pb / 3.5, mode=mode)
+    reducers = {mode: OverlapGradReducer(sched, bucket_bytes=pb / 3.5, mode=mode)
+                for mode in ("bucketed", "fused")}
+    reducers["planned"] = reducer_from_plan(plan, PLAN_PAYLOAD)
+    for mode, red in reducers.items():
+        before = rc.remote_ring_reduce_scatter.launches
         new, met = make_overlap_train_step(model, opt, red)(state, batch)
+        torch.cuda.synchronize()
+        if mode == "planned" and (rc.remote_ring_reduce_scatter.launches == before
+                                  or rc.ring_status() != 0):
+            raise AssertionError("the planned smoke step did not run the ring "
+                                 "kernel cleanly")
         # tests/test_overlap.py:306-325
         _check_close(f"smoke loss ({mode})", met["loss"], base_m["loss"], 2e-6, 2e-5)
         _check_close(f"smoke grad_norm ({mode})", met["grad_norm"],
@@ -740,8 +779,9 @@ def check_small_train(seed: int) -> None:
         for a, b in zip(_leaves(new.params), _leaves(base.params)):
             _check_close(f"smoke params ({mode})", a, b, 1e-4, 0.0)
     _say(f"smoke {TRAIN_ARCH} f32 on the card: the overlapped {RANKS}-rank step "
-         f"(bucketed, fused) == the baseline step (loss rtol 2e-5, grad_norm "
-         f"rtol 2e-4, params atol 1e-4)")
+         f"(bucketed, fused; planned through the peer_ring kernel at order "
+         f"{list(reducers['planned'].schedule.order)}) == the baseline step "
+         f"(loss rtol 2e-5, grad_norm rtol 2e-4, params atol 1e-4)")
 
 
 class _TimedReducer:
@@ -768,27 +808,29 @@ class _TimedReducer:
         return start.elapsed_time(end)
 
 
-def check_reducer_at_full_width(model, state, batch, layout: dict) -> dict:
-    """Phase 6a: the reducer on step 0's stacked bf16 grads.
+def check_reducer_at_full_width(model, state, batch, reducer, twin=None) -> dict:
+    """Phase 6a / 7a: the reducer on step 0's stacked bf16 grads.
 
     Against a plain f32 mean of the same grads: the ring sums 8 bf16
     values with one rounding per add, so an element may be off by at
     most ``8 * 2^-8 * mean_r |g_r|`` (the summation bound: n-1 adds plus
-    the final rounding, at bf16's unit roundoff 2^-8).  Against the
-    ``+`` path: bit for bit.
+    the final rounding, at bf16's unit roundoff 2^-8).  Against ``twin``
+    (the same schedule reduced with ``+``), where given: bit for bit.
     """
     import torch
 
-    from repro_torch.train import OverlapGradReducer, stacked_grads
+    from repro_torch.kernels import ring_collective as rc
+    from repro_torch.train import stacked_grads
     from repro_torch.train.train_step import batch_on
     from repro_torch.tree import tree_leaves
 
     _, gstack = stacked_grads(model, state.params, batch_on(batch, "cuda"), RANKS)
-    sched, bb = layout["schedule"], layout["bucket_bytes"]
-    reducer = OverlapGradReducer(sched, bb, "bucketed")
     ker, _ = reducer(gstack)
     prof = profile_window("reducer", lambda: reducer(gstack))
-    plus, _ = OverlapGradReducer(sched, bb, "bucketed", use_kernel_add=False)(gstack)
+    plus = twin(gstack)[0] if twin is not None else ker
+    torch.cuda.synchronize()
+    if rc.ring_status() != 0:
+        raise AssertionError("reducer: the ring kernel's status word is set")
     worst = 0.0
     with torch.no_grad():
         for g, k, p in zip(tree_leaves(gstack), tree_leaves(ker), tree_leaves(plus)):
@@ -804,31 +846,37 @@ def check_reducer_at_full_width(model, state, batch, layout: dict) -> dict:
             del gf, limit
     del gstack, ker, plus
     torch.cuda.empty_cache()
-    _say(f"reducer on step 0's bf16 grads: kernel path == + path bit for bit; "
+    _say(f"reducer ({reducer.transport}) on step 0's bf16 grads: "
+         f"{'kernel path == + path bit for bit; ' if twin is not None else ''}"
          f"worst element at {worst:.4f} of the bf16 summation bound of the "
          f"f32 mean")
     return {"reducer_err_of_bound": worst, "reducer_profile": prof}
 
 
-def train_full_width(seed: int, card: str, layout: dict) -> dict:
-    """Phase 6: the training path at full width, counted, then profiled."""
+def train_full_width(seed: int, card: str, cfg, reducer, twin, kernel: str,
+                     per_step: int, info: dict) -> dict:
+    """Phase 6 / 7: a training path at full width, counted, then profiled.
+
+    ``kernel`` names the kernel the reducer carries, ``per_step`` the
+    launches it makes in a step; ``info`` describes the reduction.
+    """
     import math
 
     import torch
 
     from repro_torch.data import SyntheticLM, host_batch
+    from repro_torch.kernels import ring_collective as rc
     from repro_torch.models import get_model
     from repro_torch.optim import AdamWConfig
-    from repro_torch.train import OverlapGradReducer, init_state, make_overlap_train_step
+    from repro_torch.train import init_state, make_overlap_train_step
 
-    cfg = layout["cfg"]
     model = get_model(cfg, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     state = init_state(model, gen)
     ds = SyntheticLM(cfg.vocab_size, SEQ, RANKS * ROWS_PER_RANK, seed=seed)
     batches = [host_batch(ds, s) for s in range(TRAIN_STEPS + 2)]   # set-up
-    checks = check_reducer_at_full_width(model, state, batches[0], layout)
+    checks = check_reducer_at_full_width(model, state, batches[0], reducer, twin)
     # learning, apart from batch-to-batch noise: the loss on the last
     # batch (never trained on) before and after the steps
     from repro_torch.train.train_step import batch_on
@@ -836,9 +884,8 @@ def train_full_width(seed: int, card: str, layout: dict) -> dict:
     with torch.no_grad():
         held_out_before = float(model.loss(state.params, held_out))
 
-    reducer = _TimedReducer(OverlapGradReducer(
-        layout["schedule"], layout["bucket_bytes"], "bucketed"))
-    step_fn = make_overlap_train_step(model, AdamWConfig(lr=LR), reducer)
+    timed_reducer = _TimedReducer(reducer)
+    step_fn = make_overlap_train_step(model, AdamWConfig(lr=LR), timed_reducer)
     tokens = RANKS * ROWS_PER_RANK * SEQ
     counted = _counted()
     torch.cuda.synchronize()
@@ -847,25 +894,26 @@ def train_full_width(seed: int, card: str, layout: dict) -> dict:
         fn.launches = 0
     steps = []
     for s in range(1 + TRAIN_STEPS):
-        before = counted["fused_add"].launches
+        before = counted[kernel].launches
         t0 = time.monotonic()
         state, met = step_fn(state, batches[s])
         torch.cuda.synchronize()
         dt = time.monotonic() - t0
         row = {"step": s, "warmup": s == 0, "loss": float(met["loss"]),
                "grad_norm": float(met["grad_norm"]), "step_ms": dt * 1e3,
-               "tokens_per_s": tokens / dt, "reducer_ms": reducer.last_ms(),
-               "fused_add_launches": counted["fused_add"].launches - before,
+               "tokens_per_s": tokens / dt, "reducer_ms": timed_reducer.last_ms(),
+               f"{kernel}_launches": counted[kernel].launches - before,
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
         steps.append(row)
         _say("train step " + json.dumps(row))
     launches = {name: fn.launches for name, fn in counted.items()}
 
-    want = layout["launches_per_step"]
-    if any(r["fused_add_launches"] != want for r in steps):
-        raise AssertionError(f"fused_add launches per step "
-                             f"{[r['fused_add_launches'] for r in steps]}, "
-                             f"expected {want} (every reduce of every bucket)")
+    if rc.ring_status() != 0:
+        raise AssertionError("training: the ring kernel's status word is set")
+    if any(r[f"{kernel}_launches"] != per_step for r in steps):
+        raise AssertionError(f"{kernel} launches per step "
+                             f"{[r[f'{kernel}_launches'] for r in steps]}, "
+                             f"expected {per_step} (every bucket of every step)")
     losses = [r["loss"] for r in steps]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss: {losses}")
@@ -880,30 +928,217 @@ def train_full_width(seed: int, card: str, layout: dict) -> dict:
     prof = profile_window("train step", lambda: step_fn(state, batches[-1]))
     timed = steps[1:]
     res = {
-        "arch": cfg.name, "params": layout["n_params"], "dtype": cfg.dtype,
+        "arch": cfg.name, "dtype": cfg.dtype,
         "ranks": RANKS, "rows_per_rank": ROWS_PER_RANK, "seq": SEQ,
-        "tokens_per_step": tokens, "perm": TRAIN_PERM,
-        "buckets": len(layout["buckets"]),
-        "bucket_bytes": layout["bucket_bytes"],
+        "tokens_per_step": tokens, **info,
+        "transport": reducer.transport,
         "losses": losses,
         "held_out_loss": [held_out_before, held_out_after],
         "step_ms": [r["step_ms"] for r in timed],
         "tokens_per_s": [r["tokens_per_s"] for r in timed],
         "reducer_ms": [r["reducer_ms"] for r in timed],
-        "fused_add_launches_per_step": want,
+        f"{kernel}_launches_per_step": per_step,
         "peak_mem_gb": max(r["peak_mem_gb"] for r in steps),
         "launches": launches, "profile": prof, "card": card, **checks,
     }
-    _say(f"train {cfg.name} ({layout['n_params']} params, bf16), {RANKS} ranks x "
-         f"{ROWS_PER_RANK} x {SEQ} tokens, ring perm {TRAIN_PERM}: losses "
+    _say(f"train {cfg.name} ({info['params']} params, bf16), {RANKS} ranks x "
+         f"{ROWS_PER_RANK} x {SEQ} tokens, {reducer.schedule.algorithm} order "
+         f"{info['perm']} ({reducer.transport}): losses "
          f"{[round(v, 4) for v in losses]} (held-out batch "
          f"{held_out_before:.4f} -> {held_out_after:.4f}); step "
          f"{[round(v, 1) for v in res['step_ms']]} ms; reducer "
-         f"{[round(v, 2) for v in res['reducer_ms']]} ms; fused_add launches "
-         f"{launches['fused_add']} ({want} a step); peak memory "
+         f"{[round(v, 2) for v in res['reducer_ms']]} ms; {kernel} launches "
+         f"{launches[kernel]} ({per_step} a step); peak memory "
          f"{res['peak_mem_gb']:.3f} GB [{card}]")
     _say("train " + json.dumps(res))
     return res
+
+
+def compile_plan() -> dict:
+    """Phase 2b: probe the fabric and compile the training mix's plan.
+
+    Host work only (numpy): the port's ``PlanCompiler`` with the
+    contention-aware simulator as its oracle.  The CPU tests pin this plan
+    equal to the JAX package's on the same inputs.
+    """
+    from repro_torch.fabric import make_datacenter, probe_fabric, scramble
+    from repro_torch.plan import PlanCompiler
+    from repro_torch.session import train_mix
+
+    fab, _ = scramble(make_datacenter(8, **PLAN_FABRIC), seed=PLAN_SCRAMBLE_SEED)
+    probe = probe_fabric(fab, seed=PLAN_PROBE_SEED)
+    plan = PlanCompiler(fabric=fab, seed=0).compile(
+        probe, train_mix(PLAN_PAYLOAD), mesh_shape=(8,))
+    _say(f"plan: fabric fingerprint {plan.fingerprint.digest}, oracle "
+         f"{plan.meta['oracle']}, mix {plan.mix_key}")
+    for (op, bucket, group), e in sorted(plan.entries.items()):
+        _say(f"plan entry {op} octave {bucket} ({e.size_bytes:.0f} bytes): "
+             f"{e.algo} {e.algo_kwargs} chunks {e.chunks} perm {list(e.perm)} "
+             f"bucket_bytes {e.bucket_bytes:.0f}; modeled {e.expected_time:.6f} s,"
+             f" {e.identity_times[e.algo] / e.expected_time:.3f}x its identity "
+             f"order, {e.best_identity_time / e.expected_time:.3f}x the best "
+             f"identity-order algorithm (simulator, not measured)")
+    mp = plan.mesh_plan
+    _say(f"plan mesh {mp.axis_names}: {mp.assignment.tolist()}, modeled cost "
+         f"{mp.cost:.4f} vs {mp.baseline_cost:.4f} in identity order")
+    _say(f"plan compiled in {plan.compile_seconds:.3f} s of host time (the CPU "
+         f"of the machine with the card)")
+    return plan
+
+
+def planned_layout(plan, layout: dict) -> dict:
+    """The planned reducer and the bucket shapes it hands the ring kernel."""
+    from repro_torch.train import partition_tree, reducer_from_plan
+
+    red = reducer_from_plan(plan, PLAN_PAYLOAD)
+    buckets = partition_tree(layout["shapes"], red.bucket_bytes)
+    quantum = red.schedule.n_chunks * max(1, red.schedule.chunk_factor)
+    widths = [b.n_elems + (-b.n_elems) % quantum for b in buckets]
+    _say(f"planned reducer: {red.schedule.algorithm} at order "
+         f"{list(red.schedule.order)}, bucket_bytes {red.bucket_bytes:.0f}, "
+         f"{len(buckets)} buckets of {widths} elements a rank, transport "
+         f"{red.transport}")
+    return {"reducer": red, "buckets": buckets, "widths": widths}
+
+
+def check_peer_ring_kernel(seed: int, planned: dict) -> dict:
+    """Phase 3: the peer-memory ring against its plain version, the virtual
+    ring and the oracle; its times beside ``x.sum(0)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ring_collective as rc
+    from repro_torch.kernels.ref import ring_reduce_scatter_ref
+
+    order = list(planned["reducer"].schedule.order)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    rng = np.random.default_rng(seed)
+
+    def check(n, width, perm, dtype, label):
+        x = torch.randn((n, width), generator=gen, device="cuda").to(dtype)
+        got = rc.remote_ring_reduce_scatter(x, perm)
+        torch.cuda.synchronize()
+        if rc.ring_status() != 0:
+            raise AssertionError(f"peer_ring {label}: status word "
+                                 f"{rc.ring_status()} (a spin timed out)")
+        for name, want in (("plain", rc.remote_ring_reduce_scatter_plain(x, perm)),
+                           ("ring_reduce_scatter", rc.ring_reduce_scatter(x, perm))):
+            if not torch.equal(got, want):
+                bad = (got.float() - want.float()).abs().max().item()
+                raise AssertionError(f"peer_ring {label}: != {name} (max abs "
+                                     f"err {bad:.3e})")
+        err = 0.0
+        if dtype == torch.float32:
+            ref = ring_reduce_scatter_ref(x, n)
+            err = (got - ref).abs().max().item()
+            tol = 1e-5 * n * x.abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"peer_ring {label}: off the oracle by "
+                                     f"{err:.3e} > {tol:.3e}")
+            del ref
+        del x, got
+        return err
+
+    cases = 0
+    worst = 0.0
+    for n in (2, 3, 4, 8):
+        perms = [list(range(n)), list(range(n))[::-1],
+                 [int(p) for p in rng.permutation(n)]]
+        if n == len(order):
+            perms.append(order)
+        for width in (n * 7, n * 1031, n * 8 * 4099):    # odd chunk lengths
+            for perm in perms:
+                for dt in (torch.float32, torch.bfloat16):
+                    worst = max(worst, check(n, width, perm, dt,
+                                             f"n={n} L={width} perm={perm} {dt}"))
+                    cases += 1
+    for width in sorted(set(planned["widths"])):
+        for dt in (torch.bfloat16, torch.float32):
+            worst = max(worst, check(RANKS, width, order, dt,
+                                     f"bucket [{RANKS}, {width}] {dt}"))
+            cases += 1
+        torch.cuda.empty_cache()
+    # a captured launch replayed on fresh data: the epochs come from the
+    # flags on the device, so every replay must still be exact
+    x = torch.empty((RANKS, RANKS * 8 * 4099), dtype=torch.bfloat16, device="cuda")
+    x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rc.remote_ring_reduce_scatter(x, order)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rc.remote_ring_reduce_scatter(x, order)
+    for rep in range(3):
+        x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
+        graph.replay()
+        torch.cuda.synchronize()
+        if rc.ring_status() != 0 or not torch.equal(
+                out, rc.remote_ring_reduce_scatter_plain(x, order)):
+            raise AssertionError(f"peer_ring: graph replay {rep} != plain")
+    del graph, out, x
+    _say(f"peer_ring == plain == ring_reduce_scatter bit for bit on {cases} "
+         f"cases (n = 2, 3, 4, 8, odd chunk lengths, identity / reversed / "
+         f"random / planned orders, the {len(set(planned['widths']))} bucket "
+         f"shapes of the planned path; f32 and bf16); f32 within {worst:.3e} of "
+         f"ring_reduce_scatter_ref; a captured launch exact on 3 graph "
+         f"replays of fresh data; status word 0 after every synchronise")
+
+    largest = max(planned["widths"])
+    times = {}
+    for label, width, iters in (("largest", largest, 5),
+                                ("4MB", 2 * 1024 * 1024, 20)):
+        x = torch.randn((RANKS, width), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        kernel = _graph_ms(lambda: rc.remote_ring_reduce_scatter(x, order), iters)
+        torch.cuda.synchronize()
+        if rc.ring_status() != 0:
+            raise AssertionError("peer_ring: status word set while timing")
+        plain = _time_ms(lambda: rc.remote_ring_reduce_scatter_plain(x, order),
+                         3, warmup=1)
+        lib = _graph_ms(lambda: x.sum(0).view(RANKS, width // RANKS), iters)
+        ring_b, fn_b = rc.ring_work(RANKS, width, 2)
+        times[label] = {
+            "shape": [RANKS, width], "ms": kernel, "plain_ms": plain,
+            "library_ms": lib, "ring_bytes": ring_b, "function_bytes": fn_b,
+            "ring_bound_ms": ring_b / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": fn_b / HBM_BYTES_PER_S * 1e3,
+        }
+        _say(f"peer_ring bf16 [{RANKS}, {width}] order {order}: kernel "
+             f"{kernel:.4f} ms (CUDA-graph replay), plain {plain:.4f} ms, "
+             f"x.sum(0) {lib:.4f} ms; the ring's bytes {ring_b} -> "
+             f"{times[label]['ring_bound_ms']:.4f} ms, the function's {fn_b} -> "
+             f"{times[label]['bound_ms']:.4f} ms at 3.35 TB/s")
+        del x
+        torch.cuda.empty_cache()
+    step_ring = sum(rc.ring_work(RANKS, w, 2)[0] for w in planned["widths"])
+    _say(f"peer_ring: one training step's {len(planned['widths'])} calls move "
+         f"{step_ring} bytes in the ring, "
+         f"{step_ring / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
+    big = times["largest"]
+    return {
+        "name": "peer_ring",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/peer_ring.cu",
+        "replaces": "src/repro/kernels/ring_collective.py:210",
+        "launches": None,            # filled from the planned training run
+        "max_abs_err": 0.0,          # bit-equal to the plain version above
+        "max_abs_err_vs_ref_f32": worst,
+        "shape": big["shape"],
+        "ms": big["ms"], "plain_ms": big["plain_ms"],
+        # the function's bytes: x read once, the output written once
+        "bound_ms": big["bound_ms"], "bound_by": "bytes",
+        "ring_bound_ms": big["ring_bound_ms"],
+        "library_ms": big["library_ms"],   # x.sum(0) on the same tensor
+        "ms_4mb": times["4MB"]["ms"], "plain_ms_4mb": times["4MB"]["plain_ms"],
+        "library_ms_4mb": times["4MB"]["library_ms"],
+        "bound_ms_4mb": times["4MB"]["bound_ms"],
+        "ring_bound_ms_4mb": times["4MB"]["ring_bound_ms"],
+        "step_ring_bound_ms": step_ring / HBM_BYTES_PER_S * 1e3,
+        "timing": "CUDA-graph replay (kernel, x.sum(0)); CUDA events (plain)",
+    }
 
 
 def _kind(kernel_name: str) -> str:
@@ -914,6 +1149,8 @@ def _kind(kernel_name: str) -> str:
         return "fused_add"
     if "flash_fwd" in n:
         return "flash_attention"
+    if "peer_ring" in n:
+        return "peer_ring"
     if any(s in n for s in ("nvjet", "gemm", "gemv", "xmma", "cutlass")):
         return "matmul"
     if any(s in n for s in ("copy", "catarray")):
@@ -1014,22 +1251,43 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 _say(f"ptxas {name}: {line.strip()}")
 
+    from repro_torch.train import OverlapGradReducer
+
+    plan = compile_plan()
     layout = train_layout()
+    planned = planned_layout(plan, layout)
     kernels = [check_wkv_kernel(args.seed),
                check_fused_add_kernel(args.seed, layout),
-               check_flash_kernel(args.seed)]
+               check_flash_kernel(args.seed),
+               check_peer_ring_kernel(args.seed, planned)]
+    _free()
     check_small_model(args.seed)
     check_small_dense(args.seed)
     check_virtual_mesh(args.seed)
-    check_small_train(args.seed)
+    check_small_train(args.seed, plan)
     served = serve_full_width(args.seed, card)
     _free()
     served_dense = serve_dense_full_width(args.seed, card)
     _free()
-    trained = train_full_width(args.seed, card, layout)
+    sched, bb = layout["schedule"], layout["bucket_bytes"]
+    trained = train_full_width(
+        args.seed, card, layout["cfg"], OverlapGradReducer(sched, bb, "bucketed"),
+        OverlapGradReducer(sched, bb, "bucketed", use_kernel_add=False),
+        "fused_add", layout["launches_per_step"],
+        {"params": layout["n_params"], "perm": TRAIN_PERM,
+         "buckets": len(layout["buckets"]), "bucket_bytes": bb})
+    _free()
+    red = planned["reducer"]
+    trained_planned = train_full_width(
+        args.seed, card, layout["cfg"], red, None, "peer_ring",
+        len(planned["buckets"]),
+        {"params": layout["n_params"], "perm": list(red.schedule.order),
+         "algorithm": red.schedule.algorithm,
+         "plan_fingerprint": plan.fingerprint.digest,
+         "buckets": len(planned["buckets"]), "bucket_bytes": red.bucket_bytes})
     # each kernel's launches come from the path it carries
     paths = {"wkv_chunked": served, "fused_add": trained,
-             "flash_attention": served_dense}
+             "flash_attention": served_dense, "peer_ring": trained_planned}
     for k in kernels:
         k["launches"] = paths[k["name"]]["launches"][k["name"]]
         if k["launches"] < 1:

@@ -41,6 +41,7 @@ from .report import Finding, Report, VerificationError, finding
 
 __all__ = [
     "PASS",
+    "analyze_equiv",
     "bisimulate",
     "symbolic_execute",
     "require_certified",
@@ -316,3 +317,10 @@ def require_certified(program: Program,
             f"{len(errors)} error(s): {errors[0].code} — "
             f"{errors[0].message}", report=report)
     return stats
+
+
+def analyze_equiv(
+    program: Program,
+) -> Tuple[List[Finding], Dict[str, object]]:
+    """The registered pass form: lower ``program`` and certify the pair."""
+    return bisimulate(program)

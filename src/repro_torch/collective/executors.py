@@ -10,8 +10,14 @@ port's runners execute on the single-card virtual mesh
 :mod:`repro_torch.kernels.overlap`): position-space partial permutations
 per round, each an index gather over the leading rank dimension.
 
-The pricing executors (``AnalyticExecutor``, ``SimExecutor``) need the
-cost models, the simulator and the fabric, and come with the planner.
+The pricing executors are copies of the reference's:
+:class:`AnalyticExecutor` wraps the closed-form cost models of
+:mod:`repro_torch.core.cost_models` (each builder declares which model
+describes it), and :class:`SimExecutor` wraps the contention-aware
+max-min-fair simulator (:func:`repro_torch.core.simulator.simulate_rounds`),
+the offline "real cloud" oracle the plan compiler scores candidates on.
+``estimate`` returns seconds for one execution of the program
+(pipelining included).
 """
 
 from __future__ import annotations
@@ -19,11 +25,18 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core.cost_models import CostModel, make_cost_model
+from repro_torch.core.simulator import simulate_rounds
+from repro_torch.fabric.topology import Fabric
 
 from .ir import Program
 
-__all__ = ["PermuteStep", "LoweredSchedule", "ScheduleLowering"]
+__all__ = ["PermuteStep", "LoweredSchedule", "ScheduleLowering",
+           "AnalyticExecutor", "SimExecutor"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +172,93 @@ class LoweredSchedule:
         }
         blob = json.dumps(payload, separators=(",", ":"), sort_keys=True)
         return hashlib.sha1(blob.encode()).hexdigest()[:16]
+
+
+class AnalyticExecutor:
+    """Prices programs with the paper's closed-form cost models.
+
+    Construct with full-fabric node-indexed matrices: either one
+    pairwise ``cost_matrix`` (paper mode — rounds rescale linearly) or
+    ``lat``/``bw`` (alpha-beta mode).  Group extraction and the
+    rank→local-index mapping happen here, so callers hand over programs
+    whose ``perm`` speaks global node ids.
+    """
+
+    name = "analytic"
+
+    def __init__(self, cost_matrix: Optional[np.ndarray] = None, *,
+                 lat: Optional[np.ndarray] = None,
+                 bw: Optional[np.ndarray] = None):
+        if cost_matrix is None and lat is None:
+            raise ValueError(
+                "AnalyticExecutor needs a cost_matrix or lat (+ bw)")
+        self.c = None if cost_matrix is None else np.asarray(
+            cost_matrix, dtype=np.float64)
+        self.lat = None if lat is None else np.asarray(lat, dtype=np.float64)
+        self.bw = None if bw is None else np.asarray(bw, dtype=np.float64)
+        self._models: Dict[tuple, CostModel] = {}
+
+    def model_for(self, program: Program) -> CostModel:
+        """The builder-declared CostModel at the program's piece size."""
+        g = np.asarray(sorted(program.op.group), dtype=np.int64)
+        size = program.op.size_bytes / program.chunk_factor
+        kwargs = {k: v for k, v in program.kwargs.items() if k == "base"}
+        key = (program.cost_model, tuple(g), float(size),
+               tuple(sorted(kwargs.items())))
+        model = self._models.get(key)
+        if model is None:
+            if self.c is not None:
+                model = make_cost_model(
+                    program.cost_model, cost_matrix=self.c[np.ix_(g, g)],
+                    size_bytes=size, **kwargs)
+            else:
+                sub_bw = None if self.bw is None else self.bw[np.ix_(g, g)]
+                if sub_bw is None:
+                    model = make_cost_model(
+                        program.cost_model,
+                        cost_matrix=self.lat[np.ix_(g, g)],
+                        size_bytes=size, **kwargs)
+                else:
+                    model = make_cost_model(
+                        program.cost_model, size_bytes=size,
+                        lat=self.lat[np.ix_(g, g)], bw=sub_bw, **kwargs)
+            self._models[key] = model
+        return model
+
+    def estimate(self, program: Program) -> float:
+        model = self.model_for(program)
+        return program.chunk_factor * float(model.cost(program.local_perm))
+
+    def lower(self, program: Program) -> LoweredSchedule:
+        raise NotImplementedError(
+            "AnalyticExecutor prices programs; use ScheduleLowering to lower")
+
+
+class SimExecutor:
+    """Prices programs on the contention-aware flow-level simulator."""
+
+    name = "sim"
+
+    def __init__(self, fabric: Fabric, jitter: float = 0.0,
+                 seed: Optional[int] = None):
+        self.fabric = fabric
+        self.jitter = jitter
+        self.seed = seed
+
+    def estimate(self, program: Program) -> float:
+        if self.jitter == 0.0 and program.chunk_factor > 1:
+            # deterministic pipelining: the k pieces are identical, so
+            # simulate one and scale instead of re-water-filling k times
+            return program.chunk_factor * simulate_rounds(
+                self.fabric, program.piece_flows())
+        rng = np.random.default_rng(self.seed) if self.seed is not None \
+            else None
+        return simulate_rounds(self.fabric, program.to_flows(),
+                               rng=rng, jitter=self.jitter)
+
+    def lower(self, program: Program) -> LoweredSchedule:
+        raise NotImplementedError(
+            "SimExecutor prices programs; use ScheduleLowering to lower")
 
 
 def _decompose_round(

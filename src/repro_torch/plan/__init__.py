@@ -1,0 +1,27 @@
+"""repro_torch.plan — the collective plan compiler (copies of ``repro.plan``).
+
+The manual chain this package serves::
+
+    fabric = make_datacenter(8, nodes_per_rack=4, racks_per_agg=2, seed=0)
+    probed = probe_fabric(fabric, seed=0)           # paper §IV-B probing
+    plan   = PlanCompiler(fabric=fabric, seed=0).compile(
+        probed, train_mix(payload_bytes), mesh_shape=(8,))
+    entry  = plan.lookup("all-reduce", payload_bytes)
+    reducer = reducer_from_plan(plan, payload_bytes)  # repro_torch.train
+
+Only the compiler and the fabric fingerprint are ported; the plan cache,
+the drift monitor and the planning service wait for slice 4b
+(ROADMAP.md §1).
+"""
+
+from .cache import FabricFingerprint, fabric_fingerprint  # noqa: F401
+from .compiler import (  # noqa: F401
+    CollectiveRequest,
+    JobMix,
+    Plan,
+    PlanCompiler,
+    PlanEntry,
+    SolveBudget,
+    candidate_algorithms,
+    size_bucket,
+)

@@ -1,13 +1,16 @@
 """Training (counterpart of ``repro.train``): the baseline step and the
-overlapped data-parallel step over a certified, rank-reordered all-reduce."""
+overlapped data-parallel step over a certified, rank-reordered all-reduce,
+built by hand or from a compiled plan (:func:`reducer_from_plan`)."""
 
 from .overlap_grads import (  # noqa: F401
     OVERLAP_MODES,
     GradBucket,
+    TRANSPORTS,
     OverlapGradReducer,
     certified_allreduce,
     make_overlap_train_step,
     partition_tree,
+    reducer_from_plan,
     stacked_grads,
 )
 from .train_step import TrainState, init_state, make_train_step  # noqa: F401

@@ -15,17 +15,27 @@ the n data-parallel ranks are the leading dimension of one tensor.
   rounds (``mode="fused"``); ``sequential`` finishes every bucket at the
   end.
 
-Every mode computes the same reduction element for element.  The reduce
-of every round goes through the ``fused_add`` kernel on the card
-(``use_kernel_add=True``, the default); ``use_kernel_add=False`` reduces
-with plain ``+``, which gives the same bits for f32 and bf16.
+Every mode computes the same reduction element for element.  Two
+transports carry a bucket:
+
+* ``transport="runner"`` (the default of :class:`OverlapGradReducer`):
+  :func:`~repro_torch.kernels.overlap.run_overlapped` runs the schedule
+  round by round, and the reduce of every round goes through the
+  ``fused_add`` kernel on the card (``use_kernel_add=True``, the
+  default); ``use_kernel_add=False`` reduces with plain ``+``, which
+  gives the same bits for f32 and bf16;
+* ``transport="peer_ring"`` (the default of :func:`reducer_from_plan`):
+  one launch of the peer-memory ring kernel
+  (:func:`~repro_torch.kernels.ring_collective.remote_ring_reduce_scatter`)
+  a bucket, in the certified ring schedule's ``order``.
 
 :func:`make_overlap_train_step` is the data-parallel step: each virtual
 rank computes the loss and its gradient on its contiguous batch shard
 (what the reference's ``shard_map`` does), the grads go into row r of
 stacked ``[n, ...]`` buffers, the reducer takes their mean, and AdamW
-applies it.  ``reducer_from_plan`` waits for the planner's ``Plan``
-(ROADMAP.md §1 slice 4, item 2).
+applies it.  :func:`reducer_from_plan` builds the reducer from the
+planner's :class:`~repro_torch.plan.Plan`: the planned bucket size, the
+planned algorithm and rank order, certified before use.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from repro_torch.collective import CollectiveOp, ScheduleLowering, compile_op
 from repro_torch.collective.executors import LoweredSchedule
 from repro_torch.collective.passes import apply_permutation, chunk as chunk_pass
 from repro_torch.kernels.overlap import run_overlapped
+from repro_torch.kernels.ring_collective import remote_ring_reduce_scatter
 from repro_torch.optim import apply_opt
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -52,12 +63,14 @@ __all__ = [
     "partition_tree",
     "certified_allreduce",
     "OverlapGradReducer",
+    "reducer_from_plan",
     "make_overlap_train_step",
     "stacked_grads",
     "OVERLAP_MODES",
 ]
 
 OVERLAP_MODES = ("sequential", "bucketed", "fused")
+TRANSPORTS = ("runner", "peer_ring")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,20 +149,43 @@ class OverlapGradReducer:
     The same certified schedule runs every bucket — the lowering does not
     depend on the payload, so the runner's cached index tables serve
     every bucket of every step.
+
+    ``transport="runner"`` runs each bucket through
+    :func:`~repro_torch.kernels.overlap.run_overlapped`, with the
+    previous bucket's finisher and the caller's compute spread over its
+    rounds.  ``transport="peer_ring"`` runs each bucket's payload through
+    one launch of the peer-memory ring kernel at the schedule's ring
+    ``order`` (a ring schedule only; any other algorithm is refused).
+    The chunks come back in rank order, so on the virtual mesh the
+    all-gather is the reduce-scatter's rows laid end to end.  Its
+    ``chunk_factor`` is not used: the launch moves whole chunks.  The
+    modes keep bucket granularity: bucket b-1's finisher (one thunk in
+    ``bucketed``, one a leaf in ``fused``) and the caller's compute run
+    after bucket b's launch is queued, so the host's work overlaps the
+    card's; ``sequential`` finishes every bucket at the end.
     """
 
     def __init__(self, schedule: LoweredSchedule, bucket_bytes: float = 0.0,
-                 mode: str = "bucketed", use_kernel_add: bool = True):
+                 mode: str = "bucketed", use_kernel_add: bool = True,
+                 transport: str = "runner"):
         if mode not in OVERLAP_MODES:
             raise ValueError(f"mode must be one of {OVERLAP_MODES}, "
                              f"got {mode!r}")
+        if transport not in TRANSPORTS:
+            raise ValueError(f"transport must be one of {TRANSPORTS}, "
+                             f"got {transport!r}")
         if schedule.postcondition != "allreduce":
             raise ValueError("OverlapGradReducer needs an all-reduce "
                              f"schedule, got {schedule.postcondition!r}")
+        if transport == "peer_ring" and schedule.algorithm != "ring":
+            raise ValueError(
+                "the peer_ring transport runs a ring schedule only, got "
+                f"{schedule.algorithm!r}; use transport='runner'")
         self.schedule = schedule
         self.bucket_bytes = float(bucket_bytes)
         self.mode = mode
         self.use_kernel_add = use_kernel_add
+        self.transport = transport
         self.n = schedule.n
 
     # -- bucketing ---------------------------------------------------------
@@ -241,13 +277,20 @@ class OverlapGradReducer:
                 shards.extend(finisher_shards(b - 1))
             shards.extend(
                 (("user", int(u)), compute[int(u)]) for u in user_split[b])
-            state, res = run_overlapped(
-                self._payload(leaves, bkt), self.schedule,
-                compute=[fn for _, fn in shards],
-                use_kernel_add=self.use_kernel_add, return_state=True)
-            # out[0] of run_schedule, kept without the other ranks' rows
-            outs[b] = state[pos0, :n_chunks].reshape(-1).clone()
-            del state
+            if self.transport == "peer_ring":
+                # queued on the stream; the thunks below run behind it
+                outs[b] = remote_ring_reduce_scatter(
+                    self._payload(leaves, bkt),
+                    perm=self.schedule.order).reshape(-1)
+                res = [fn() for _, fn in shards]
+            else:
+                state, res = run_overlapped(
+                    self._payload(leaves, bkt), self.schedule,
+                    compute=[fn for _, fn in shards],
+                    use_kernel_add=self.use_kernel_add, return_state=True)
+                # out[0] of run_schedule, kept without the other ranks' rows
+                outs[b] = state[pos0, :n_chunks].reshape(-1).clone()
+                del state
             for (tag, _), value in zip(shards, res):
                 land(tag, value)
         # drain: the last bucket (every bucket, in sequential mode)
@@ -260,6 +303,45 @@ class OverlapGradReducer:
         mean_tree = tree_unflatten(stacked_tree,
                                    [finished[i] for i in range(len(leaves))])
         return mean_tree, results
+
+
+def reducer_from_plan(plan, total_bytes: float,
+                      group: Optional[Sequence[int]] = None,
+                      mode: str = "bucketed",
+                      bucket_bytes: Optional[float] = None,
+                      use_kernel_add: bool = True,
+                      transport: str = "peer_ring") -> OverlapGradReducer:
+    """Reducer from a compiled :class:`~repro_torch.plan.Plan`.
+
+    Two ``PlanEntry`` lookups, as the reference's ``reducer_from_plan``
+    does: the octave of the *full* grad payload supplies the planned
+    ``bucket_bytes``, then the octave of the bucket payload supplies the
+    algorithm, rank order and chunking actually run.  The schedule is
+    lowered and certified here, before any use.  A schedule that does
+    not end all-reduced (bcube's lowering ends reduce-scattered) falls
+    back to a certified ring at the planned rank order: the reordering
+    is kept, the algorithm choice is not.  ``transport="peer_ring"``
+    (the default) runs each bucket through the peer-memory ring kernel
+    at that order, and refuses a plan whose schedule is not a ring.
+    """
+    entry = plan.lookup("all-reduce", total_bytes, group)
+    if entry is None:
+        raise ValueError("the plan has no all-reduce entry for group "
+                         f"{group}")
+    bb = float(bucket_bytes if bucket_bytes is not None
+               else (entry.bucket_bytes or total_bytes))
+    entry_b = plan.lookup("all-reduce", bb, group)
+    prog = entry_b.program()
+    sched = ScheduleLowering().lower_schedule(prog)
+    require_certified(prog, sched)
+    if sched.postcondition != "allreduce":
+        local = [entry_b.group.index(p) for p in entry_b.perm]
+        sched = certified_allreduce(len(entry_b.group), bb, algo="ring",
+                                    perm=local,
+                                    chunk_factor=max(1, entry_b.chunks))
+    return OverlapGradReducer(sched, bucket_bytes=bb, mode=mode,
+                              use_kernel_add=use_kernel_add,
+                              transport=transport)
 
 
 def stacked_grads(model, params: Any, batch: Dict[str, torch.Tensor], n: int
