@@ -30,7 +30,11 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    ``ring_reduce_scatter`` (gather + ``fused_add``) in f32 and bf16, f32
    also against ``ring_reduce_scatter_ref``, a captured launch replayed
    on fresh data, its status word read after every synchronise; timed at
-   the largest bucket and at 4 MB a rank beside ``x.sum(0)``;
+   the largest bucket and at 4 MB a rank beside ``x.sum(0)``; the exact
+   WKV scan kernel (``wkv_scan``) on the five ``WKV_CASES`` shapes of
+   ``tests/test_kernels.py`` and the rwkv6-1.6b layer shape, in f32 and
+   bf16, against its plain version, called twice from a zero state, timed
+   by CUDA-graph replay;
 4. small-input checks: the smoke ``rwkv6`` in f32 (kernel-path prefill
    and decode against the exact recurrence, greedy tokens equal); the
    smoke ``glm4-9b`` in f32 (the flash prefill against the plain one,
@@ -46,8 +50,11 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    ``wkv_impl="kernel"``, random weights from ``--seed``) serves 8
    requests of 512-token prompts and 32 new tokens through
    ``GenerationEngine.generate``; launch counts zeroed just before, read
-   just after; then prefill time, decode rate, peak memory and a
-   ``torch.profiler`` window; then full-width ``glm4-9b`` (bf16,
+   just after; a spy around the model's ``wkv_chunked_op`` calls through
+   and also runs ``ops.wkv_op`` (the scan kernel) on each layer's WKV
+   inputs in that run, held to the chunk kernel's y; then prefill time,
+   decode rate, peak memory and a ``torch.profiler`` window (without the
+   spy); then full-width ``glm4-9b`` (bf16,
    ``attention_impl="flash"``) serves 8 requests of 2048-token prompts
    and 32 new tokens after a warm-up wave, counted (40 flash launches, one
    a layer of the prefill), timed and profiled the same way;
@@ -65,7 +72,15 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    order, every bucket one launch of the peer-memory ring kernel; the
    reducer on step 0's grads against an f32 mean, then a warm-up step and
    3 steps, counted (one ``peer_ring`` launch a bucket a step), timed and
-   profiled.
+   profiled;
+8. the user's entry point: ``python -m repro_torch train`` in process
+   (``repro_torch.cli.main``) at full width — ``qwen2-0.5b``, an 8-rank
+   mesh planned through a ``Session`` on a scrambled simulated fabric,
+   16 x 1024 tokens a step, 4 steps, the peer-memory ring a bucket, a
+   checkpoint of the last step in a temporary directory (deleted after):
+   the plan, the steps' times and losses, the exact ``peer_ring`` launch
+   count, the reducer's CUDA-event time, peak memory and the checkpoint's
+   bytes and seconds.
 
 Its last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -126,6 +141,15 @@ FLASH_EXTRA = [
 # order (the reference's f32 tolerance); bf16 also rounds each probability
 # to bf16 for the P.V product and the output once (about two bf16 ulps)
 FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 1.6e-2)}
+# tests/test_kernels.py:58-64: (B, S, H, K, V, chunk) of WKV_CASES, run here
+# in f32 and bf16 each
+WKV_CASES = [(2, 32, 2, 8, 8, 8), (1, 64, 4, 16, 16, 16), (2, 16, 1, 8, 16, 16),
+             (1, 32, 2, 8, 8, 32), (1, 32, 2, 8, 8, 8)]
+# the train command of the user's entry point (phase 8)
+TRAIN_CLI = ["train", "--arch", TRAIN_ARCH, "--mesh", str(RANKS),
+             "--batch", str(RANKS * ROWS_PER_RANK), "--seq", str(SEQ),
+             "--steps", "4", "--reorder", "simulate",
+             "--payload-bytes", str(PLAN_PAYLOAD), "--lr", str(LR)]
 # kernel vs plain on the same inputs: the same f32 math summed in another
 # order (f32: the chunk-form tolerance of the CPU tests); bf16 y also
 # rounds once to bf16 (2 ulps relative)
@@ -244,6 +268,117 @@ def check_wkv_kernel(seed: int) -> dict:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,          # no single PyTorch call computes WKV
     }
+
+
+def check_wkv_scan_kernel(seed: int) -> dict:
+    """Phase 3: the exact-recurrence WKV kernel against its plain version.
+
+    The five ``WKV_CASES`` shapes and the rwkv6-1.6b layer shape, in f32
+    and bf16; each result also equals a second launch on the same inputs
+    (the state starts from zero every call).  The layer shape is timed:
+    the kernel by CUDA-graph replay, the plain version by events.
+    """
+    import torch
+
+    from repro_torch.kernels import rwkv6_scan as ws
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def inputs(B, S, H, K, V, dtype):
+        r, k = (torch.randn((B, S, H, K), generator=gen, device="cuda") * 0.5
+                for _ in range(2))
+        v = torch.randn((B, S, H, V), generator=gen, device="cuda") * 0.5
+        w = 0.3 + 0.699 * torch.rand((B, S, H, K), generator=gen, device="cuda")
+        u = torch.randn((H, K), generator=gen, device="cuda") * 0.1
+        return [x.to(dtype) for x in (r, k, v, w)] + [u]
+
+    H, K = 32, 64
+    layer = (BATCH, PROMPT, H, K, K, 64)
+    errs, times, worst = {}, {}, {}
+    for case in WKV_CASES + [layer]:
+        for dtype in ("float32", "bfloat16"):
+            args = inputs(*case[:5], getattr(torch, dtype))
+            chunk = case[5]
+            y = ws.wkv_scan(*args, chunk=chunk)
+            again = ws.wkv_scan(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            if not torch.equal(y, again):
+                raise AssertionError(f"wkv_scan {case} {dtype}: a second call "
+                                     f"on the same inputs differs (state kept?)")
+            err = _check_close(f"wkv_scan {case} {dtype}", y,
+                               ws.wkv_scan_plain(*args, chunk=chunk), *TOL[dtype])
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+            if case == layer:
+                errs[dtype] = err
+                times[dtype] = (
+                    _graph_ms(lambda: ws.wkv_scan(*args, chunk=chunk), 10),
+                    _time_ms(lambda: ws.wkv_scan_plain(*args, chunk=chunk), 3,
+                             warmup=1),
+                )
+                _say(f"wkv_scan {dtype} [{BATCH},{PROMPT},{H},{K}]: max abs err "
+                     f"vs plain {err:.3e}; kernel {times[dtype][0]:.4f} ms "
+                     f"(CUDA-graph replay), plain {times[dtype][1]:.4f} ms")
+            del args
+    _say(f"wkv_scan == plain on the {len(WKV_CASES)} WKV_CASES shapes and the "
+         f"layer shape in f32 and bf16 (max abs err {worst}); every second "
+         f"call equal to the first")
+    moved, flops = ws.work(BATCH, PROMPT, H, K, K, 2)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    _say(f"wkv_scan bf16 work: {moved} bytes, {flops} FLOP -> {t_bytes:.4f} ms "
+         f"at 3.35 TB/s, {t_ops:.4f} ms at 67 TFLOP/s f32; kernel at "
+         f"{max(t_bytes, t_ops) / times['bfloat16'][0]:.3f} of the bound")
+    return {
+        "name": "wkv_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:80",
+        "launches": None,            # filled from the serving spy's run
+        "max_abs_err": errs["bfloat16"],
+        "max_abs_err_f32": errs["float32"],
+        "max_abs_err_cases": worst,
+        "ms": times["bfloat16"][0],
+        "plain_ms": times["bfloat16"][1],
+        "ms_f32": times["float32"][0],
+        "plain_ms_f32": times["float32"][1],
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,          # no single PyTorch call computes WKV
+        "timing": "CUDA-graph replay (kernel); CUDA events (plain)",
+    }
+
+
+class _ScanSpy:
+    """Calls the model's ``wkv_chunked_op`` through and runs ``ops.wkv_op``
+    (the scan kernel) on the same layer inputs, holding its y to the chunk
+    kernel's without a synchronise (checked after the run)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.calls = 0
+        self.errs = []           # per call: the max abs difference (device)
+        self.ratios = []         # per call: the worst element's share of TOL
+        self.first = None        # one layer's inputs and scan y, for the plain
+
+    def __call__(self, r, k, v, w, u, chunk=16):
+        import torch
+
+        from repro_torch.kernels import ops
+
+        y, state = self.inner(r, k, v, w, u, chunk=chunk)
+        scan = ops.wkv_op(r, k, v, w, u)
+        atol, rtol = TOL["float32" if y.dtype == torch.float32 else "bfloat16"]
+        diff = (scan.float() - y.float()).abs()
+        ratio = (diff / (atol + rtol * y.float().abs())).max()
+        # a non-finite scan output counts as off the chunk kernel's y
+        self.ratios.append(torch.where(torch.isfinite(ratio), ratio,
+                                       torch.full_like(ratio, float("inf"))))
+        self.errs.append(diff.max())
+        if self.first is None:
+            self.first = ([x.clone() for x in (r, k, v, w, u)], scan.clone())
+        self.calls += 1
+        return y, state
 
 
 def check_small_model(seed: int) -> None:
@@ -499,9 +634,11 @@ def serve_dense_full_width(seed: int, card: str) -> dict:
 
 def _counted() -> dict:
     """Every kernel wrapper, by name: each counts its own launches."""
-    from repro_torch.kernels import flash_attention, ring_collective, rwkv6_chunked
+    from repro_torch.kernels import (
+        flash_attention, ring_collective, rwkv6_chunked, rwkv6_scan)
 
     return {"wkv_chunked": rwkv6_chunked.wkv_chunked_matmul,
+            "wkv_scan": rwkv6_scan.wkv_scan,
             "fused_add": ring_collective.fused_add,
             "flash_attention": flash_attention.flash_attention,
             "peer_ring": ring_collective.remote_ring_reduce_scatter}
@@ -530,15 +667,41 @@ def serve_full_width(seed: int, card: str) -> dict:
     eng.generate([p[:16] for p in prompts], max_new_tokens=2)    # warm-up
     torch.cuda.synchronize()
 
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counted.values():
-        fn.launches = 0
-    t0 = time.monotonic()
-    outs = eng.generate(prompts)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = {name: fn.launches for name, fn in counted.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    from repro_torch.kernels import rwkv6_scan
+    from repro_torch.models import rwkv6 as rwkv6_mod
+
+    spy = _ScanSpy(rwkv6_mod.wkv_chunked_op)
+    rwkv6_mod.wkv_chunked_op = spy
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.monotonic()
+        outs = eng.generate(prompts)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        rwkv6_mod.wkv_chunked_op = spy.inner
+
+    if launches["wkv_scan"] != cfg.n_layers or spy.calls != cfg.n_layers:
+        raise AssertionError(f"wkv_scan launched {launches['wkv_scan']} times "
+                             f"on {spy.calls} prefill layers, expected "
+                             f"{cfg.n_layers}")
+    scan_ratio = max(float(r) for r in spy.ratios)
+    if not scan_ratio <= 1.0:
+        raise AssertionError(f"wkv_scan on the prefill's WKV inputs is off the "
+                             f"chunk kernel's y by {scan_ratio:.3f} of TOL")
+    scan_err = max(float(e) for e in spy.errs)
+    (layer_args, layer_scan) = spy.first
+    plain_err = _check_close("wkv_scan on layer 0 of the prefill", layer_scan,
+                             rwkv6_scan.wkv_scan_plain(*layer_args), *TOL["bfloat16"])
+    del spy, layer_args, layer_scan
+    _say(f"serving spy: {launches['wkv_scan']} wkv_scan launches on the "
+         f"prefill's WKV inputs, each within TOL of the chunk kernel's y (the "
+         f"worst element at {scan_ratio:.4f} of TOL, max abs err "
+         f"{scan_err:.3e}); layer 0 within {plain_err:.3e} of wkv_scan_plain")
 
     if launches["wkv_chunked"] != cfg.n_layers:
         raise AssertionError(f"wkv_chunked launched {launches['wkv_chunked']} "
@@ -571,13 +734,17 @@ def serve_full_width(seed: int, card: str) -> dict:
         "decode_step_ms": step_ms,
         "decode_tok_per_s": BATCH / (step_ms / 1e3),
         "peak_mem_gb": peak_gb, "launches": launches, "card": card,
+        "wkv_scan_vs_chunk_max_abs_err": scan_err,
+        "wkv_scan_vs_chunk_share_of_tol": scan_ratio,
+        "wkv_scan_vs_plain_max_abs_err": plain_err,
     }
     _say(f"serve {cfg.name} ({n_params} params, bf16) batch {BATCH} x prompt "
          f"{PROMPT} x {NEW} new: {res['generated_tokens']} tokens in "
          f"{wall:.3f} s; prefill {prefill_ms:.3f} ms; decode "
          f"{step_ms:.3f} ms/step ({res['decode_tok_per_s']:.1f} tok/s); peak "
          f"memory {peak_gb:.3f} GB; wkv_chunked launches {launches['wkv_chunked']}"
-         f" [{card}]")
+         f" (the counted run's wall time includes the spy's {launches['wkv_scan']} "
+         f"wkv_scan launches) [{card}]")
     _say("serve " + json.dumps(res))
     return res
 
@@ -1141,10 +1308,117 @@ def check_peer_ring_kernel(seed: int, planned: dict) -> dict:
     }
 
 
+def train_cli_full_width(card: str, layout: dict) -> dict:
+    """Phase 8: ``python -m repro_torch train`` at full width, in process.
+
+    Every launch count zeroed just before ``cli.main`` and read just
+    after; the reducer's calls timed with CUDA events by a spy on
+    ``OverlapGradReducer.__call__`` that calls through; the checkpoint
+    written under a temporary directory, measured, then deleted.
+    """
+    import contextlib
+    import io
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import cli
+    from repro_torch.kernels import ring_collective as rc
+    from repro_torch.train import overlap_grads, partition_tree
+
+    counted = _counted()
+    events = []
+    inner = overlap_grads.OverlapGradReducer.__call__
+
+    def timed(self, stacked, compute=()):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(self, stacked, compute)
+        end.record()
+        events.append((start, end))
+        return out
+
+    ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_train_")
+    argv = TRAIN_CLI + ["--ckpt-dir", ckpt_dir]
+    _say("python -m repro_torch " + " ".join(argv))
+    buf = io.StringIO()
+    overlap_grads.OverlapGradReducer.__call__ = timed
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            rc_main = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        overlap_grads.OverlapGradReducer.__call__ = inner
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        _say("cli | " + line)
+    if rc_main != 0:
+        raise AssertionError(f"python -m repro_torch train exited {rc_main}")
+    report = json.loads(out.split("[train] report ")[1].splitlines()[0])
+    steps = report["steps"]
+    reducer_ms = [s.elapsed_time(e) for s, e in events]
+    buckets = len(partition_tree(layout["shapes"], report["bucket_bytes"]))
+    if report["buckets"] != buckets or report["transport"] != "peer_ring":
+        raise AssertionError(f"the CLI's reducer: {report['buckets']} buckets "
+                             f"over {report['transport']}, expected {buckets} "
+                             f"over peer_ring")
+    if launches["peer_ring"] != buckets * steps or len(reducer_ms) != steps:
+        raise AssertionError(f"peer_ring launched {launches['peer_ring']} times "
+                             f"in {len(reducer_ms)} reducer calls, expected "
+                             f"{buckets} x {steps}")
+    if rc.ring_status() != 0:
+        raise AssertionError("train CLI: the ring kernel's status word is set")
+    losses = report["losses"]
+    if not all(math.isfinite(v) for v in losses) or \
+            not sum(losses[1:]) / (steps - 1) < losses[0]:
+        raise AssertionError(f"train CLI: the loss did not fall: {losses}")
+    ck = report["checkpoint"]
+    res = {
+        "argv": argv[:-2], "plan_digest": report["plan_digest"],
+        "algorithm": report["algorithm"], "order": report["order"],
+        "mesh_order": report["mesh_order"],
+        "bucket_bytes": report["bucket_bytes"], "buckets": buckets,
+        "losses": losses, "step_ms": [v * 1e3 for v in report["step_s"]],
+        "tokens_per_s": [RANKS * ROWS_PER_RANK * SEQ / v
+                         for v in report["step_s"]],
+        "reducer_ms": reducer_ms, "launches": launches,
+        "peak_mem_gb": peak_gb, "wall_s": wall,
+        "checkpoint_bytes": ck["bytes"],
+        "checkpoint_snapshot_s": ck["snapshot_s"],
+        "checkpoint_write_s": ck["write_s"], "card": card,
+    }
+    _say(f"train CLI {TRAIN_ARCH}: plan {res['plan_digest']} {res['algorithm']} "
+         f"order {res['order']} (mesh order {res['mesh_order']}), "
+         f"{buckets} buckets of {res['bucket_bytes']:.0f} bytes; losses "
+         f"{[round(v, 4) for v in losses]}; step "
+         f"{[round(v, 1) for v in res['step_ms']]} ms; reducer "
+         f"{[round(v, 2) for v in reducer_ms]} ms; peer_ring launches "
+         f"{launches['peer_ring']} ({buckets} x {steps}); peak memory "
+         f"{peak_gb:.3f} GB; checkpoint {ck['bytes']} bytes, snapshot "
+         f"{ck['snapshot_s']:.3f} s, write {ck['write_s']:.3f} s; "
+         f"{wall:.1f} s in all [{card}]")
+    _say("train cli " + json.dumps(res))
+    return res
+
+
 def _kind(kernel_name: str) -> str:
     n = kernel_name.lower()
     if "wkv_chunked" in n:
         return "wkv_chunked"
+    if "wkv_scan" in n:
+        return "wkv_scan"
     if "fused_add" in n:
         return "fused_add"
     if "flash_fwd" in n:
@@ -1257,6 +1531,7 @@ def main(argv=None) -> int:
     layout = train_layout()
     planned = planned_layout(plan, layout)
     kernels = [check_wkv_kernel(args.seed),
+               check_wkv_scan_kernel(args.seed),
                check_fused_add_kernel(args.seed, layout),
                check_flash_kernel(args.seed),
                check_peer_ring_kernel(args.seed, planned)]
@@ -1285,13 +1560,18 @@ def main(argv=None) -> int:
          "algorithm": red.schedule.algorithm,
          "plan_fingerprint": plan.fingerprint.digest,
          "buckets": len(planned["buckets"]), "bucket_bytes": red.bucket_bytes})
-    # each kernel's launches come from the path it carries
-    paths = {"wkv_chunked": served, "fused_add": trained,
-             "flash_attention": served_dense, "peer_ring": trained_planned}
+    _free()
+    trained_cli = train_cli_full_width(card, layout)
+    # each kernel's launches come from the path it carries; the peer ring's
+    # from the user's entry point (the hand-wired planned run's beside it)
+    paths = {"wkv_chunked": served, "wkv_scan": served, "fused_add": trained,
+             "flash_attention": served_dense, "peer_ring": trained_cli}
     for k in kernels:
         k["launches"] = paths[k["name"]]["launches"][k["name"]]
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on its path")
+        if k["name"] == "peer_ring":
+            k["launches_planned_run"] = trained_planned["launches"]["peer_ring"]
 
     print(json.dumps({"kernels": kernels}))
     print(card)

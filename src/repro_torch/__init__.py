@@ -9,6 +9,10 @@ beside it and imports nothing of it (nor JAX).  Module names mirror
 * :mod:`repro_torch.kernels` — the hand-written CUDA kernels, each with
   its plain PyTorch version beside it;
 * :mod:`repro_torch.serve` — the generation engine;
+* :mod:`repro_torch.session` — the ``Session`` facade (probe → plan →
+  apply → monitor) and its ``SessionConfig``;
+* :mod:`repro_torch.train` — the train steps, the planned reducer and the
+  fault-tolerant ``Trainer``;
 * :mod:`repro_torch.obs` — tracer, metrics and workload recorder;
 * :mod:`repro_torch.convert` — JAX parameter trees to torch tensors.
 
@@ -28,6 +32,10 @@ __all__ = [
     "GenerationConfig",
     "GenerationEngine",
     "ModelConfig",
+    "Session",
+    "SessionConfig",
+    "Trainer",
+    "TrainerConfig",
     "default_device",
     "get_config",
     "get_model",
@@ -41,6 +49,10 @@ _LAZY = {
     "GenerationConfig": "repro_torch.serve.engine",
     "GenerationEngine": "repro_torch.serve.engine",
     "ModelConfig": "repro_torch.configs.base",
+    "Session": "repro_torch.session",
+    "SessionConfig": "repro_torch.session",
+    "Trainer": "repro_torch.train",
+    "TrainerConfig": "repro_torch.train",
     "get_config": "repro_torch.configs.registry",
     "get_model": "repro_torch.models.model_zoo",
     "params_from_jax": "repro_torch.convert",

@@ -7,9 +7,8 @@ Copies of ``repro.core`` (numpy).  The manual chain, paper mapping::
     c       = repro_torch.fabric.cost_matrix(probed, S)  # c_{i,j}(S)
     result  = reorder.optimize_rank_order(c, "ring", S)  # §IV-C solving
     plan    = reorder.optimize_mesh_assignment(c, (8,), ("data",))
-
-The adaptive re-ranker (``repro.core.dynamic``) waits for slice 4b
-(ROADMAP.md §1).
+    # paper §VI: repair the order online as the fabric drifts
+    reranker = dynamic.AdaptiveReranker(factory, perm=result.perm)
 """
 
 from .cost_models import (  # noqa: F401
@@ -22,6 +21,7 @@ from .cost_models import (  # noqa: F401
     RingCost,
     make_cost_model,
 )
+from .dynamic import AdaptiveReranker, StragglerDetector, bottleneck_swap  # noqa: F401
 from .reorder import (  # noqa: F401
     MeshPlan,
     hierarchical_perm,

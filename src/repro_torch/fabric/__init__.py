@@ -7,15 +7,22 @@ Copies of ``repro.fabric``:
 * :mod:`~repro_torch.fabric.probe` — dense pairwise probing, paper §IV-B;
 * :mod:`~repro_torch.fabric.costs` — the one shared c_{i,j}(S) formula;
 * :mod:`~repro_torch.fabric.hierarchy` — locality-tree inference from a
-  probed cost matrix (agglomerative, automatic tier cut).
+  probed cost matrix (agglomerative, automatic tier cut);
+* :mod:`~repro_torch.fabric.sparse` — budgeted O(n·log n) probing that
+  recovers the hierarchy from a fraction of the dense probes.
 
-The sparse probe (``repro.fabric.sparse``) and the live-device probe are
-not ported yet (ROADMAP.md §1 slice 4b and item 13).
+The live-device probe (``probe_mesh_pairwise``) is not ported yet
+(ROADMAP.md §1 item 13).
 """
 
 from .costs import combine_cost  # noqa: F401
 from .hierarchy import HierarchyModel, infer_hierarchy  # noqa: F401
 from .probe import ProbeResult, cost_matrix, probe_fabric  # noqa: F401
+from .sparse import (  # noqa: F401
+    SparseProbeResult,
+    refresh_sparse,
+    sparse_probe_fabric,
+)
 from .topology import (  # noqa: F401
     Fabric,
     make_datacenter,
@@ -34,4 +41,7 @@ __all__ = [
     "combine_cost",
     "HierarchyModel",
     "infer_hierarchy",
+    "SparseProbeResult",
+    "sparse_probe_fabric",
+    "refresh_sparse",
 ]

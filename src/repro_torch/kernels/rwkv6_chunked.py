@@ -114,16 +114,19 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda_inputs(r, k, v, w, u) -> None:
+def check_cuda_inputs(name: str, r, k, v, w, u) -> None:
+    """What the WKV kernels take (``name`` is the kernel's): r, k, w
+    ``[B,S,H,K]`` and v ``[B,S,H,V]`` of one type (f32 or bf16) on one
+    device, u ``[H,K]``, K, V <= 64, last dimensions contiguous."""
     dev = r.device
-    for name, x in (("k", k), ("v", v), ("w", w), ("u", u)):
+    for arg, x in (("k", k), ("v", v), ("w", w), ("u", u)):
         if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, r on {dev}")
+            raise ValueError(f"{arg} is on {x.device}, r on {dev}")
     if r.dtype not in _DTYPE_CODE:
-        raise TypeError(f"wkv_chunked takes float32 or bfloat16, not {r.dtype}")
-    for name, x in (("k", k), ("v", v), ("w", w)):
+        raise TypeError(f"{name} takes float32 or bfloat16, not {r.dtype}")
+    for arg, x in (("k", k), ("v", v), ("w", w)):
         if x.dtype != r.dtype:
-            raise TypeError(f"{name} is {x.dtype}, r is {r.dtype}")
+            raise TypeError(f"{arg} is {x.dtype}, r is {r.dtype}")
     if r.dim() != 4 or k.shape != r.shape or w.shape != r.shape:
         raise ValueError(f"r, k, w must share one [B,S,H,K] shape: "
                          f"{tuple(r.shape)} {tuple(k.shape)} {tuple(w.shape)}")
@@ -135,9 +138,9 @@ def _check_cuda_inputs(r, k, v, w, u) -> None:
     if K > MAX_HEAD_DIM or v.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(f"the kernel takes K, V <= {MAX_HEAD_DIM}; "
                          f"got K={K}, V={v.shape[-1]}")
-    for name, x in (("r", r), ("k", k), ("v", v), ("w", w)):
+    for arg, x in (("r", r), ("k", k), ("v", v), ("w", w)):
         if x.stride(-1) != 1:
-            raise ValueError(f"{name}'s last dimension must be contiguous")
+            raise ValueError(f"{arg}'s last dimension must be contiguous")
 
 
 def wkv_chunked_matmul(
@@ -158,7 +161,7 @@ def wkv_chunked_matmul(
         return wkv_chunked_matmul_plain(r, k, v, w, u, chunk=chunk)
     if r.device.type != "cuda":
         raise ValueError(f"wkv_chunked runs on cuda or cpu, not {r.device}")
-    _check_cuda_inputs(r, k, v, w, u)
+    check_cuda_inputs("wkv_chunked", r, k, v, w, u)
     B, S, H, K = r.shape
     V = v.shape[-1]
     T = _check_chunk(S, chunk)

@@ -1,0 +1,9 @@
+"""Launch helpers (counterpart of ``repro.launch``): the planned virtual
+mesh (:mod:`.mesh`) and the training launcher's ``build_mesh`` (:mod:`.train`).
+
+The reference's production meshes, dry-run specs, HLO analysis and serve
+launcher are not ported (ROADMAP.md §1 slice 6, item 15).
+"""
+
+from .mesh import PlannedMesh, make_mesh, make_planned_mesh  # noqa: F401
+from .train import apply_planned, build_mesh, parse_mesh, planning_session  # noqa: F401

@@ -15,6 +15,8 @@ tests can swap instances with the ``set_*`` functions.
 
 from __future__ import annotations
 
+from typing import Any, Optional
+
 from .capture import OpRecord, WorkloadRecorder, WorkloadTrace
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
 from .trace import NULL_SPAN, Span, Tracer
@@ -30,6 +32,7 @@ __all__ = [
     "Tracer",
     "WorkloadRecorder",
     "WorkloadTrace",
+    "configure",
     "metrics",
     "recorder",
     "set_metrics",
@@ -77,3 +80,20 @@ def set_recorder(r: WorkloadRecorder) -> WorkloadRecorder:
     global _recorder
     prev, _recorder = _recorder, r
     return prev
+
+
+def configure(obs_config: Optional[Any]) -> None:
+    """Apply a ``SessionConfig.obs`` section to the process singletons.
+
+    Duck-typed (``enabled`` / ``buffer`` / ``capture`` / ``metrics``
+    attributes) so ``repro_torch.obs`` stays import-independent of
+    ``repro_torch.session``.  A ``None`` config is a no-op.
+    """
+    if obs_config is None:
+        return
+    _tracer.set_enabled(bool(getattr(obs_config, "enabled", False)))
+    buf = int(getattr(obs_config, "buffer", 0) or 0)
+    if buf and buf != _tracer.buffer:
+        _tracer.set_buffer(buf)
+    _metrics.enabled = bool(getattr(obs_config, "metrics", True))
+    _recorder.enabled = bool(getattr(obs_config, "capture", False))

@@ -9,12 +9,19 @@ The manual chain this package serves::
     entry  = plan.lookup("all-reduce", payload_bytes)
     reducer = reducer_from_plan(plan, payload_bytes)  # repro_torch.train
 
-Only the compiler and the fabric fingerprint are ported; the plan cache,
-the drift monitor and the planning service wait for slice 4b
-(ROADMAP.md §1).
+Beside the compiler: the fingerprint-keyed :class:`PlanCache` with its
+:class:`DriftMonitor`, and the :class:`PlanningService` that dedups
+concurrent compiles.  Most callers go through
+:class:`repro_torch.session.Session`, which owns all three.
 """
 
-from .cache import FabricFingerprint, fabric_fingerprint  # noqa: F401
+from .cache import (  # noqa: F401
+    DriftMonitor,
+    DriftReport,
+    FabricFingerprint,
+    PlanCache,
+    fabric_fingerprint,
+)
 from .compiler import (  # noqa: F401
     CollectiveRequest,
     JobMix,
@@ -25,3 +32,4 @@ from .compiler import (  # noqa: F401
     candidate_algorithms,
     size_bucket,
 )
+from .service import PlanningService  # noqa: F401

@@ -1,33 +1,62 @@
-"""Fabric fingerprints: the key a compiled plan is stored and matched under.
+"""Fingerprint-keyed plan cache with drift-based invalidation (a copy of
+``repro.plan.cache``).
 
-A copy of the fingerprint half of ``repro.plan.cache``.  A plan's rank
-permutations refer to concrete node ids, so the fingerprint must be
-*order-sensitive* (a re-scrambled IP list must not hit a stale plan) yet
-*noise-robust* (re-probing the same fabric must hit the cache).  Exact
-hashing of quantized costs is boundary-brittle — with n^2 elements some
-always sit on a bin edge — so :func:`fabric_fingerprint` builds a
-**sketch**: per-node log2 row medians (order-sensitive, median-of-n is
-stable under per-pair probe noise) plus the global log2 percentile
-profile (shape of the cost distribution).  Lookups match sketches
-fuzzily (:meth:`FabricFingerprint.matches`, max component distance below
+**Fingerprinting.**  A plan's rank permutations refer to concrete node
+ids, so the fingerprint must be *order-sensitive* (a re-scrambled IP
+list must not hit a stale plan) yet *noise-robust* (re-probing the same
+fabric must hit the cache).  Exact hashing of quantized costs is
+boundary-brittle — with n^2 elements some always sit on a bin edge — so
+:func:`fabric_fingerprint` builds a **sketch**: per-node log2 row
+medians (order-sensitive, median-of-n is stable under per-pair probe
+noise) plus the global log2 percentile profile (shape of the cost
+distribution).  Cache lookups match sketches fuzzily
+(:meth:`FabricFingerprint.matches`, max component distance below
 ``tol`` octaves); the exact ``digest`` — a coarse hash — is only an id
 for filenames and logs.
 
-The reference's ``PlanCache`` and ``DriftMonitor`` (the LRU and JSON
-store, drift-driven invalidation) are not ported yet (ROADMAP.md §1
-slice 4b); :class:`~repro_torch.plan.compiler.PlanCompiler` needs only
-the fingerprint.
+**Cache.**  :class:`PlanCache` is a thread-safe in-memory LRU over
+(fingerprint, request key) with an optional JSON directory store:
+entries persist across processes as one self-describing file per plan
+(the serialized :class:`~repro_torch.plan.compiler.Plan` embeds its
+fingerprint, so the store can be re-matched fuzzily after reload).
+
+**Drift.**  :class:`DriftMonitor` wires invalidation to
+:class:`repro_torch.core.dynamic.AdaptiveReranker`: one reranker per plan
+entry watches refreshed cost matrices (re-probes, TCP_INFO-style
+monitoring, straggler detectors); when an entry's order degrades past
+the reranker threshold, the monitor patches the entry with the
+reranker's bottleneck-swap repair (cheap hot fix) and invalidates the
+cached plan so the next request recompiles from scratch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Optional, Tuple
+import json
+import os
+import threading
+import warnings
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["FabricFingerprint", "fabric_fingerprint", "DEFAULT_TOL"]
+from repro_torch import obs
+from repro_torch.core.cost_models import make_cost_model
+from repro_torch.core.dynamic import AdaptiveReranker
+
+from repro_torch.collective import get_builder
+
+from .compiler import EntryKey, Plan, PlanEntry
+
+__all__ = [
+    "FabricFingerprint",
+    "fabric_fingerprint",
+    "PlanCache",
+    "DriftMonitor",
+    "DriftReport",
+]
 
 #: Default fuzzy-match tolerance in octaves.  Probe noise moves row
 #: log-medians by ~0.01 octaves; real structural change (a congested
@@ -110,7 +139,7 @@ def _tree_fingerprint(c: np.ndarray, bw: Optional[np.ndarray],
     per-node row medians and anchor columns barely move across
     re-probes *of the same probe structure* — the same landmark/refine
     pair set, which is what deterministic probe configs and the
-    ``refresh_sparse`` (the sparse probe of the reference; not ported yet) drift path re-measure (the
+    :func:`repro_torch.fabric.refresh_sparse` drift path re-measure (the
     per-pair noise the dense sketch has to tolerate was medianed away
     at completion time).  A re-randomized landmark set is a different
     probe structure and is not promised to match.  The
@@ -178,3 +207,318 @@ def fabric_fingerprint(cost_matrix: np.ndarray,
     coarse = tuple(int(x) for x in np.round(np.asarray(sketch) / 1.0))
     digest = hashlib.sha256(repr((n,) + coarse).encode()).hexdigest()[:16]
     return FabricFingerprint(n=n, sketch=sketch, digest=f"fab{n}-{digest}")
+
+
+def _request_tag(request_key: str) -> str:
+    return hashlib.sha256(request_key.encode()).hexdigest()[:12]
+
+
+def _sketch_tag(fingerprint: FabricFingerprint) -> str:
+    """Exact-sketch hash: uniquifies cache slots so two fabrics whose
+    coarse digests collide (sketches round alike but differ by > tol)
+    cannot overwrite each other's plans.  Lookups never use it — they
+    match sketches fuzzily — so its boundary-sensitivity is harmless."""
+    return hashlib.sha256(
+        np.asarray(fingerprint.sketch, dtype=np.float64).tobytes()
+    ).hexdigest()[:10]
+
+
+class PlanCache:
+    """Thread-safe LRU + optional persistent JSON store of compiled plans.
+
+    Keys are (fabric fingerprint, request key); fingerprint comparison is
+    fuzzy (sketch distance), the request key (job-mix key + mesh shape)
+    is exact.
+    """
+
+    def __init__(self, capacity: int = 32, store_dir: Optional[str] = None,
+                 tol: float = DEFAULT_TOL):
+        self.capacity = int(capacity)
+        self.store_dir = store_dir
+        self.tol = float(tol)
+        self._lock = threading.RLock()
+        #: insertion-ordered: (digest, request_key) -> Plan
+        self._mem: "OrderedDict[Tuple[str, str], Plan]" = OrderedDict()
+        self.stats = {"hits": 0, "disk_hits": 0, "misses": 0,
+                      "puts": 0, "invalidations": 0}
+        if store_dir:
+            os.makedirs(store_dir, exist_ok=True)
+
+    # -- core API ---------------------------------------------------------
+    def get(self, fingerprint: FabricFingerprint,
+            request_key: str = "") -> Optional[Plan]:
+        with self._lock:
+            for key, plan in reversed(self._mem.items()):
+                if key[-1] == request_key and \
+                        fingerprint.matches(plan.fingerprint, self.tol):
+                    self._mem.move_to_end(key)
+                    self.stats["hits"] += 1
+                    obs.metrics().counter("plan.cache.hits").inc()
+                    return plan
+            plan = self._load_from_store(fingerprint, request_key)
+            if plan is not None:
+                self._insert(plan, request_key)
+                self.stats["disk_hits"] += 1
+                obs.metrics().counter("plan.cache.disk_hits").inc()
+                return plan
+            self.stats["misses"] += 1
+            obs.metrics().counter("plan.cache.misses").inc()
+            return None
+
+    def peek_mem(self, fingerprint: FabricFingerprint,
+                 request_key: str = "") -> Optional[Plan]:
+        """Memory-only probe: no disk scan, no stats, no LRU touch.
+
+        For callers (the planning service) that must re-check under
+        their own lock without serializing everyone behind store I/O.
+        """
+        with self._lock:
+            for key, plan in reversed(self._mem.items()):
+                if key[-1] == request_key and \
+                        fingerprint.matches(plan.fingerprint, self.tol):
+                    return plan
+            return None
+
+    def put(self, plan: Plan, request_key: str = "") -> None:
+        with self._lock:
+            self._insert(plan, request_key)
+            self.stats["puts"] += 1
+            obs.metrics().counter("plan.cache.puts").inc()
+            if self.store_dir:
+                path = self._path(plan.fingerprint, request_key)
+                tmp = path + ".tmp"
+                with open(tmp, "w") as f:
+                    f.write(plan.to_json())
+                os.replace(tmp, path)
+
+    def invalidate(self, fingerprint: FabricFingerprint,
+                   request_key: Optional[str] = None) -> int:
+        """Drop every plan whose fingerprint fuzzily matches.
+
+        ``request_key=None`` (drift semantics: the *fabric* changed)
+        drops all mixes compiled against the fabric; a specific key
+        drops just that plan.  Returns the number of entries dropped.
+        """
+        dropped = 0
+        with self._lock:
+            for key in list(self._mem):
+                plan = self._mem[key]
+                if request_key is not None and key[-1] != request_key:
+                    continue
+                if fingerprint.matches(plan.fingerprint, self.tol):
+                    del self._mem[key]
+                    dropped += 1
+            if self.store_dir:
+                tag = None if request_key is None else _request_tag(request_key)
+                for fname, plan_fp, _rk in self._store_index():
+                    if tag is not None and not fname.endswith(f"__{tag}.json"):
+                        continue
+                    if plan_fp is not None and fingerprint.matches(plan_fp, self.tol):
+                        try:
+                            os.remove(os.path.join(self.store_dir, fname))
+                            dropped += 1
+                        except OSError:
+                            pass
+            self.stats["invalidations"] += dropped
+            if dropped:
+                obs.metrics().counter("plan.cache.invalidations").inc(dropped)
+        return dropped
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._mem)
+
+    # -- internals --------------------------------------------------------
+    def _insert(self, plan: Plan, request_key: str) -> None:
+        key = (plan.fingerprint.digest, _sketch_tag(plan.fingerprint),
+               request_key)
+        self._mem[key] = plan
+        self._mem.move_to_end(key)
+        while len(self._mem) > self.capacity:
+            self._mem.popitem(last=False)
+
+    def _path(self, fingerprint: FabricFingerprint, request_key: str) -> str:
+        assert self.store_dir
+        return os.path.join(
+            self.store_dir,
+            f"{fingerprint.digest}-{_sketch_tag(fingerprint)}"
+            f"__{_request_tag(request_key)}.json")
+
+    def _quarantine(self, fname: str, error: Exception) -> None:
+        """Rename an unreadable store file to ``*.corrupt`` (skipped by
+        every future scan) instead of re-parsing — and re-failing — it
+        on every lookup.  A truncated write (a crashed process, a full
+        disk) must cost one warning, not poison ``get()`` forever."""
+        path = os.path.join(self.store_dir, fname)
+        try:
+            os.replace(path, path + ".corrupt")
+            note = f"quarantined as {fname}.corrupt"
+        except OSError as rename_err:
+            note = f"quarantine rename failed: {rename_err}"
+        obs.tracer().event("plan.cache.quarantine", file=fname,
+                           error=f"{type(error).__name__}: {error}")
+        obs.metrics().counter("plan.cache.quarantines").inc()
+        # stacklevel walks _quarantine -> _store_index/_load_from_store
+        # -> get/invalidate -> the caller outside the cache (4 frames):
+        # the warning should point at whoever asked for the plan, not at
+        # cache internals
+        warnings.warn(
+            f"plan cache store file {fname} is corrupted "
+            f"({type(error).__name__}: {error}); {note}",
+            RuntimeWarning, stacklevel=4)
+
+    def _store_index(self) -> List[Tuple[str, Optional[FabricFingerprint],
+                                         Optional[str]]]:
+        if not self.store_dir or not os.path.isdir(self.store_dir):
+            return []
+        out = []
+        for fname in sorted(os.listdir(self.store_dir)):
+            if not fname.endswith(".json"):
+                continue
+            try:
+                with open(os.path.join(self.store_dir, fname)) as f:
+                    d = json.load(f)
+                fp = FabricFingerprint.from_dict(d["fingerprint"])
+                rk = str(d.get("mix_key", ""))
+                out.append((fname, fp, rk))
+            except (OSError, ValueError, KeyError, TypeError) as e:
+                self._quarantine(fname, e)
+        return out
+
+    def _load_from_store(self, fingerprint: FabricFingerprint,
+                         request_key: str) -> Optional[Plan]:
+        if not self.store_dir:
+            return None
+        tag = _request_tag(request_key)
+        for fname in sorted(os.listdir(self.store_dir)):
+            if not fname.endswith(f"__{tag}.json"):
+                continue
+            try:
+                with open(os.path.join(self.store_dir, fname)) as f:
+                    plan = Plan.from_json(f.read())
+            except (OSError, ValueError, KeyError, TypeError) as e:
+                self._quarantine(fname, e)
+                continue
+            if fingerprint.matches(plan.fingerprint, self.tol):
+                return plan
+        return None
+
+
+@dataclasses.dataclass
+class DriftReport:
+    stale: bool
+    degraded: List[EntryKey]
+    repaired: Dict[EntryKey, Tuple[int, ...]]
+    invalidated: int = 0
+
+
+class DriftMonitor:
+    """Per-entry :class:`AdaptiveReranker`s that invalidate a cached plan.
+
+    ``reference_cost_matrix`` is the matrix the plan was compiled
+    against (it seeds each reranker's reference cost); ``observe`` feeds
+    refreshed matrices.  When any entry degrades past ``threshold`` x
+    its reference, the entry is hot-patched with the reranker's
+    bottleneck-swap repair and the plan is evicted from ``cache``.
+    """
+
+    def __init__(self, plan: Plan, reference_cost_matrix: np.ndarray,
+                 cache: Optional[PlanCache] = None, threshold: float = 1.15):
+        self.plan = plan
+        self.cache = cache
+        self.threshold = float(threshold)
+        self._rerankers: Dict[EntryKey, AdaptiveReranker] = {}
+        ref = np.asarray(reference_cost_matrix, dtype=np.float64)
+        for key, entry in plan.entries.items():
+            factory = self._factory(entry)
+            rr = AdaptiveReranker(
+                model_factory=factory,
+                perm=entry.local_perm.copy(),
+                threshold=self.threshold,
+            )
+            rr.update(self._sub(ref, entry))       # seeds reference_cost
+            self._rerankers[key] = rr
+
+    def set_threshold(self, threshold: float) -> None:
+        """Adjust drift sensitivity on the live monitor (all rerankers)."""
+        self.threshold = float(threshold)
+        for rr in self._rerankers.values():
+            rr.threshold = float(threshold)
+
+    @staticmethod
+    def _sub(c: np.ndarray, entry: PlanEntry) -> np.ndarray:
+        g = np.asarray(entry.group, dtype=np.int64)
+        return c[np.ix_(g, g)]
+
+    @staticmethod
+    def _factory(entry: PlanEntry):
+        m_algo = get_builder(entry.algo).cost_model
+        kwargs = {"base": entry.algo_kwargs["base"]} \
+            if "base" in entry.algo_kwargs else {}
+
+        def make(c: np.ndarray):
+            return make_cost_model(m_algo, cost_matrix=c, size_bytes=0.0,
+                                   **kwargs)
+
+        return make
+
+    def observe(self, cost_matrix: np.ndarray) -> DriftReport:
+        """Feed a refreshed full-fabric cost matrix; see class docstring.
+
+        Rejects malformed observations with :class:`ValueError` — a NaN
+        from a corrupted probe sample fed into the rerankers would
+        silently poison every solver delta downstream.
+        """
+        c = np.asarray(cost_matrix, dtype=np.float64)
+        if c.ndim != 2 or c.shape[0] != c.shape[1]:
+            raise ValueError(
+                f"DriftMonitor.observe cost_matrix must be a square "
+                f"[n, n] matrix; got shape {c.shape}")
+        if c.shape[0] != self.plan.n:
+            raise ValueError(
+                f"DriftMonitor.observe cost_matrix covers {c.shape[0]} "
+                f"nodes but the plan covers {self.plan.n}; after an "
+                f"elastic membership change, rebuild the monitor from "
+                f"the recovered plan")
+        if np.isnan(c).any():
+            bad = int(np.isnan(c).sum())
+            raise ValueError(
+                f"DriftMonitor.observe cost_matrix contains {bad} NaN "
+                f"entr{'y' if bad == 1 else 'ies'}; drop or re-probe the "
+                f"corrupted samples before observing")
+        if (c < 0).any():
+            i, j = np.argwhere(c < 0)[0]
+            raise ValueError(
+                f"DriftMonitor.observe cost_matrix contains negative "
+                f"entries (first at [{i}, {j}] = {c[i, j]}); costs are "
+                f"times and must be >= 0")
+        degraded: List[EntryKey] = []
+        repaired: Dict[EntryKey, Tuple[int, ...]] = {}
+        for key, rr in self._rerankers.items():
+            entry = self.plan.entries[key]
+            new_local, changed = rr.update(self._sub(c, entry))
+            if changed:
+                degraded.append(key)
+                g = np.asarray(entry.group, dtype=np.int64)
+                new_perm = tuple(int(x) for x in g[np.asarray(new_local)])
+                repaired[key] = new_perm
+                entry.perm = new_perm              # hot patch until recompile
+        stale = bool(degraded)
+        invalidated = 0
+        if stale:
+            self.plan.meta["stale"] = True
+            if self.cache is not None:
+                invalidated = self.cache.invalidate(self.plan.fingerprint)
+        m = obs.metrics()
+        m.counter("drift.observations").inc()
+        m.gauge("drift.degraded_entries").set(len(degraded))
+        # drift score: fraction of plan entries past their reranker
+        # threshold this observation — 0.0 on a quiet fabric
+        m.gauge("drift.score").set(
+            len(degraded) / max(len(self.plan.entries), 1))
+        if stale:
+            m.counter("drift.stale").inc()
+            obs.tracer().event("drift.stale", degraded=len(degraded),
+                               invalidated=invalidated)
+        return DriftReport(stale=stale, degraded=degraded,
+                           repaired=repaired, invalidated=invalidated)

@@ -1,6 +1,8 @@
 """Training (counterpart of ``repro.train``): the baseline step and the
 overlapped data-parallel step over a certified, rank-reordered all-reduce,
-built by hand or from a compiled plan (:func:`reducer_from_plan`)."""
+built by hand or from a compiled plan (:func:`reducer_from_plan`), and the
+fault-tolerant :class:`Trainer` that runs a step with checkpoints, elastic
+restarts and re-ranking."""
 
 from .overlap_grads import (  # noqa: F401
     OVERLAP_MODES,
@@ -14,3 +16,4 @@ from .overlap_grads import (  # noqa: F401
     stacked_grads,
 )
 from .train_step import TrainState, init_state, make_train_step  # noqa: F401
+from .trainer import ClusterView, NodeFailure, Trainer, TrainerConfig  # noqa: F401

@@ -1,5 +1,6 @@
-"""``python -m repro_torch serve`` on the CPU (smoke config)."""
+"""``python -m repro_torch`` on the CPU: serve, probe, plan and train (smoke configs)."""
 
+import json
 import os
 import subprocess
 import sys
@@ -50,3 +51,74 @@ def test_smoke_is_off_by_default():
     # the reference's default arch; the dense prefill through the kernel
     assert args.arch == "qwen2-0.5b" and args.attention_impl == "flash"
     assert build_parser().parse_args(["serve", "--smoke"]).smoke is True
+
+
+# the session arguments of a small planning run, shared by both CLIs
+PLAN_ARGS = ["--nodes", "8", "--scramble-seed", "1", "--mesh", "8",
+             "--axes", "data", "--payload-bytes", "988065536", "--iters", "300",
+             "--chains", "2"]
+
+
+def test_probe_in_process(capsys, tmp_path):
+    from repro_torch.cli import main
+
+    out = str(tmp_path / "probe.json")
+    assert main(["probe", "--nodes", "8", "--sparse", "--probe-budget", "0.5",
+                 "--out", out]) == 0
+    text = capsys.readouterr().out
+    assert "[probe] fabric=datacenter n=8" in text and "[probe] sparse:" in text
+    assert len(json.load(open(out))["lat"]) == 8
+
+
+def test_plan_digest_equals_repro_plan(capsys):
+    from repro.cli import main as ref_main
+    from repro_torch.cli import main
+
+    def digest():
+        line = [ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("[plan]")][0]
+        return line.split()[2]
+
+    assert ref_main(["plan", *PLAN_ARGS, "--dry-run"]) == 0
+    want = digest()
+    assert main(["plan", *PLAN_ARGS, "--dry-run"]) == 0
+    assert digest() == want
+    assert main(["plan", *PLAN_ARGS, "--dump-config"]) == 0
+    cfg = json.loads(capsys.readouterr().out)
+    assert cfg["mesh"]["shape"] == [8] and cfg["payload_bytes"] == 988065536.0
+
+
+@pytest.mark.parametrize("reorder", ["simulate", "none"])
+def test_train_smoke_in_process(capsys, tmp_path, reorder):
+    """A planned (or identity-order) data-parallel run over 4 virtual ranks
+    through the runner transport; the loss falls over 12 steps."""
+    from repro_torch.cli import main
+
+    assert main(["train", "--smoke", "--device", "cpu", "--mesh", "4",
+                 "--batch", "8", "--seq", "32", "--steps", "12",
+                 "--lr", "1e-2", "--reorder", reorder, "--probe-seed", "0",
+                 "--ckpt-dir", str(tmp_path)]) == 0
+    text = capsys.readouterr().out
+    report = json.loads(text.split("[train] report ")[1].splitlines()[0])
+    assert report["steps"] == 12 and report["ranks"] == 4
+    assert report["transport"] == "runner" and report["algorithm"] == "ring"
+    assert (report["plan_digest"] is None) == (reorder == "none")
+    losses = report["losses"]
+    assert sum(losses[-3:]) / 3 < sum(losses[:3]) / 3 - 0.03, losses
+    assert report["checkpoint"]["step"] == 12
+    assert "[train] arch=qwen2-0.5b-smoke steps=12" in text
+
+
+def test_train_refuses_what_is_not_ported(tmp_path):
+    from repro_torch.cli import build_parser, main
+
+    args = build_parser().parse_args(["train"])
+    assert args.smoke is False and args.device == "cuda"
+    # the transport follows the device: peer_ring on CUDA, runner on the CPU
+    assert args.reorder == "simulate" and not hasattr(args, "transport")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        main(["train", "--smoke", "--device", "cpu", "--mesh", "2",
+              "--reorder", "probe", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        main(["train", "--smoke", "--device", "cpu", "--mesh", "2x2",
+              "--reorder", "none", "--ckpt-dir", str(tmp_path)])

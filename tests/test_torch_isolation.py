@@ -55,7 +55,30 @@ def test_importing_every_module_loads_no_jax_or_repro():
                        text=True, env=env, cwd=ROOT, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     assert "BAD []" in r.stdout, r.stdout
-    assert int(r.stdout.split("LOADED ")[1].split()[0]) >= 40
+    assert int(r.stdout.split("LOADED ")[1].split()[0]) >= 80
+
+
+# the session/trainer slice and the scan kernel: each a file of the port
+# that imports neither JAX nor ``repro``, and loads in this process
+NEW_MODULES = [
+    "repro_torch.core.dynamic", "repro_torch.faults.health",
+    "repro_torch.faults.retry", "repro_torch.faults.ladder",
+    "repro_torch.fabric.sparse", "repro_torch.plan.cache",
+    "repro_torch.plan.service", "repro_torch.session.config",
+    "repro_torch.session.session", "repro_torch.launch.mesh",
+    "repro_torch.launch.train", "repro_torch.checkpoint.ckpt",
+    "repro_torch.train.trainer", "repro_torch.kernels.rwkv6_scan",
+]
+
+
+@pytest.mark.parametrize("name", NEW_MODULES)
+def test_session_and_trainer_modules_stand_alone(name):
+    import importlib
+
+    path = os.path.join(ROOT, "src", *name.split(".")) + ".py"
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+    assert importlib.import_module(name).__doc__
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
@@ -73,6 +96,13 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["serve", "--smoke", "--batch", "1", "--prompt-len", "16",
               "--max-new", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["train", "--smoke", "--steps", "1", "--mesh", "2"])
+    from repro_torch.launch import make_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh((2,), ("data",))
+    assert make_mesh((2,), ("data",), device="cpu").order == (0, 1)
     assert get_model(cfg, device="cpu").device.type == "cpu"
 
 
@@ -107,6 +137,10 @@ def test_lazy_exports():
     import repro_torch
 
     assert repro_torch.get_config("rwkv6-1.6b").n_layers == 24
+    assert repro_torch.Session is __import__("repro_torch.session").session.Session
+    assert repro_torch.SessionConfig().payload_bytes == 4e6
+    assert repro_torch.Trainer.__name__ == "Trainer"
+    assert repro_torch.TrainerConfig().total_steps == 100
     assert repro_torch.default_device().type == "cuda"
     assert repro_torch.on_cuda() == torch.cuda.is_available()
     with pytest.raises(AttributeError):
