@@ -18,12 +18,16 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    training run's largest reduce and its largest bucket payload, in f32
    and bf16, out of place and in place (bit-equal), beside ``torch.add``
    (both timed by CUDA-graph replay: device time without the host's); the
-   flash-attention kernel on the seven ``FLASH_CASES`` shapes of
+   flash-attention kernels on the seven ``FLASH_CASES`` shapes of
    ``tests/test_kernels.py`` and on ragged tails, head width 256 and a
-   window in f32 and bf16, and on one glm4-9b layer at
-   the serving shape (8 x 32 heads / 2 kv heads x 2048 x 128, causal) in
-   bf16 and f32, timed beside ``F.scaled_dot_product_attention`` (the
-   library yardstick, never on the path); the peer-memory ring
+   window in f32 and bf16, and at head widths 64 and 128 (``flash_fwd_wgmma``
+   in bf16) on S below a tile, ragged S, GQA 16, a window, no mask and the
+   model's transposed q/k/v views, each launch counted by kernel and run
+   twice for the same bits; then on one glm4-9b layer at the serving shape
+   (8 x 32 heads / 2 kv heads x 2048 x 128, causal) in bf16 and f32 and one
+   qwen2-0.5b layer (8 x 14 / 2 x 2048 x 64) in bf16, timed beside
+   ``F.scaled_dot_product_attention`` (the library yardstick, never on the
+   path); the peer-memory ring
    reduce-scatter at n = 2, 3, 4, 8 (odd chunk lengths, several ring
    orders, the plan's among them) and at every bucket shape of the planned
    training path, bit for bit against its plain version and against
@@ -57,7 +61,8 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    spy); then full-width ``glm4-9b`` (bf16,
    ``attention_impl="flash"``) serves 8 requests of 2048-token prompts
    and 32 new tokens after a warm-up wave, counted (40 flash launches, one
-   a layer of the prefill), timed and profiled the same way;
+   a layer of the prefill, every one ``flash_fwd_wgmma``), timed and
+   profiled the same way;
 6. the training path: full-width ``qwen2-0.5b`` (bf16, random weights
    from ``--seed``) over 8 virtual data-parallel ranks of 2 x 1024
    tokens each, its gradients reduced by a certified ring all-reduce in
@@ -76,7 +81,9 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
 8. the user's entry point: ``python -m repro_torch train`` in process
    (``repro_torch.cli.main``) at full width — ``qwen2-0.5b``, an 8-rank
    mesh planned through a ``Session`` on a scrambled simulated fabric,
-   16 x 1024 tokens a step, 4 steps, the peer-memory ring a bucket, a
+   16 x 1024 tokens a step, 12 steps (the reference's 10-step warm-up of
+   the learning rate, so the loss is seen to fall), the peer-memory ring a
+   bucket, a
    checkpoint of the last step in a temporary directory (deleted after):
    the plan, the steps' times and losses, the exact ``peer_ring`` launch
    count, the reducer's CUDA-event time, peak memory and the checkpoint's
@@ -129,14 +136,30 @@ FLASH_CASES = [
     (2, 6, 3, 96, 8, 32, 32, True, 0),
 ]
 # beyond them: ragged tails (S not a multiple of the kernel's tiles), head
-# width 256 with a window (recurrentgemma's local attention), GQA 16
+# width 256 with a window (recurrentgemma's local attention), GQA 16; at
+# head widths 64 and 128 (flash_fwd_wgmma in bf16): S below a 128-row
+# tile, S = 130 and 200, GQA 16, a window of 70, no mask
 FLASH_EXTRA = [
     (1, 4, 2, 130, 64, 130, 130, True, 0),
     (2, 2, 1, 17, 8, 17, 17, True, 0),
     (1, 4, 2, 256, 256, 128, 128, True, 100),
     (1, 4, 1, 200, 32, 8, 8, False, 70),
     (1, 32, 2, 256, 128, 128, 128, True, 0),
+    (1, 2, 1, 64, 64, 64, 64, True, 0),
+    (1, 2, 1, 64, 128, 64, 64, True, 0),
+    (1, 4, 2, 130, 128, 130, 130, True, 0),
+    (2, 2, 1, 200, 64, 200, 200, True, 0),
+    (2, 2, 1, 200, 128, 200, 200, True, 0),
+    (1, 32, 2, 256, 64, 128, 128, True, 0),
+    (1, 4, 2, 256, 64, 128, 128, True, 70),
+    (1, 4, 2, 256, 128, 128, 128, True, 70),
+    (2, 4, 2, 256, 64, 128, 128, False, 0),
+    (2, 4, 2, 256, 128, 128, 128, False, 0),
 ]
+# the model's q/k/v: transposed views of [B, S, heads, hd] (models/layers.py
+# _qkv), at both wgmma head widths
+FLASH_VIEWS = [(2, 8, 2, 192, 64, 64, 64, True, 0),
+               (2, 8, 2, 192, 128, 64, 64, True, 0)]
 # flash kernel vs its plain version: f32 is the same math summed in another
 # order (the reference's f32 tolerance); bf16 also rounds each probability
 # to bf16 for the P.V product and the output once (about two bf16 ulps)
@@ -148,7 +171,7 @@ WKV_CASES = [(2, 32, 2, 8, 8, 8), (1, 64, 4, 16, 16, 16), (2, 16, 1, 8, 16, 16),
 # the train command of the user's entry point (phase 8)
 TRAIN_CLI = ["train", "--arch", TRAIN_ARCH, "--mesh", str(RANKS),
              "--batch", str(RANKS * ROWS_PER_RANK), "--seq", str(SEQ),
-             "--steps", "4", "--reorder", "simulate",
+             "--steps", "12", "--reorder", "simulate",
              "--payload-bytes", str(PLAN_PAYLOAD), "--lr", str(LR)]
 # kernel vs plain on the same inputs: the same f32 math summed in another
 # order (f32: the chunk-form tolerance of the CPU tests); bf16 y also
@@ -420,11 +443,14 @@ def check_small_model(seed: int) -> None:
 
 
 def check_flash_kernel(seed: int) -> dict:
-    """Phase 3: the flash kernel against its plain version, and its times.
+    """Phase 3: the flash kernels against their plain version, and times.
 
-    Every ``FLASH_CASES`` shape in f32 and bf16, then one glm4-9b layer at
-    the serving shape in bf16 and f32, timed beside the plain version and
-    ``F.scaled_dot_product_attention`` (the library yardstick only).
+    Every ``FLASH_CASES``/``FLASH_EXTRA`` shape in f32 and bf16 and the
+    ``FLASH_VIEWS`` in bf16, each launched twice (the same bits) and
+    counted by kernel; then one glm4-9b layer at the serving shape in bf16
+    and f32 and one qwen2-0.5b layer in bf16, timed beside the plain
+    version and ``F.scaled_dot_product_attention`` (the library yardstick
+    only).
     """
     import torch
     import torch.nn.functional as F
@@ -434,17 +460,34 @@ def check_flash_kernel(seed: int) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
 
-    def inputs(B, H, KV, S, hd, dtype):
-        return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                for shape in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd))]
+    def inputs(B, H, KV, S, hd, dtype, view=False):
+        shapes = ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)) if view else \
+            ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd))
+        xs = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+              for shape in shapes]
+        return [x.transpose(1, 2) for x in xs] if view else xs
 
-    def check(case, dtype):
+    def check(case, dtype, view=False):
         B, H, KV, S, hd, bq, bk, causal, window = case
-        q, k, v = inputs(B, H, KV, S, hd, getattr(torch, dtype))
+        q, k, v = inputs(B, H, KV, S, hd, getattr(torch, dtype), view)
         kw = dict(causal=causal, window=window, block_q=bq, block_k=bk)
+        before = dict(fa.flash_attention.kernel_launches)
         got = fa.flash_attention(q, k, v, **kw)
+        again = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        err = _check_close(f"flash_attention {dtype} {case}", got,
+        ran = {n for n in fa.KERNELS
+               if fa.flash_attention.kernel_launches[n] != before[n]}
+        want_kernel = ("flash_fwd_wgmma" if hd in (64, 128) else
+                       "flash_fwd_fma" if hd == 8 else "flash_fwd_mma") \
+            if dtype == "bfloat16" else "flash_fwd_fma"
+        if ran != {want_kernel}:
+            raise AssertionError(f"flash_attention {dtype} {case}: ran {ran}, "
+                                 f"expected {want_kernel}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"flash_attention {dtype} {case}: a second "
+                                 f"launch gave other bits")
+        err = _check_close(f"flash_attention {dtype} {case}"
+                           f"{' (views)' if view else ''}", got,
                            fa.flash_attention_plain(q, k, v, **kw),
                            *FLASH_TOL[dtype])
         return err, (q, k, v)
@@ -454,9 +497,23 @@ def check_flash_kernel(seed: int) -> dict:
         for dtype in ("float32", "bfloat16"):
             err, _ = check(case, dtype)
             worst[dtype] = max(worst.get(dtype, 0.0), err)
+    for case in FLASH_VIEWS:
+        err, _ = check(case, "bfloat16", view=True)
+        worst["bfloat16"] = max(worst["bfloat16"], err)
     _say(f"flash_attention == plain on the {len(FLASH_CASES)} FLASH_CASES "
-         f"shapes and {len(FLASH_EXTRA)} more, in f32 and bf16: max abs err "
+         f"shapes and {len(FLASH_EXTRA)} more in f32 and bf16, and "
+         f"{len(FLASH_VIEWS)} transposed views in bf16, each the kernel its "
+         f"dtype and width select and the same bits twice: max abs err "
          f"{worst}")
+
+    def bound(B, H, KV, S, hd):
+        flops, moved = fa.work(B, H, KV, S, hd, True, 0, itemsize=2)
+        return flops, moved, max(flops / BF16_FLOPS_PER_S * 1e3,
+                                 moved / HBM_BYTES_PER_S * 1e3)
+
+    def sdpa(q, k, v):
+        return _graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 5)
 
     cfg = _dense_cfg()
     B, H, KV, S, hd = (DENSE_BATCH, cfg.n_heads, cfg.n_kv_heads, DENSE_PROMPT,
@@ -470,20 +527,37 @@ def check_flash_kernel(seed: int) -> dict:
             _time_ms(lambda: fa.flash_attention_plain(q, k, v), 3, warmup=1),
         )
         if dtype == "bfloat16":
-            lib = _graph_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), 5)
+            lib = sdpa(q, k, v)
         _say(f"flash_attention {dtype} [{B},{H}/{KV},{S},{hd}] causal: max abs "
              f"err vs plain {errs[dtype]:.3e}; kernel {times[dtype][0]:.4f} ms, "
              f"plain {times[dtype][1]:.4f} ms")
         del q, k, v
         torch.cuda.empty_cache()
-    flops, moved = fa.work(B, H, KV, S, hd, True, 0, itemsize=2)
+    flops, moved, t_bound = bound(B, H, KV, S, hd)
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     _say(f"flash_attention bf16 work: {flops} FLOP, {moved} bytes -> "
          f"{t_ops:.4f} ms at 989 TFLOP/s bf16, {t_bytes:.4f} ms at 3.35 TB/s; "
-         f"kernel at {t_ops / times['bfloat16'][0]:.3f} of the bound; SDPA "
+         f"kernel at {t_bound / times['bfloat16'][0]:.3f} of the bound; SDPA "
          f"(library yardstick) {lib:.4f} ms")
+
+    from repro_torch.configs import get_config
+
+    qcfg = get_config(TRAIN_ARCH)      # qwen2-0.5b: 14 / 2 heads of 64
+    qshape = (DENSE_BATCH, qcfg.n_heads, qcfg.n_kv_heads, DENSE_PROMPT,
+              qcfg.head_dim)
+    q_err, (q, k, v) = check(qshape + (128, 128, True, 0), "bfloat16")
+    q_ms = _graph_ms(lambda: fa.flash_attention(q, k, v), 5)
+    q_plain = _time_ms(lambda: fa.flash_attention_plain(q, k, v), 3, warmup=1)
+    q_lib = sdpa(q, k, v)
+    _, _, q_bound = bound(*qshape)
+    _say(f"flash_attention bf16 {TRAIN_ARCH} layer [{qshape[0]},{qshape[1]}/"
+         f"{qshape[2]},{qshape[3]},{qshape[4]}] causal: max abs err vs plain "
+         f"{q_err:.3e}; kernel {q_ms:.4f} ms, plain {q_plain:.4f} ms, SDPA "
+         f"{q_lib:.4f} ms, bound {q_bound:.4f} ms (kernel at "
+         f"{q_bound / q_ms:.3f} of it)")
+    del q, k, v
+    torch.cuda.empty_cache()
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -498,9 +572,15 @@ def check_flash_kernel(seed: int) -> dict:
         "plain_ms": times["bfloat16"][1],
         "ms_f32": times["float32"][0],
         "plain_ms_f32": times["float32"][1],
-        "bound_ms": max(t_bytes, t_ops),
+        "bound_ms": t_bound,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": lib,           # F.scaled_dot_product_attention, bf16
+        "shape_qwen2": list(qshape),
+        "ms_qwen2": q_ms,
+        "plain_ms_qwen2": q_plain,
+        "bound_ms_qwen2": q_bound,
+        "library_ms_qwen2": q_lib,
+        "max_abs_err_qwen2": q_err,
     }
 
 
@@ -559,6 +639,8 @@ def serve_dense_full_width(seed: int, card: str) -> dict:
     from repro_torch.serve import GenerationConfig, GenerationEngine
     from repro_torch.serve.engine import _grow_cache
 
+    from repro_torch.kernels import flash_attention as fa
+
     counted = _counted()
     cfg = _dense_cfg()
     model = get_model(cfg, device="cuda")
@@ -577,17 +659,21 @@ def serve_dense_full_width(seed: int, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for fn in counted.values():
         fn.launches = 0
+    fa.flash_attention.kernel_launches = dict.fromkeys(fa.KERNELS, 0)
     t0 = time.monotonic()
     outs = eng.generate(prompts)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: fn.launches for name, fn in counted.items()}
+    by_kernel = dict(fa.flash_attention.kernel_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    if launches["flash_attention"] != cfg.n_layers:
+    if launches["flash_attention"] != cfg.n_layers or \
+            by_kernel["flash_fwd_wgmma"] != cfg.n_layers:
         raise AssertionError(f"flash_attention launched "
                              f"{launches['flash_attention']} times in one "
-                             f"prefill, expected {cfg.n_layers}")
+                             f"prefill ({by_kernel}), expected {cfg.n_layers}, "
+                             f"all flash_fwd_wgmma")
     if len(outs) != DENSE_BATCH or any(len(o) != DENSE_NEW for o in outs):
         raise AssertionError(f"not every request got {DENSE_NEW} tokens: "
                              f"{[len(o) for o in outs]}")
@@ -619,6 +705,7 @@ def serve_dense_full_width(seed: int, card: str) -> dict:
         "decode_step_ms": step_ms,
         "decode_tok_per_s": DENSE_BATCH / (step_ms / 1e3),
         "peak_mem_gb": peak_gb, "launches": launches,
+        "flash_kernel_launches": by_kernel,
         "profile_prefill": prof_prefill, "profile_decode": prof_decode,
         "card": card,
     }
@@ -627,7 +714,8 @@ def serve_dense_full_width(seed: int, card: str) -> dict:
          f"tokens in {wall:.3f} s; prefill {prefill_ms:.3f} ms "
          f"({res['prefill_tok_per_s']:.0f} tok/s); decode {step_ms:.3f} ms/step "
          f"({res['decode_tok_per_s']:.1f} tok/s); peak memory {peak_gb:.3f} GB; "
-         f"flash_attention launches {launches['flash_attention']} [{card}]")
+         f"flash_attention launches {launches['flash_attention']} "
+         f"({by_kernel}) [{card}]")
     _say("serve dense " + json.dumps(res))
     return res
 

@@ -42,6 +42,9 @@ __all__ = ["main", "build_parser", "session_config_from_args"]
 
 #: the reducer's bucket payload when no plan supplies one (``--reorder none``)
 DEFAULT_BUCKET_BYTES = 4 * 1024 * 1024
+#: linear warm-up steps of ``train``'s learning rate, as the reference's
+#: ``train`` (``repro/cli.py:287``)
+WARMUP_STEPS = 10
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +277,14 @@ def _payload_given(args: argparse.Namespace) -> bool:
             or "REPRO_PAYLOAD_BYTES" in os.environ)
 
 
+def train_schedule(lr: float, steps: int):
+    """``train``'s learning rate by step: the reference's
+    ``cosine_schedule(lr, 10, steps)``, whatever the run's length."""
+    from repro_torch.optim import cosine_schedule
+
+    return cosine_schedule(lr, WARMUP_STEPS, steps)
+
+
 def cmd_train(args: argparse.Namespace) -> int:
     import numpy as np
     import torch
@@ -284,7 +295,7 @@ def cmd_train(args: argparse.Namespace) -> int:
     from repro_torch.launch import (
         apply_planned, make_mesh, parse_mesh, planning_session)
     from repro_torch.models import get_model
-    from repro_torch.optim import AdamWConfig, cosine_schedule
+    from repro_torch.optim import AdamWConfig
     from repro_torch.train import (
         OverlapGradReducer, Trainer, TrainerConfig, certified_allreduce,
         init_state, make_overlap_train_step, make_train_step, partition_tree)
@@ -339,9 +350,7 @@ def cmd_train(args: argparse.Namespace) -> int:
             certified_allreduce(n, DEFAULT_BUCKET_BYTES, "ring"),
             bucket_bytes=DEFAULT_BUCKET_BYTES, mode=mode,
             use_kernel_add=cfg.overlap.use_kernel_add, transport=transport)
-    # the reference's 10 warm-up steps, cut to a tenth of a shorter run
-    warmup = min(10, args.steps // 10)
-    opt = AdamWConfig(schedule=cosine_schedule(args.lr, warmup, args.steps))
+    opt = AdamWConfig(schedule=train_schedule(args.lr, args.steps))
     if reducer is None:
         step_fn = make_train_step(model, opt)    # one rank: no all-reduce
         print(f"[train] {arch.name} on {device}: one rank, no all-reduce")

@@ -8,20 +8,33 @@ kv head ``h // (H // KV)``; running max ``m``, denominator ``l`` and
 accumulator ``acc`` in f32; masked scores are ``-1e30`` (never ``-inf``);
 rows with ``l == 0`` give 0.  The output comes back in ``q``'s dtype.
 
-The kernel is ``csrc/flash_attention.cu`` (CUDA C++ for sm_90a, bound
-with ``ctypes``): one thread block per (query tile, head, batch row) walks
-its key tiles with K and V staged through shared memory.  bf16 inputs
-with a head width that is a multiple of 16 go through ``mma.sync``
-(bf16 operands, f32 accumulate); f32 inputs, and bf16 at head width 8,
-through f32 FMA.  It takes strides, so the model's transposed ``v`` view
-is read in place, and any sequence length: the kernel masks its own
-ragged tail.  ``block_q``/``block_k`` are the plain version's tiles; both
-paths check them as the reference does (``S % min(block, S) == 0``).
+The kernels are in ``csrc/flash_attention.cu`` (CUDA C++ for sm_90a,
+bound with ``ctypes``); the dtype and head width alone choose one:
+
+* ``flash_fwd_wgmma``: bf16 at head width 64 and 128, every dense config
+  the port serves.  A block of three warpgroups owns 128 query rows: a
+  producer thread feeds K/V tiles of 128 keys by TMA into a ring of
+  shared memory (2 stages at head width 128, 4 at 64); two consumer
+  warpgroups, 64 rows each, run
+  ``wgmma`` for ``Q K^T`` and ``P V`` with the online softmax in
+  registers between them.
+* ``flash_fwd_mma``: bf16 at head width 16, 32 and 256, with
+  ``mma.sync`` and ``cp.async`` double buffering.
+* ``flash_fwd_fma``: f32, and bf16 at head width 8, in f32 FMA.
+
+Each takes strides, so the model's transposed q/k/v views are read in
+place, and any sequence length: the kernels mask their own ragged tail.
+``block_q``/``block_k`` are the plain version's tiles; both paths check
+them as the reference does (``S % min(block, S) == 0``).
 
 What bounds it on an H100: at the dense serving path's prefill shape
 (glm4-9b: B=8, H=32, KV=2, S=2048, hd=128, causal, bf16) a call does
 2.75e11 FLOP on the tensor cores (0.28 ms at 989 TFLOP/s) and moves
-285 MB (0.085 ms at 3.35 TB/s): it is bound by operations.
+285 MB (0.085 ms at 3.35 TB/s): it is bound by operations, which only
+``wgmma`` issues at the tensor cores' full rate, and only when the loads
+(TMA, a producer of their own) and the softmax overlap the products.
+``flash_attention.launches`` counts every launch and
+``flash_attention.kernel_launches`` each kernel's.
 """
 
 from __future__ import annotations
@@ -34,13 +47,16 @@ import torch
 
 from . import build
 
-__all__ = ["HEAD_DIMS", "flash_attention", "flash_attention_plain", "work"]
+__all__ = ["HEAD_DIMS", "KERNELS", "flash_attention", "flash_attention_plain",
+           "work"]
 
 NEG_INF = -1e30
 #: head widths the kernel is built for (8 to 256 cover every config)
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernels of ``csrc/flash_attention.cu``, by the code it reports
+KERNELS = ("flash_fwd_fma", "flash_fwd_mma", "flash_fwd_wgmma")
 
 
 def _check_args(q, k, v, block_q: int, block_k: int) -> Tuple[int, int]:
@@ -131,7 +147,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
-                       p, p]
+                       p, p, ctypes.POINTER(i)]
         fn.restype = ctypes.c_int
     return lib
 
@@ -150,11 +166,14 @@ def _check_cuda(q, k, v) -> None:
 
 
 def _rows_aligned(x: torch.Tensor) -> bool:
-    """Whether every row of ``x`` starts on 16 bytes (the kernel's vector
-    loads) and its last dimension is contiguous."""
+    """Whether every row of ``x`` starts on 16 bytes (the kernels' vector
+    loads and tensor maps) and its last dimension is contiguous: each
+    stride of a dimension longer than 1 a positive multiple of 16 bytes."""
     e = x.element_size()
     return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all((x.stride(d) * e) % 16 == 0 for d in range(3)))
+            and all(x.shape[d] == 1 or (x.stride(d) > 0
+                                        and (x.stride(d) * e) % 16 == 0)
+                    for d in range(3)))
 
 
 def flash_attention(
@@ -171,7 +190,8 @@ def flash_attention(
 
     On CUDA tensors it launches the kernel (or raises); on CPU tensors it
     runs :func:`flash_attention_plain`.  ``flash_attention.launches``
-    counts kernel launches.
+    counts kernel launches, ``flash_attention.kernel_launches[name]``
+    those of each kernel of :data:`KERNELS`.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -193,16 +213,20 @@ def flash_attention(
     strides = (ctypes.c_longlong * 9)(*(x.stride(d) for x in (q, k, v)
                                          for d in range(3)))
     lib = _lib()
+    kernel = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), B, H, KV, S, hd, int(bool(causal)), int(window),
-            float(sm_scale), strides, stream)
+            float(sm_scale), strides, stream, ctypes.byref(kernel))
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
+                           f"{err} ({KERNELS[kernel.value]})")
     flash_attention.launches += 1
+    flash_attention.kernel_launches[KERNELS[kernel.value]] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.kernel_launches = dict.fromkeys(KERNELS, 0)

@@ -32,7 +32,10 @@ prefix, so one environment configures both packages alike.
 
 One field differs from the reference: :class:`OverlapConfig` carries
 ``use_kernel_add`` (default on, the ``fused_add`` CUDA kernel) where the
-reference has ``use_pallas_add`` (default off).
+reference has ``use_pallas_add`` (default off).  The reference's spelling
+is read as an alias, in a dict and in the environment
+(``REPRO_OVERLAP_USE_PALLAS_ADD``), so a config the reference dumped loads
+here; given both spellings with different values, loading raises.
 """
 
 from __future__ import annotations
@@ -232,6 +235,12 @@ _SECTIONS: Dict[str, type] = {
 }
 
 
+#: the reference's field names the port renamed: section class -> alias -> field
+_ALIASES: Dict[type, Dict[str, str]] = {
+    OverlapConfig: {"use_pallas_add": "use_kernel_add"},
+}
+
+
 def _coerce(ftype: Any, value: Any) -> Any:
     """Best-effort string coercion for env/CLI-sourced values."""
     if not isinstance(value, str):
@@ -260,7 +269,25 @@ def _field_hint(f: dataclasses.Field) -> Optional[type]:
     return None
 
 
+def _resolve_aliases(cls: type, d: Dict[str, Any], path: str) -> Dict[str, Any]:
+    """``d`` with each alias of ``cls`` renamed to its field; raises if an
+    alias and its field are both given with values that differ."""
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    for alias, name in _ALIASES.get(cls, {}).items():
+        if alias not in d:
+            continue
+        value = d.pop(alias)
+        hint = _field_hint(fields[name])
+        if name in d and _coerce(hint, d[name]) != _coerce(hint, value):
+            raise ValueError(
+                f"{path}.{alias} ({value!r}) is the reference's name of "
+                f"{path}.{name} ({d[name]!r}), and the two disagree")
+        d[name] = value
+    return d
+
+
 def _dataclass_from_dict(cls: type, d: Mapping[str, Any], path: str) -> Any:
+    d = _resolve_aliases(cls, dict(d), path)
     fields = {f.name: f for f in dataclasses.fields(cls)}
     unknown = sorted(set(d) - set(fields))
     if unknown:
@@ -398,6 +425,7 @@ class SessionConfig:
         cfg = base if base is not None else SessionConfig()
         merged = cfg.to_dict()
         scalars = {"payload_bytes", "workload", "moe", "name"}
+        overlay: Dict[str, Dict[str, Any]] = {}
         for key, value in sorted(env.items()):
             if not key.startswith(prefix):
                 continue
@@ -408,11 +436,14 @@ class SessionConfig:
                     merged["solver"].setdefault("budget", {})
                     merged["solver"]["budget"][tail[len("budget_"):]] = value
                 else:
-                    merged[head][tail] = value
+                    overlay.setdefault(head, {})[tail] = value
             elif rest in scalars:
                 merged[rest] = value
             else:
                 raise ValueError(
                     f"unrecognized environment override {key}: no section "
                     f"or scalar named {rest!r}")
+        for head, values in overlay.items():
+            # an alias overrides the base's field, as its field would
+            merged[head].update(_resolve_aliases(_SECTIONS[head], values, head))
         return SessionConfig.from_dict(merged)

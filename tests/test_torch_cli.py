@@ -109,6 +109,37 @@ def test_train_smoke_in_process(capsys, tmp_path, reorder):
     assert "[train] arch=qwen2-0.5b-smoke steps=12" in text
 
 
+def test_train_warms_up_as_the_reference(monkeypatch, tmp_path):
+    """``train`` builds its optimizer from the reference's schedule,
+    ``cosine_schedule(lr, 10, steps)`` (``repro/cli.py:287``): at lr 1e-3
+    over 4 steps the rates of steps 0-3 are 0, 1e-4, 2e-4 and 3e-4."""
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.optim import cosine_schedule as ref_cosine_schedule
+
+    from repro_torch import cli
+
+    calls = []
+
+    def spy(lr, steps):
+        calls.append((lr, steps))
+        return cli_schedule(lr, steps)
+
+    cli_schedule = cli.train_schedule
+    monkeypatch.setattr(cli, "train_schedule", spy)
+    assert cli.main(["train", "--smoke", "--device", "cpu", "--mesh", "1",
+                     "--batch", "1", "--seq", "8", "--steps", "1",
+                     "--lr", "1e-3", "--reorder", "none",
+                     "--ckpt-dir", str(tmp_path)]) == 0
+    assert calls == [(1e-3, 1)]
+    port = cli_schedule(1e-3, 4)
+    ref = ref_cosine_schedule(1e-3, 10, 4)
+    got = [float(port(torch.tensor(i))) for i in range(4)]
+    np.testing.assert_allclose(got, [0.0, 1e-4, 2e-4, 3e-4], rtol=1e-6)
+    np.testing.assert_allclose(
+        got, [float(ref(jnp.asarray(i))) for i in range(4)], rtol=1e-6)
+
+
 def test_train_refuses_what_is_not_ported(tmp_path):
     from repro_torch.cli import build_parser, main
 

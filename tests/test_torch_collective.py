@@ -162,3 +162,48 @@ def test_fuse_rounds_matches_the_reference_and_stays_certified():
         ref, k_ref = ref_fuse(ref_compile(RefOp(**op), algo))
         assert k == k_ref and _flows(port) == _flows(ref)
         require_certified(port, ScheduleLowering().lower_schedule(port))
+
+
+# -- the reference's lowering mutants ----------------------------------------
+
+def _to_port(schedule):
+    """A reference ``LoweredSchedule`` field for field in the port's IR."""
+    from repro_torch.collective.executors import LoweredSchedule, PermuteStep
+
+    rounds = tuple(tuple(PermuteStep(**{f.name: getattr(s, f.name)
+                                        for f in dataclasses.fields(PermuteStep)})
+                         for s in rnd) for rnd in schedule.rounds)
+    fields = {f.name: getattr(schedule, f.name)
+              for f in dataclasses.fields(LoweredSchedule) if f.name != "rounds"}
+    return LoweredSchedule(rounds=rounds, **fields)
+
+
+def _error_codes(exc):
+    return [(f.code, f.round) for f in exc.report.findings
+            if f.severity == "error"]
+
+
+MUTANT_PROGRAMS = [case for case in MATRIX if case[2] == 8]
+
+
+@pytest.mark.parametrize("algo,kind,n,akw", MUTANT_PROGRAMS,
+                         ids=[f"{a}-{k}-n{n}" for a, k, n, _ in MUTANT_PROGRAMS])
+def test_require_certified_kills_the_reference_lowering_mutants(algo, kind, n, akw):
+    """Every mutant ``repro.analysis.mutate.lowering_mutants`` draws (a
+    dropped step, a flipped mask bit, a swapped reduce/copy tag), carried
+    into the port's IR, is refused with the reference's error findings."""
+    from repro.analysis import VerificationError as RefVerificationError
+    from repro.analysis.mutate import lowering_mutants
+
+    ref, port = _both(algo, kind, n, akw, "permuted")
+    mutants = lowering_mutants(ref, seed=0)
+    assert mutants
+    for mkind, m in mutants:
+        mutant = _to_port(m)
+        assert mutant.fingerprint() == m.fingerprint()
+        with pytest.raises(RefVerificationError) as want:
+            ref_require_certified(ref, m)
+        with pytest.raises(VerificationError) as got:
+            require_certified(port, mutant)
+        assert _error_codes(got.value) == _error_codes(want.value), mkind
+        assert str(got.value).split(":")[1] == str(want.value).split(":")[1]

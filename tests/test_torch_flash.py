@@ -106,9 +106,27 @@ def test_attention_op_is_the_flash_wrapper():
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     q, k, v = _torch(_inputs(1, 2, 1, 16, 8, seed=3), "float32")
     before = fa.flash_attention.launches
+    by_kernel = dict(fa.flash_attention.kernel_launches)
     got = fa.flash_attention(q, k, v)
     assert torch.equal(got, fa.flash_attention_plain(q, k, v))
     assert fa.flash_attention.launches == before
+    assert fa.flash_attention.kernel_launches == by_kernel
+    assert set(by_kernel) == set(fa.KERNELS) == {
+        "flash_fwd_fma", "flash_fwd_mma", "flash_fwd_wgmma"}
+
+
+def test_rows_aligned_takes_the_models_views_and_refuses_the_rest():
+    """What the kernels read in place: the model's q/k/v (transposed views
+    of ``[B, S, heads, hd]``) and size-1 dimensions of any stride; a
+    broadcast (stride 0) or a row off 16 bytes is copied first."""
+    x = torch.zeros((2, 64, 4, 128), dtype=torch.bfloat16)
+    assert fa._rows_aligned(x.transpose(1, 2))
+    assert fa._rows_aligned(x[:1].transpose(1, 2))
+    assert fa._rows_aligned(torch.zeros((1, 1, 5, 64)).as_strided(
+        (1, 1, 5, 64), (7, 3, 64, 1)))
+    assert not fa._rows_aligned(x[:, :, :1].expand(2, 64, 4, 128).transpose(1, 2))
+    assert not fa._rows_aligned(x[..., 1:65].transpose(1, 2))
+    assert not fa._rows_aligned(x.transpose(-1, -2))
 
 
 @pytest.mark.parametrize("shapes,match", [
@@ -202,6 +220,53 @@ def test_cuda_kernel_reads_strided_views(cuda):
     got = fa.flash_attention(q, k, v_view, block_q=64, block_k=64)
     want = fa.flash_attention_plain(q, k, v, block_q=64, block_k=64)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=1.6e-2)
+
+
+#: bf16 at head widths 64 and 128, the wgmma kernel's: S below its 128-row
+#: tile, ragged S, GQA 16, a window of 70 and no mask
+WGMMA_CASES = [c for hd in (64, 128) for c in (
+    (1, 2, 1, 64, hd, 64, 64, True, 0),
+    (1, 4, 2, 130, hd, 130, 130, True, 0),
+    (2, 2, 1, 200, hd, 200, 200, True, 0),
+    (1, 32, 2, 256, hd, 128, 128, True, 0),
+    (1, 4, 2, 256, hd, 128, 128, True, 70),
+    (2, 4, 2, 256, hd, 128, 128, False, 0),
+)]
+
+
+def _wgmma_check(q, k, v, want, **kw):
+    """One launch of ``flash_fwd_wgmma`` held to ``want``, and a second one
+    bit for bit to the first."""
+    before = fa.flash_attention.kernel_launches["flash_fwd_wgmma"]
+    got = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.kernel_launches["flash_fwd_wgmma"] == before + 2
+    assert torch.equal(got, again)
+    atol, rtol = CUDA_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=str)
+def test_cuda_wgmma_kernel_matches_plain(case, cuda):
+    B, H, KV, S, hd, bq, bk, causal, window = case
+    q, k, v = _torch(_inputs(B, H, KV, S, hd), "bfloat16", cuda)
+    kw = dict(causal=causal, window=window, block_q=bq, block_k=bk)
+    _wgmma_check(q, k, v, fa.flash_attention_plain(q, k, v, **kw), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_wgmma_kernel_reads_the_models_views(hd, cuda):
+    """q, k and v as ``_qkv`` makes them: ``[B, S, heads, hd]`` transposed,
+    rows ``heads * hd`` elements apart."""
+    q, k, v = _torch(_inputs(2, 8, 2, 192, hd, seed=6), "bfloat16", cuda)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    assert not any(x.is_contiguous() for x in views)
+    _wgmma_check(*views, fa.flash_attention_plain(q, k, v, block_q=64,
+                                                  block_k=64),
+                 block_q=64, block_k=64)
 
 
 @pytest.mark.cuda

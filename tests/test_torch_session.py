@@ -275,3 +275,81 @@ def test_retry_health_and_swap_equal_the_reference():
     np.testing.assert_array_equal(a[0], b[0])
     assert a[1:] == b[1:]
     assert json.loads(json.dumps(SessionConfig().to_dict()))["retry"]["seed"] == 0
+
+
+# -- the reference's configuration and plan store ------------------------------
+
+def test_reference_config_loads_with_its_spelling_of_the_kernel_add(tmp_path):
+    """A config the reference dumps (``use_pallas_add`` and all) loads, and
+    every field resolves as the reference's does."""
+    ref_cfg = ref_session.SessionConfig.from_dict(CFG).replace(
+        overlap={"mode": "fused", "use_pallas_add": True})
+    path = str(tmp_path / "ref.json")
+    ref_cfg.dump(path)
+    for got in (SessionConfig.from_dict(ref_cfg.to_dict()),
+                SessionConfig.load(path)):
+        a, b = got.to_dict(), ref_cfg.to_dict()
+        assert a["overlap"].pop("use_kernel_add") is b["overlap"].pop(
+            "use_pallas_add") is True
+        assert a == b
+    default = SessionConfig.from_dict(ref_session.SessionConfig().to_dict())
+    assert default.overlap.use_kernel_add is False   # the reference's default
+    with pytest.raises(ValueError, match="disagree"):
+        SessionConfig.from_dict(
+            {"overlap": {"use_pallas_add": True, "use_kernel_add": False}})
+    both = SessionConfig.from_dict(
+        {"overlap": {"use_pallas_add": "1", "use_kernel_add": True}})
+    assert both.overlap.use_kernel_add is True
+
+
+@pytest.mark.parametrize("value,want", [("1", True), ("0", False)])
+def test_environment_reads_the_reference_spelling(value, want):
+    """``REPRO_OVERLAP_USE_PALLAS_ADD`` overrides the base, as the
+    reference reads it; with ``..._USE_KERNEL_ADD`` beside it they must agree."""
+    env = {"REPRO_OVERLAP_USE_PALLAS_ADD": value}
+    base = SessionConfig().replace(overlap={"use_kernel_add": not want})
+    assert SessionConfig.from_env(base=base, environ=env).overlap.use_kernel_add \
+        is want
+    assert ref_session.SessionConfig.from_env(environ=env).overlap.use_pallas_add \
+        is want
+    env["REPRO_OVERLAP_USE_KERNEL_ADD"] = value
+    assert SessionConfig.from_env(environ=env).overlap.use_kernel_add is want
+    env["REPRO_OVERLAP_USE_KERNEL_ADD"] = "0" if want else "1"
+    with pytest.raises(ValueError, match="disagree"):
+        SessionConfig.from_env(environ=env)
+
+
+def test_plan_store_on_disk_hits_and_invalidates_as_the_reference(tmp_path):
+    """One sequence on a ``cache.dir`` of each side's own: compile and
+    store, a fresh session's disk hit, its memory hit, invalidation of the
+    fabric, a miss and a recompile.  The stats, the files and the plans
+    equal the reference's at every step."""
+    sides = {}
+    for name, mod in (("port", None), ("ref", ref_session)):
+        store = tmp_path / name
+        cfg = dict(CFG, cache={"dir": str(store)})
+        make = (lambda c=cfg: Session(SessionConfig.from_dict(c))) if mod is None \
+            else (lambda c=cfg: mod.Session(mod.SessionConfig.from_dict(c)))
+        trail = []
+        with make() as s:
+            plan = s.plan()
+            trail.append((dict(s.cache.stats), dict(s.service.stats)))
+        with make() as s:
+            again = s.plan()                       # from the store
+            s.plan()                               # from memory
+            trail.append((dict(s.cache.stats), dict(s.service.stats)))
+            files = sorted(p.name for p in store.iterdir())
+            dropped = s.cache.invalidate(again.fingerprint)
+            trail.append((dropped, sorted(p.name for p in store.iterdir())))
+        with make() as s:
+            third = s.plan()                       # gone: compiled anew
+            trail.append((dict(s.cache.stats), dict(s.service.stats)))
+        sides[name] = (trail, files, [plan, again, third])
+    (trail, files, plans), (ref_trail, ref_files, ref_plans) = \
+        sides["port"], sides["ref"]
+    assert trail == ref_trail
+    assert files == ref_files and len(files) == 1
+    assert trail[1][0]["disk_hits"] == 1 and trail[1][0]["hits"] == 1
+    assert trail[2] == (2, []) and trail[3][1]["compiles"] == 1
+    for got, want in zip(plans, ref_plans):
+        _assert_same_plan(got, want)
