@@ -16,7 +16,9 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    shapes its path gives it, and time both: the WKV kernel in bf16 and
    f32; ``fused_add`` at 64, 100, 1024 and 2^20+3 elements, at the
    training run's largest reduce and its largest bucket payload, in f32
-   and bf16, out of place and in place (bit-equal), beside ``torch.add``
+   and bf16, out of place and in place (bit-equal), and on views at
+   element offsets 0-7 of a, b and out (the same and different, below one
+   tile and across many), beside ``torch.add``
    (both timed by CUDA-graph replay: device time without the host's); the
    flash-attention kernels on the seven ``FLASH_CASES`` shapes of
    ``tests/test_kernels.py`` and on ragged tails, head width 256 and a
@@ -32,8 +34,10 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    orders, the plan's among them) and at every bucket shape of the planned
    training path, bit for bit against its plain version and against
    ``ring_reduce_scatter`` (gather + ``fused_add``) in f32 and bf16, f32
-   also against ``ring_reduce_scatter_ref``, a captured launch replayed
-   on fresh data, its status word read after every synchronise; timed at
+   also against ``ring_reduce_scatter_ref``, chunks below and ragged
+   against a tile, the bf16 scalar path, 20 launches of mixed L in a row,
+   a captured launch replayed on fresh data, its status word read after
+   every synchronise, its FIFO's bytes and schedule printed; timed at
    the largest bucket and at 4 MB a rank beside ``x.sum(0)``; the exact
    WKV scan kernel (``wkv_scan``) on the five ``WKV_CASES`` shapes of
    ``tests/test_kernels.py`` and the rwkv6-1.6b layer shape, in f32 and
@@ -878,6 +882,7 @@ def train_layout() -> dict:
 
 def check_fused_add_kernel(seed: int, layout: dict) -> dict:
     """Phase 3: ``fused_add`` against its plain version, bit for bit; times."""
+    import numpy as np
     import torch
 
     from repro_torch.kernels import ring_collective as rc
@@ -900,8 +905,33 @@ def check_fused_add_kernel(seed: int, layout: dict) -> dict:
                                      f"(max abs err {bad:.3e})")
             del a, b, want, got
         torch.cuda.empty_cache()
+    # views at element offsets 0-7 into their buffers: the same offset for
+    # a, b and out (a scalar head, the 16-byte body, a scalar tail) and
+    # different ones (scalars throughout), below one tile and across many
+    rng_o = np.random.default_rng(seed)
+    offsets = [(o, o, o) for o in range(8)] + [
+        tuple(int(v) for v in rng_o.integers(0, 8, 3)) for _ in range(8)]
+    for n in (5, 1000, 3 * 8192 + 11, (1 << 20) + 3):
+        for dtype in (torch.float32, torch.bfloat16):
+            abuf = torch.randn(n + 8, generator=gen, device="cuda").to(dtype)
+            bbuf = torch.randn(n + 8, generator=gen, device="cuda").to(dtype)
+            for oa, ob, oo in offsets:
+                a, b = abuf[oa:oa + n], bbuf[ob:ob + n]
+                want = rc.fused_add_plain(a, b)
+                out = torch.zeros(n + 8, dtype=dtype, device="cuda")
+                got = rc.fused_add(a, b, out=out[oo:oo + n])
+                acc = abuf.clone()
+                rc.fused_add(acc[oa:oa + n], b, out=acc[oa:oa + n])
+                torch.cuda.synchronize()
+                if not (torch.equal(got, want) and torch.equal(acc[oa:oa + n], want)
+                        and torch.equal(acc[:oa], abuf[:oa])
+                        and torch.equal(acc[oa + n:], abuf[oa + n:])
+                        and not bool(out[:oo].any()) and not bool(out[oo + n:].any())):
+                    raise AssertionError(f"fused_add {dtype} n={n} offsets a={oa} "
+                                         f"b={ob} out={oo}: kernel != plain")
     _say(f"fused_add == plain bit for bit, f32 and bf16, in and out of place, "
-         f"at n = {sizes}")
+         f"at n = {sizes}, and at n = 5, 1000, 24587, 2^20+3 on views at "
+         f"element offsets (a, b, out) {offsets}")
 
     n = layout["largest_call"]
     times = {}
@@ -1295,6 +1325,14 @@ def check_peer_ring_kernel(seed: int, planned: dict) -> dict:
         del x, got
         return err
 
+    fifo = {n: rc.ring_fifo(n) for n in (2, 3, 4, 8)}
+    for n, info in fifo.items():
+        _say(f"peer_ring FIFO at n={n}: {info['bytes']} bytes allocated "
+             f"({info['blocks_per_rank']} blocks a rank x {info['slots']} slots "
+             f"x {info['tile_bytes']}-byte tiles; one tile a handshake, W = 1)")
+    if fifo[RANKS]["bytes"] > rc.RING_FIFO_BUDGET:
+        raise AssertionError(f"peer_ring FIFO {fifo[RANKS]['bytes']} bytes > "
+                             f"{rc.RING_FIFO_BUDGET}")
     cases = 0
     worst = 0.0
     for n in (2, 3, 4, 8):
@@ -1314,8 +1352,34 @@ def check_peer_ring_kernel(seed: int, planned: dict) -> dict:
                                      f"bucket [{RANKS}, {width}] {dt}"))
             cases += 1
         torch.cuda.empty_cache()
+    # chunks below a tile and ragged against it; the bf16 scalar variant
+    # (rows one element off 16 bytes); then 20 launches of mixed L, order
+    # and dtype one after another on the same counters and FIFO
+    tile = fifo[RANKS]["tile_bytes"] // 2
+    for width in (8, tile - 8, tile + 8, 5 * tile + 40, 5 * tile + 3):
+        worst = max(worst, check(RANKS, RANKS * width, order, torch.bfloat16,
+                                 f"chunk {width} vs tile {tile}"))
+        cases += 1
+    for n in (2, 3, RANKS):
+        buf = torch.randn(n * n * 4099 + 1, generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        x = buf[1:].view(n, n * 4099)
+        got = rc.remote_ring_reduce_scatter(x, list(range(n))[::-1])
+        torch.cuda.synchronize()
+        if rc.ring_status() != 0 or not torch.equal(
+                got, rc.remote_ring_reduce_scatter_plain(x, list(range(n))[::-1])):
+            raise AssertionError(f"peer_ring n={n}: the bf16 scalar path != plain")
+        cases += 1
+        del buf, x, got
+    widths = [7, 1031, tile - 8, tile + 8, 3 * tile + 24, 8 * 4099, 131072]
+    for k in range(20):
+        perm = [int(p) for p in rng.permutation(RANKS)]
+        dt = (torch.bfloat16, torch.float32)[k % 2]
+        worst = max(worst, check(RANKS, RANKS * widths[k % len(widths)], perm,
+                                 dt, f"sequence launch {k}"))
+        cases += 1
     # a captured launch replayed on fresh data: the epochs come from the
-    # flags on the device, so every replay must still be exact
+    # counters on the device, so every replay must still be exact
     x = torch.empty((RANKS, RANKS * 8 * 4099), dtype=torch.bfloat16, device="cuda")
     x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
     side = torch.cuda.Stream()
@@ -1337,7 +1401,9 @@ def check_peer_ring_kernel(seed: int, planned: dict) -> dict:
     _say(f"peer_ring == plain == ring_reduce_scatter bit for bit on {cases} "
          f"cases (n = 2, 3, 4, 8, odd chunk lengths, identity / reversed / "
          f"random / planned orders, the {len(set(planned['widths']))} bucket "
-         f"shapes of the planned path; f32 and bf16); f32 within {worst:.3e} of "
+         f"shapes of the planned path, chunks below and ragged against a "
+         f"tile, the bf16 scalar path, 20 launches of mixed L in a row; f32 "
+         f"and bf16); f32 within {worst:.3e} of "
          f"ring_reduce_scatter_ref; a captured launch exact on 3 graph "
          f"replays of fresh data; status word 0 after every synchronise")
 

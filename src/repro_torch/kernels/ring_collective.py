@@ -20,15 +20,18 @@ Counterpart of ``repro.kernels.ring_collective``:
   launch of ``csrc/peer_ring.cu`` (CUDA C++ for sm_90a, bound with
   ``ctypes``), which replaces the TPU kernel ``_rdma_ring_kernel`` /
   ``remote_ring_reduce_scatter_tpu``: n-1 rounds of neighbour copy and
-  accumulate over peer memory, in the ring order ``perm``, with flag
-  signalling between the blocks of the one launch.  Only the single-card
-  loopback mode is built (all n ranks' buffers on one card).  It equals
+  accumulate over peer memory, in the ring order ``perm``, tile by tile
+  through an L2-resident FIFO of slots with counter handshakes between
+  the blocks of the one launch.  Only the single-card loopback mode is
+  built (all n ranks' buffers on one card).  It equals
   :func:`ring_reduce_scatter` bit for bit in f32 and bf16: the same
   additions in the same order, each rounded once.  On CPU tensors it runs
   :func:`remote_ring_reduce_scatter_plain`.  The reference kernel is not a
   reduce-scatter (it forwards running sums, ROADMAP.md §3), so the port is
   held to ``ring_reduce_scatter_ref`` and to :func:`ring_reduce_scatter`,
-  never to its arithmetic.
+  never to its arithmetic.  :func:`peer_ring_schedule_plain` walks the
+  kernel's own schedule (tiles, rounds, FIFO slots, counters) on the CPU,
+  so the CPU tests check the protocol as well as the sum.
 """
 
 from __future__ import annotations
@@ -41,9 +44,11 @@ import torch
 
 from . import build
 
-__all__ = ["fused_add", "fused_add_plain", "remote_ring_reduce_scatter",
+__all__ = ["RingState", "fused_add", "fused_add_plain",
+           "peer_ring_schedule_plain", "remote_ring_reduce_scatter",
            "remote_ring_reduce_scatter_plain", "ring_all_reduce",
-           "ring_reduce_scatter", "ring_status", "ring_work", "work"]
+           "ring_fifo", "ring_reduce_scatter", "ring_status", "ring_work",
+           "work"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -198,16 +203,24 @@ def ring_all_reduce(x: torch.Tensor, perm: Optional[Sequence[int]] = None,
 
 #: largest ring the kernel's descriptor table holds
 MAX_RING = 32
+#: the kernel's schedule, the same constants as ``csrc/peer_ring.cu``'s
+#: (a test holds them equal): bytes a tile (a FIFO slot), FIFO slots a
+#: block; all ranks' FIFOs together stay within ``RING_FIFO_BUDGET``, and
+#: the FIFO is allocated here from them
+RING_TILE_BYTES, RING_SLOTS = 16384, 2
+RING_FIFO_BUDGET = 16 << 20
 
 
 def ring_work(n: int, L: int, itemsize: int) -> Tuple[int, int]:
     """Bytes of one ``[n, L]`` reduce-scatter: ``(ring, function)``.
 
-    ``ring``: what the ring moves in loopback, ``3 (n-1) L itemsize`` (each
+    ``ring``: what a ring moves in loopback, ``3 (n-1) L itemsize`` (each
     of n-1 rounds, each rank reads its predecessor's partial and its own
-    chunk and writes its partial).  ``function``: what the function must
-    move, ``(n + 1) L itemsize`` (x read once, the output written once),
-    which a plain ``x.sum(0)`` comes close to.
+    chunk and writes its partial); the kernel keeps the partials in an
+    L2-resident FIFO, so of these only the function's reach device
+    memory.  ``function``: what the function must move, ``(n + 1) L
+    itemsize`` (x read once, the output written once), which a plain
+    ``x.sum(0)`` comes close to.
     """
     return 3 * (n - 1) * L * itemsize, (n + 1) * L * itemsize
 
@@ -252,6 +265,119 @@ def remote_ring_reduce_scatter_plain(
     return torch.stack(partial)
 
 
+class RingState:
+    """What a card keeps for the ring at one n between launches, as
+    :func:`peer_ring_schedule_plain` models it: each (rank, block)'s two
+    counters, ``produced`` and ``consumed`` (``counters[rank, 0|1,
+    block]``, zero at first), and each block's FIFO of ``slots`` tiles.
+    ``log`` gets one record a launch (see :func:`peer_ring_schedule_plain`).
+    """
+
+    def __init__(self, n: int, max_blocks: int, slots: int = RING_SLOTS):
+        if slots < 2:
+            raise ValueError("the ring's FIFO needs at least 2 slots")
+        self.n, self.max_blocks, self.slots = n, max_blocks, slots
+        self.counters = np.zeros((n, 2, max_blocks), dtype=np.int64)
+        #: (rank, block, slot) -> [absolute write index, read?, tile]
+        self.fifo: Dict[Tuple[int, int, int], list] = {}
+        self.log: list = []
+
+
+def peer_ring_schedule_plain(
+    x: torch.Tensor, perm: Optional[Sequence[int]] = None, *,
+    state: RingState, tile_bytes: int = RING_TILE_BYTES, seed: int = 0,
+) -> torch.Tensor:
+    """The kernel's schedule in PyTorch: the same grid, tiles, rounds, FIFO
+    slots and counters, its blocks interleaved in a seeded random order.
+
+    Mirrors ``peer_ring_fwd``: units of 16 bytes where the chunk allows
+    (else scalars), ``tile_bytes`` a tile, B = min(tiles, max_blocks)
+    blocks a rank of ceil(units / B) units each; block (j, r) runs round s
+    of tile k only when its waits hold (the predecessor's ``produced`` for
+    a FIFO read, the successor's ``consumed`` for a FIFO write), from the
+    bases it reads from ``state`` at the launch's start.  Returns the
+    reduce-scatter, which equals :func:`ring_reduce_scatter` bit for bit.
+    Appends to ``state.log`` what the launch saw: ``blocks``, ``tiles``
+    (a slice), ``equal_at_start`` (all ranks' counters of each slice it
+    uses equal when it starts), ``advance`` (each slice's counters after
+    minus before, per rank and counter), ``overwrites_unread`` (FIFO
+    writes onto a slot whose tenant was not yet read) and ``bad_reads``
+    (FIFO reads that found another write than the one they wait for).
+    Raises if no block can move (a deadlock).
+    """
+    n, C, perm, pos_of = _ring_plan(x, perm)
+    if state.n != n:
+        raise ValueError(f"the state is for n={state.n}, x has {n} ranks")
+    item = x.element_size()
+    per_vec = 16 // item
+    unit = per_vec if C % per_vec == 0 and x.data_ptr() % 16 == 0 else 1
+    units = C // unit
+    tile = max(1, tile_bytes // (unit * item))        # units a tile
+    blocks = min(-(-units // tile), state.max_blocks)
+    per_block = -(-units // blocks)
+    spans = [(j * per_block, min((j + 1) * per_block, units))
+             for j in range(blocks)]
+    tiles = [max(0, -(-(hi - lo) // tile)) for lo, hi in spans]
+    cnt, K = state.counters, state.slots
+    before = cnt[:, :, :blocks].copy()
+    rec = {"blocks": blocks, "tiles": tiles,
+           "equal_at_start": all(bool((before[:, :, j] == before[0, 0, j]).all())
+                                 for j in range(blocks) if tiles[j]),
+           "overwrites_unread": 0, "bad_reads": 0}
+    rows = x.reshape(n, n, C)
+    out = torch.empty((n, C), dtype=x.dtype, device=x.device)
+    step = {(r, j): 0 for r in range(n) for j in range(blocks) if tiles[j]}
+
+    def where(r, j):
+        k, s = divmod(step[(r, j)], n - 1)
+        i = int(pos_of[r])
+        return k, s, k * (n - 2) + s, i, perm[(i - 1) % n], perm[(i + 1) % n]
+
+    def ready(r, j):
+        k, s, w, i, pd, nx = where(r, j)
+        if s >= 1 and cnt[pd, 0, j] < before[r, 1, j] + w:
+            return False
+        return not (s <= n - 3 and w >= K
+                    and cnt[nx, 1, j] < before[r, 0, j] + w - K + 1)
+
+    rng = np.random.default_rng(seed)
+    while step:
+        live = [b for b in step if ready(*b)]
+        if not live:
+            raise RuntimeError(f"peer_ring schedule: no block can move "
+                               f"(steps {step})")
+        r, j = live[int(rng.integers(len(live)))]
+        k, s, w, i, pd, _ = where(r, j)
+        base_p, base_c = before[r, 0, j], before[r, 1, j]
+        lo = (spans[j][0] + k * tile) * unit
+        hi = min(spans[j][1], spans[j][0] + (k + 1) * tile) * unit
+        c = perm[(i - s - 2) % n]
+        if s == 0:
+            recv = rows[pd, c, lo:hi]
+        else:
+            slot = state.fifo[(pd, j, (w - 1) % K)]
+            if slot[0] != base_c + w - 1 or slot[1]:
+                rec["bad_reads"] += 1
+            slot[1] = True
+            recv = slot[2]
+            cnt[r, 1, j] = base_c + w
+        z = fused_add_plain(recv, rows[r, c, lo:hi])
+        if s <= n - 3:
+            old = state.fifo.get((r, j, w % K))
+            if old is not None and not old[1]:
+                rec["overwrites_unread"] += 1
+            state.fifo[(r, j, w % K)] = [base_p + w, False, z]
+            cnt[r, 0, j] = base_p + w + 1
+        else:
+            out[r, lo:hi] = z
+        step[(r, j)] += 1
+        if step[(r, j)] == tiles[j] * (n - 1):
+            del step[(r, j)]
+    rec["advance"] = cnt[:, :, :blocks] - before
+    state.log.append(rec)
+    return out
+
+
 def _ring_lib() -> ctypes.CDLL:
     lib = build.library("peer_ring")
     if lib.peer_ring_fwd.argtypes is None:
@@ -264,19 +390,23 @@ def _ring_lib() -> ctypes.CDLL:
     return lib
 
 
-#: (device index, n) -> (flags [n, max_blocks] int32, max_blocks)
-_ring_flags: Dict[Tuple[int, int], Tuple[torch.Tensor, int]] = {}
+#: (device index, n) -> (counters [n, 2, max_blocks] int32, FIFO [n, bytes]
+#: uint8, max_blocks)
+_ring_flags: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor, int]] = {}
 #: device index -> status word [1] int32 (0 = ok, 1 = a spin timed out)
 _ring_status: Dict[int, torch.Tensor] = {}
 
 
 def _ring_state(device: torch.device, n: int, lib: ctypes.CDLL
-                ) -> Tuple[torch.Tensor, int, torch.Tensor]:
-    """Flags and status of ``device``, allocated once and cached.
+                ) -> Tuple[torch.Tensor, torch.Tensor, int, torch.Tensor]:
+    """Counters, FIFO and status of ``device`` at ``n``, allocated once and
+    cached.
 
-    The flags are zero when allocated and only the kernel touches them
+    The counters are zero when allocated and only the kernel touches them
     after that; each rank has room for the most blocks a launch may give
-    it, so one allocation serves every shape and ring order at this n.
+    it, so one allocation serves every shape and ring order at this n.  The
+    FIFO (``max_blocks x slots x tile_bytes`` a rank; none at n = 2) does
+    not depend on L, and a captured graph replays on it.
     """
     key = (device.index, n)
     if key not in _ring_flags:
@@ -285,13 +415,31 @@ def _ring_state(device: torch.device, n: int, lib: ctypes.CDLL
         if err or most.value < 1:
             raise RuntimeError(f"peer_ring: no room for {n} resident ranks "
                                f"(CUDA error {err}, {most.value} blocks)")
-        _ring_flags[key] = (torch.zeros((n, most.value), dtype=torch.int32,
-                                        device=device), most.value)
+        per_rank = most.value * RING_SLOTS * RING_TILE_BYTES if n > 2 else 0
+        _ring_flags[key] = (
+            torch.zeros((n, 2, most.value), dtype=torch.int32, device=device),
+            torch.empty((n, per_rank), dtype=torch.uint8, device=device),
+            most.value)
     if device.index not in _ring_status:
         _ring_status[device.index] = torch.zeros(1, dtype=torch.int32,
                                                  device=device)
-    flags, most = _ring_flags[key]
-    return flags, most, _ring_status[device.index]
+    flags, fifo, most = _ring_flags[key]
+    return flags, fifo, most, _ring_status[device.index]
+
+
+def ring_fifo(n: int, device=None) -> Dict[str, int]:
+    """The FIFO on ``device`` at ``n`` (allocating it if no launch has):
+    ``tile_bytes`` and ``slots`` (the schedule's constants),
+    ``blocks_per_rank`` (the card's) and ``bytes`` (all ranks' FIFOs as
+    allocated)."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    lib = _ring_lib()
+    with torch.cuda.device(dev):
+        _, fifo, most, _ = _ring_state(dev, n, lib)
+    return dict(tile_bytes=RING_TILE_BYTES, slots=RING_SLOTS,
+                blocks_per_rank=most, bytes=fifo.numel())
 
 
 def ring_status(device=None) -> int:
@@ -314,11 +462,13 @@ def remote_ring_reduce_scatter(
     bit for bit.  It takes float32 or bfloat16, contiguous, ``L % n ==
     0``, 2 to 32 ranks, and raises on anything else, on either device.
     On CUDA tensors it makes one launch of the peer-memory ring kernel
-    (loopback: all ranks' buffers on this card) or raises.  The
-    kernel's status word reports a timed-out spin after a synchronise
-    (:func:`ring_status`).  Launches at one n on one card share their
-    flags, so they must not run at once: issue them on one stream.  On
-    CPU tensors it runs :func:`remote_ring_reduce_scatter_plain`.
+    (loopback: all ranks' buffers on this card) or raises; the partials
+    pass through a FIFO cached per (card, n), so nothing is allocated but
+    the output.  The kernel's status word reports a timed-out spin after a
+    synchronise (:func:`ring_status`).  Launches at one n on one card
+    share their counters and FIFO, so they must not run at once: issue
+    them on one stream.  On CPU tensors it runs
+    :func:`remote_ring_reduce_scatter_plain`.
     ``remote_ring_reduce_scatter.launches`` counts kernel launches.
     """
     n, C, perm, _ = _ring_plan(x, perm)
@@ -332,19 +482,17 @@ def remote_ring_reduce_scatter(
         raise ValueError(f"the ring runs on cuda or cpu, not {x.device}")
     lib = _ring_lib()
     out = torch.empty((n, C), dtype=x.dtype, device=x.device)
-    scratch = torch.empty((n, (n - 2) * C), dtype=x.dtype, device=x.device)
     item = x.element_size()
     rows = (ctypes.c_ulonglong * n)
     with torch.cuda.device(x.device):
-        flags, most, status = _ring_state(x.device, n, lib)
+        flags, fifo, most, status = _ring_state(x.device, n, lib)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.peer_ring_fwd(
             _DTYPE_CODE[x.dtype], n, (ctypes.c_int * n)(*perm),
             rows(*(x.data_ptr() + r * n * C * item for r in range(n))),
-            rows(*(scratch.data_ptr() + r * (n - 2) * C * item
-                   for r in range(n))),
+            rows(*(fifo.data_ptr() + r * fifo.shape[1] for r in range(n))),
             rows(*(out.data_ptr() + r * C * item for r in range(n))),
-            rows(*(flags.data_ptr() + r * most * 4 for r in range(n))),
+            rows(*(flags.data_ptr() + r * 2 * most * 4 for r in range(n))),
             C, most, status.data_ptr(), stream)
     if err:
         raise RuntimeError(f"peer_ring kernel launch failed: CUDA error {err}")

@@ -25,6 +25,7 @@ from repro.train import make_train_step as jax_make_train_step  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.fabric import make_datacenter, probe_fabric, scramble  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ring_collective as rc  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.optim import AdamWConfig, init_opt  # noqa: E402
@@ -77,6 +78,65 @@ def test_plain_ring_equals_the_reference_and_the_virtual_ring(n):
                                                       use_kernel_add=False))
             assert torch.equal(rc.remote_ring_reduce_scatter_plain(xd, perm),
                                rc.ring_reduce_scatter(xd, perm))
+
+
+def test_schedule_constants_match_the_kernel():
+    """The plain schedule's tile, slots and FIFO budget are the kernel's."""
+    src = (build.CSRC / "peer_ring.cu").read_text()
+    assert f"constexpr int kTileBytes = {rc.RING_TILE_BYTES};" in src
+    assert f"constexpr int kSlots = {rc.RING_SLOTS};" in src
+    assert f"constexpr long long kFifoBudget = {rc.RING_FIFO_BUDGET >> 20}ll << 20;" in src
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_schedule_plain_equals_the_ring_and_the_reference(n):
+    """The kernel's own schedule at a tile of 8 bytes (so several blocks
+    and tiles at these widths), at odd chunk lengths and every order: f32
+    within n ulps of JAX's oracle, f32 and bf16 bit for bit to
+    ``ring_reduce_scatter``."""
+    state = rc.RingState(n, max_blocks=3)
+    for width in (7, 37):
+        x = _x(n, width, seed=n + width)
+        want = np.asarray(jax_rs_ref(x.numpy(), n))
+        for k, perm in enumerate(_perms(n)):
+            for dt in (torch.float32, torch.bfloat16):
+                xd = x.to(dt)
+                got = rc.peer_ring_schedule_plain(xd, perm, state=state,
+                                                  tile_bytes=8, seed=k)
+                assert torch.equal(got, rc.ring_reduce_scatter(xd, perm))
+                if dt == torch.float32:
+                    np.testing.assert_allclose(
+                        got.numpy(), want, rtol=0,
+                        atol=1e-5 * n * float(x.abs().max()))
+    assert any(r["blocks"] > 1 and max(r["tiles"]) > 1 for r in state.log)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_schedule_plain_keeps_the_protocol_over_launches_of_other_shapes(n):
+    """Ten launches on one card's state, each of another L (so another
+    block count and other tiles a block), order, dtype and interleaving of
+    the blocks: each exact; at each launch's start all ranks' counters of
+    a slice are equal; no FIFO slot is overwritten before its consumer
+    has read it, and no read finds another write than the one it waited
+    for; each launch advances both counters of slice j by tiles_j (n-2)."""
+    state = rc.RingState(n, max_blocks=4)
+    rng = np.random.default_rng(100 + n)
+    for launch in range(10):
+        width = int(rng.choice([1, 3, 8, 13, 40, 64]))
+        perm = [int(p) for p in rng.permutation(n)]
+        dt = (torch.float32, torch.bfloat16)[launch % 2]
+        x = torch.from_numpy(rng.standard_normal((n, n * width))
+                             .astype(np.float32)).to(dt)
+        got = rc.peer_ring_schedule_plain(x, perm, state=state, tile_bytes=16,
+                                          seed=launch)
+        assert torch.equal(got, rc.ring_reduce_scatter(x, perm))
+        rec = state.log[-1]
+        assert rec["equal_at_start"]
+        assert rec["overwrites_unread"] == 0 and rec["bad_reads"] == 0
+        for j, tiles in enumerate(rec["tiles"]):
+            assert (rec["advance"][:, :, j] == tiles * (n - 2)).all()
+    assert len({r["blocks"] for r in state.log}) > 1
+    assert len({tuple(r["tiles"]) for r in state.log}) > 2
 
 
 def test_ring_work_counts_the_bytes():

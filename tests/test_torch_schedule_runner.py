@@ -205,6 +205,31 @@ def test_fused_add_plain_equals_the_reference_kernel(n, block, dtype):
     assert torch.equal(a + b, got)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_add_at_element_offsets_equals_the_reference_kernel(dtype):
+    """Views at element offsets 0-7 into their buffers, the same and
+    different for a, b and out (the runner passes such views; the kernel
+    peels a scalar head up to 16 bytes or runs in scalars), in and out of
+    place: equal to JAX's Pallas kernel in interpret mode."""
+    n = 45
+    rng = np.random.default_rng(7)
+    a32 = rng.standard_normal(n + 8).astype(np.float32)
+    b32 = rng.standard_normal(n + 8).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    abuf, bbuf = torch.from_numpy(a32).to(tdt), torch.from_numpy(b32).to(tdt)
+    offsets = [(o, o, o) for o in range(8)] + [(0, 1, 2), (3, 0, 7), (5, 6, 0)]
+    for oa, ob, oo in offsets:
+        want = jax_fused_add(jnp.asarray(a32[oa:oa + n], jdt),
+                             jnp.asarray(b32[ob:ob + n], jdt), block=16,
+                             interpret=True)
+        want_t = torch.from_numpy(np.array(want, np.float32)).to(tdt)
+        a, b = abuf[oa:oa + n], bbuf[ob:ob + n]
+        out = torch.zeros(n + 8, dtype=tdt)[oo:oo + n]
+        assert rc.fused_add(a, b, out=out) is out and torch.equal(out, want_t)
+        acc = abuf.clone()[oa:oa + n]
+        assert torch.equal(rc.fused_add(acc, b, out=acc), want_t)
+
+
 def test_fused_add_refuses_mismatched_shapes():
     with pytest.raises(ValueError, match="equal shapes"):
         rc.fused_add(torch.zeros(4), torch.zeros(5))
