@@ -13,8 +13,9 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    compile the training mix of full-width ``qwen2-0.5b`` (988,065,536
    gradient bytes) with the port's ``PlanCompiler`` and print the plan;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes its path gives it, and time both: the WKV kernel in bf16 and
-   f32; ``fused_add`` at 64, 100, 1024 and 2^20+3 elements, at the
+   shapes its path gives it, and time both: the WKV chunk kernel at the
+   rwkv6-1.6b layer shape in bf16 and f32 (y, the final state, a second
+   launch for the same bits); ``fused_add`` at 64, 100, 1024 and 2^20+3 elements, at the
    training run's largest reduce and its largest bucket payload, in f32
    and bf16, out of place and in place (bit-equal), and on views at
    element offsets 0-7 of a, b and out (the same and different, below one
@@ -62,7 +63,7 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    and also runs ``ops.wkv_op`` (the scan kernel) on each layer's WKV
    inputs in that run, held to the chunk kernel's y; then prefill time,
    decode rate, peak memory and a ``torch.profiler`` window (without the
-   spy); then full-width ``glm4-9b`` (bf16,
+   spy) with the chunk kernel's share of the prefill; then full-width ``glm4-9b`` (bf16,
    ``attention_impl="flash"``) serves 8 requests of 2048-token prompts
    and 32 new tokens after a warm-up wave, counted (40 flash launches, one
    a layer of the prefill, every one ``flash_fwd_wgmma``), timed and
@@ -110,10 +111,12 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 #: published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
-#: outside the tensor cores (the WKV kernel's arithmetic) and dense bf16
-#: tensor-core FLOP/s (the flash kernel's products)
+#: outside the tensor cores (the WKV scan's arithmetic), dense TF32 tensor-
+#: core FLOP/s (the WKV chunk kernel's products, in three TF32 passes) and
+#: dense bf16 tensor-core FLOP/s (the flash kernel's products)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 BF16_FLOPS_PER_S = 989e12
 
 BATCH, PROMPT, NEW = 8, 512, 32
@@ -244,7 +247,13 @@ def _check_close(name, got, want, atol, rtol) -> float:
 
 
 def check_wkv_kernel(seed: int) -> dict:
-    """Phase 3: the WKV kernel against its plain version, and its times."""
+    """Phase 3: the WKV chunk kernel against its plain version, and its times.
+
+    At the rwkv6-1.6b layer shape in f32 and bf16: y within ``TOL``, the
+    final state within the f32 tolerance in both dtypes, a second launch on
+    the same inputs equal bit for bit; the kernel timed by CUDA-graph
+    replay, the plain version by events.
+    """
     import torch
 
     from repro_torch.kernels import rwkv6_chunked as wk
@@ -262,23 +271,33 @@ def check_wkv_kernel(seed: int) -> dict:
         r, k, v = (x.to(dt) for x in base)
         w, u = w32.to(dt), u32.to(dt)
         y, s = wk.wkv_chunked_matmul(r, k, v, w, u, chunk=chunk)
+        y2, s2 = wk.wkv_chunked_matmul(r, k, v, w, u, chunk=chunk)
         torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(s, s2)):
+            raise AssertionError(f"wkv_chunked {dtype}: a second launch on the "
+                                 f"same inputs differs")
         y_p, s_p = wk.wkv_chunked_matmul_plain(r, k, v, w, u, chunk=chunk)
         atol, rtol = TOL[dtype]
         errs[dtype] = _check_close(f"wkv_chunked y ({dtype})", y, y_p, atol, rtol)
         _check_close(f"wkv_chunked state ({dtype})", s, s_p, *TOL["float32"])
         times[dtype] = (
-            _time_ms(lambda: wk.wkv_chunked_matmul(r, k, v, w, u, chunk=chunk), 20),
+            _graph_ms(lambda: wk.wkv_chunked_matmul(r, k, v, w, u, chunk=chunk), 20),
             _time_ms(lambda: wk.wkv_chunked_matmul_plain(r, k, v, w, u, chunk=chunk), 5),
         )
         _say(f"wkv_chunked {dtype} [{BATCH},{PROMPT},{H},{K}] chunk {chunk}: "
-             f"max abs err vs plain {errs[dtype]:.3e}; kernel "
-             f"{times[dtype][0]:.4f} ms, plain {times[dtype][1]:.4f} ms")
+             f"max abs err vs plain {errs[dtype]:.3e}; a second launch equal; "
+             f"kernel {times[dtype][0]:.4f} ms (CUDA-graph replay), plain "
+             f"{times[dtype][1]:.4f} ms")
     moved, flops = wk.work(BATCH, PROMPT, H, K, K, chunk, 2)
+    tc = wk.tensor_core_flops(BATCH, PROMPT, H, K, K, chunk)
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    _say(f"wkv_chunked bf16 work: {moved} bytes, {flops} FLOP -> "
-         f"{t_bytes:.4f} ms at 3.35 TB/s, {t_ops:.4f} ms at 67 TFLOP/s f32")
+    # the products on tensor cores in three TF32 passes, the rest in f32
+    t_ops = (3 * tc / TF32_FLOPS_PER_S + (flops - tc) / F32_FLOPS_PER_S) * 1e3
+    _say(f"wkv_chunked bf16 work: {moved} bytes, {flops} FLOP ({tc} of them "
+         f"products on tensor cores) -> {t_bytes:.4f} ms at 3.35 TB/s, "
+         f"{t_ops:.4f} ms (3 TF32 passes at 495 TFLOP/s, the rest at 67 "
+         f"TFLOP/s f32); kernel at {max(t_bytes, t_ops) / times['bfloat16'][0]:.3f} "
+         f"of the bound")
     return {
         "name": "wkv_chunked",
         "route": "cuda",
@@ -293,7 +312,10 @@ def check_wkv_kernel(seed: int) -> dict:
         "plain_ms_f32": times["float32"][1],
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_bytes_ms": t_bytes,
+        "bound_ops_ms": t_ops,
         "library_ms": None,          # no single PyTorch call computes WKV
+        "timing": "CUDA-graph replay (kernel); CUDA events (plain)",
     }
 
 
@@ -814,7 +836,7 @@ def serve_full_width(seed: int, card: str) -> dict:
         prefill_ms = _time_ms(lambda: model.prefill(params, tokens), 3, warmup=1)
         cur = logits.argmax(-1)
         step_ms = _time_ms(lambda: model.decode_step(params, cur, cache), 10)
-        profile_window("prefill", lambda: model.prefill(params, tokens))
+        prof = profile_window("prefill", lambda: model.prefill(params, tokens))
         profile_window("decode x4", lambda: [model.decode_step(params, cur, cache)
                                              for _ in range(4)])
     res = {
@@ -829,6 +851,9 @@ def serve_full_width(seed: int, card: str) -> dict:
         "wkv_scan_vs_chunk_max_abs_err": scan_err,
         "wkv_scan_vs_chunk_share_of_tol": scan_ratio,
         "wkv_scan_vs_plain_max_abs_err": plain_err,
+        # the profiled prefill: the chunk kernel's device time and share
+        "prefill_wkv_chunked_ms": prof.get("ms_by_kind", {}).get("wkv_chunked"),
+        "prefill_busy_ms": prof.get("busy_ms"),
     }
     _say(f"serve {cfg.name} ({n_params} params, bf16) batch {BATCH} x prompt "
          f"{PROMPT} x {NEW} new: {res['generated_tokens']} tokens in "
@@ -837,6 +862,10 @@ def serve_full_width(seed: int, card: str) -> dict:
          f"memory {peak_gb:.3f} GB; wkv_chunked launches {launches['wkv_chunked']}"
          f" (the counted run's wall time includes the spy's {launches['wkv_scan']} "
          f"wkv_scan launches) [{card}]")
+    if res["prefill_wkv_chunked_ms"] is not None:
+        _say(f"prefill: {launches['wkv_chunked']} wkv_chunked calls "
+             f"{res['prefill_wkv_chunked_ms']:.3f} ms of "
+             f"{res['prefill_busy_ms']:.3f} ms busy in the profiled prefill")
     _say("serve " + json.dumps(res))
     return res
 

@@ -8,14 +8,21 @@ A_t = prod_{s<=t} w_s, r~_t = r_t * A_{t-1} and k~_s = k_s / A_s:
     S_T = A_T (.) S_0 + (k~ A_T)^T V
 
 The kernel is ``csrc/wkv_chunked.cu`` (CUDA C++ for sm_90a, bound with
-``ctypes``): one thread block per (b, h) walks the chunks in order with the
-f32 state in shared memory.  Unlike the TPU kernel it also returns the
-final state, so a prefill through it hands decode the real WKV state.
+``ctypes``): a block owns one (b, h) and walks the chunks in order, the
+f32 state held by eight warps (16 columns by 32 channels each) as tensor-
+core accumulator fragments; the products run as ``mma.sync`` in three
+TF32 passes, the decays are a shuffle scan of log2 w along the tokens,
+and the next chunks' inputs come in by TMA while one computes.
+:func:`wkv_chunked_schedule_plain` walks that decomposition on the CPU.
+Unlike the TPU kernel it also returns the final state, so a prefill
+through it hands decode the real WKV state.
 
 What bounds it on an H100: at the prefill shape of the serving path
-(B=8, S=512, H=32, K=V=64, bf16) a call moves ~88 MB and does ~2.4 GFLOP
-of f32 arithmetic; see the note in the CUDA source for what the design
-does about it.
+(B=8, S=512, H=32, K=V=64, bf16) a call moves 88,088,576 bytes (0.0263 ms
+at 3.35 TB/s) and needs 2.56 GFLOP (:func:`work`), 2.27 of them products
+that the kernel runs on tensor cores (:func:`tensor_core_flops`, 0.0138 ms
+in three TF32 passes at 495 TFLOP/s), the rest on the CUDA cores (0.0043
+ms at 67 TFLOP/s): bytes bound it.  See the note in the CUDA source.
 
 Numerics: k~ = k / A_s grows like w_min^-T inside a chunk, so chunks are
 kept short (T <= 32; T = 16 is safe for decays w >= 1e-2).
@@ -30,12 +37,17 @@ import torch
 
 from . import build
 
-__all__ = ["MAX_CHUNK", "wkv_chunked_matmul", "wkv_chunked_matmul_plain"]
+__all__ = ["MAX_CHUNK", "tensor_core_flops", "wkv_chunked_matmul",
+           "wkv_chunked_matmul_plain", "wkv_chunked_schedule_plain"]
 
 #: the k~ range bound (see module docstring)
 MAX_CHUNK = 32
-#: the kernel's shared-memory tiles bound the head widths
+#: the kernel's registers and shared-memory tiles bound the head widths
 MAX_HEAD_DIM = 64
+#: the WKV kernels' slice of state columns a block
+SLICE_COLUMNS = 64
+#: the chunk kernel's channels (padded) and the halves its warps hold
+PADDED_CHANNELS, CHANNEL_HALVES = 64, 2
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -87,6 +99,85 @@ def wkv_chunked_matmul_plain(
         state = a_T[..., None] * state + (k_t * a_T[:, :, None]).transpose(-1, -2) @ vc
     y = torch.cat(ys, dim=2).permute(0, 2, 1, 3).to(v.dtype)
     return y, state
+
+
+def _pad_channels(x: torch.Tensor, padded: int, fill: float) -> torch.Tensor:
+    return torch.nn.functional.pad(x, (0, padded - x.shape[-1]), value=fill)
+
+
+def wkv_chunked_schedule_plain(
+    r: torch.Tensor,   # [B, S, H, K]
+    k: torch.Tensor,
+    v: torch.Tensor,   # [B, S, H, V]
+    w: torch.Tensor,   # [B, S, H, K], decays in (0, 1)
+    u: torch.Tensor,   # [H, K]
+    chunk: int = 16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's own decomposition in PyTorch, in f32.
+
+    Mirrors ``wkv_chunked_fwd`` (in f32, not its TF32 passes): the grid's
+    slices of ``SLICE_COLUMNS`` state columns, each walking every chunk
+    with its own state; channels padded to ``PADDED_CHANNELS`` (r = k = 0,
+    w = 1); the chunk's log2 decays scanned along the tokens in the
+    shuffles' doubling steps (tokens padded to a power of two with w = 1);
+    ``r~ S_0`` as the partial products of the ``CHANNEL_HALVES`` halves of
+    the channels, summed; then the strict-lower ``r~ k~^T`` times V and the
+    rank-one bonus; the state passed on as ``A_T (.) S + (k~ A_T)^T V``.
+    Returns ``(y [B,S,H,V] in v.dtype, S_T [B,H,K,V] f32)``; nothing on the
+    main path calls it.
+    """
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    T = _check_chunk(S, chunk)
+    TT = 8 if T <= 8 else 16 if T <= 16 else 32      # the kernel's token tile
+    P = max(PADDED_CHANNELS, K)
+    halves = [slice(i * P // CHANNEL_HALVES, (i + 1) * P // CHANNEL_HALVES)
+              for i in range(CHANNEL_HALVES)]
+
+    def heads_first(x):                                  # [B, H, S, *] f32
+        return x.permute(0, 2, 1, 3).float()
+
+    rf = _pad_channels(heads_first(r), P, 0.0)
+    kf = _pad_channels(heads_first(k), P, 0.0)
+    wf = _pad_channels(heads_first(w), P, 1.0)
+    vf = heads_first(v)
+    uf = u.float()[None, :, None, :]
+    strict = torch.ones((T, T), dtype=torch.bool, device=r.device).tril(-1)
+    y = torch.empty((B, H, S, V), dtype=torch.float32, device=r.device)
+    state = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
+    for v0 in range(0, V, SLICE_COLUMNS):
+        cols = slice(v0, min(v0 + SLICE_COLUMNS, V))
+        st = torch.zeros((B, H, rf.shape[-1], cols.stop - v0),
+                         dtype=torch.float32, device=r.device)
+        for c0 in range(0, S, T):
+            rc, kc, wc = (x[:, :, c0:c0 + T] for x in (rf, kf, wf))
+            vc = vf[:, :, c0:c0 + T, cols]
+            lw = torch.log2(torch.nn.functional.pad(wc, (0, 0, 0, TT - T), value=1.0))
+            la, off = lw, 1
+            while off < TT:                              # __shfl_up_sync steps
+                la = la + torch.nn.functional.pad(la, (0, 0, off, 0))[:, :, :TT]
+                off *= 2
+            lw, la = lw[:, :, :T], la[:, :, :T]
+            la_T = la[:, :, -1:]
+            r_t = rc * torch.exp2(la - lw)               # r~ = r A_{t-1}
+            k_t = kc * torch.exp2(-la)                   # k~ = k / A_t
+            k_a = kc * torch.exp2(la_T - la)             # k~ A_T
+            y0 = sum(r_t[..., c] @ st[:, :, c] for c in halves)
+            qk = torch.where(strict, r_t @ k_t.transpose(-1, -2), 0.0)
+            beta = (rc[..., :K] * uf * kc[..., :K]).sum(-1, keepdim=True)
+            y[:, :, c0:c0 + T, cols] = y0 + qk @ vc + beta * vc
+            st = torch.exp2(la_T).transpose(-1, -2) * st + k_a.transpose(-1, -2) @ vc
+        state[..., cols] = st[:, :, :K]
+    return y.permute(0, 2, 1, 3).to(v.dtype), state
+
+
+def tensor_core_flops(B: int, S: int, H: int, K: int, V: int, chunk: int) -> int:
+    """The operations of :func:`work` that the kernel runs on tensor cores:
+    ``r~ S_0`` and the state's ``(k~ A_T)^T V`` (2 T K V each a chunk) and
+    ``(r~ k~^T) V`` (T (T - 1) V), counted once; the kernel runs each in
+    three TF32 passes."""
+    T = min(chunk, S)
+    return B * H * (S // T) * (4 * T * K * V + T * (T - 1) * V)
 
 
 def work(B: int, S: int, H: int, K: int, V: int, chunk: int,

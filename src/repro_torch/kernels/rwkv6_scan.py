@@ -12,12 +12,15 @@ out, so any decay in (0, 1) and any chunk length is safe; only y is
 returned, as in the reference.
 
 The kernel is ``csrc/wkv_scan.cu`` (CUDA C++ for sm_90a, bound with
-``ctypes``): one thread block per (b, h) walks the tokens with the state
-in registers, one column a thread.  What bounds it on an H100: at the
-rwkv6-1.6b prefill shape (B=8, S=512, H=32, K=V=64, bf16) a call moves
-83,894,272 bytes and needs 2,726,297,600 f32 operations (:func:`work`),
-so operations bound it (0.0407 ms at 67 TFLOP/s); see the CUDA source
-for what the first version's design does about it.
+``ctypes``): a block owns a slice of 64 state columns of one (b, h) and
+walks the tokens with the state in registers split over four channel
+groups a column, the sum over k split the same four ways and the u bonus
+added once a token as its rank-one term; the next stages come in by TMA
+while one computes.  :func:`wkv_scan_schedule_plain` walks that decomposition on the
+CPU.  What bounds it on an H100: at the rwkv6-1.6b prefill shape (B=8,
+S=512, H=32, K=V=64, bf16) a call moves 83,894,272 bytes and needs
+2,726,297,600 f32 operations (:func:`work`), so operations bound it
+(0.0407 ms at 67 TFLOP/s); see the CUDA source.
 """
 
 from __future__ import annotations
@@ -29,9 +32,25 @@ import torch
 
 from . import build
 from .ref import wkv_recurrence
-from .rwkv6_chunked import _DTYPE_CODE, MAX_HEAD_DIM, check_cuda_inputs
+from .rwkv6_chunked import (
+    _DTYPE_CODE, MAX_HEAD_DIM, SLICE_COLUMNS, _pad_channels, check_cuda_inputs)
 
-__all__ = ["MAX_HEAD_DIM", "wkv_scan", "wkv_scan_plain", "work"]
+__all__ = ["MAX_HEAD_DIM", "wkv_scan", "wkv_scan_plain",
+           "wkv_scan_schedule_plain", "work"]
+
+#: tokens the kernel stages at a time (any chunk that divides S)
+STAGE = 16
+#: the kernel's channel groups: the threads (warps) a state column
+CHANNEL_GROUPS = 4
+
+
+def channel_groups(K: int, groups: int = CHANNEL_GROUPS) -> list:
+    """The channels each of a column's ``groups`` threads holds: channels
+    padded to a multiple of ``4 * groups``, in float4 units q = g + groups m
+    (group g is one warp's, so a warp reads one float4 for all its lanes)."""
+    padded = -(-K // (4 * groups)) * (4 * groups)
+    return [[4 * q + e for q in range(g, padded // 4, groups) for e in range(4)]
+            for g in range(groups)]
 
 
 def _check_chunk(S: int, chunk: int) -> int:
@@ -58,6 +77,48 @@ def wkv_scan_plain(
     """
     _check_chunk(r.shape[1], chunk)
     return wkv_recurrence(r, k, v, w, u)[0]
+
+
+def wkv_scan_schedule_plain(
+    r: torch.Tensor,   # [B, S, H, K]
+    k: torch.Tensor,
+    v: torch.Tensor,   # [B, S, H, V]
+    w: torch.Tensor,   # [B, S, H, K], decays in (0, 1)
+    u: torch.Tensor,   # [H, K]
+    chunk: int = 64,
+) -> torch.Tensor:
+    """The kernel's own decomposition in PyTorch, in f32: y ``[B,S,H,V]``.
+
+    Mirrors ``wkv_scan_fwd``: the grid's slices of ``SLICE_COLUMNS`` state
+    columns, stages of ``STAGE`` tokens (whatever the chunk), channels
+    padded as :func:`channel_groups` pads them (r = k = w = 0), each
+    column's ``sum_k r_k S_kj`` as one partial sum a channel group, group
+    0's starting from the rank-one bonus ``beta_t v_j`` (``beta_t = sum_k
+    r_k u_k k_k``, once a token), summed in group order; the state is the
+    recurrence's own, token by token.  Nothing on the main path calls it.
+    """
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    _check_chunk(S, chunk)
+    split = channel_groups(K)
+    padded = -(-K // (4 * CHANNEL_GROUPS)) * (4 * CHANNEL_GROUPS)
+    rf, kf, wf = (_pad_channels(x.float(), padded, 0.0) for x in (r, k, w))
+    vf, uf = v.float(), u.float()
+    beta = (r.float() * uf * k.float()).sum(-1, keepdim=True)      # [B,S,H,1]
+    y = torch.empty((B, S, H, V), dtype=torch.float32, device=r.device)
+    for v0 in range(0, V, SLICE_COLUMNS):
+        cols = slice(v0, min(v0 + SLICE_COLUMNS, V))
+        state = torch.zeros((B, H, rf.shape[-1], cols.stop - v0),
+                            dtype=torch.float32, device=r.device)
+        for s0 in range(0, S, STAGE):
+            for t in range(s0, min(s0 + STAGE, S)):
+                vt = vf[:, t, :, None, cols]                       # [B,H,1,Vs]
+                parts = [(rf[:, t, :, g, None] * state[:, :, g]).sum(-2)
+                         for g in split]
+                parts[0] = beta[:, t] * vt[:, :, 0] + parts[0]
+                y[:, t, :, cols] = sum(parts[1:], parts[0])
+                state = wf[:, t, :, :, None] * state + kf[:, t, :, :, None] * vt
+    return y.to(v.dtype)
 
 
 def work(B: int, S: int, H: int, K: int, V: int,

@@ -1,4 +1,7 @@
-"""The port's WKV functions against the JAX package's, on the same numpy inputs."""
+"""The port's WKV functions against the JAX package's, on the same numpy inputs.
+
+The CUDA kernel's cases on the card are in ``tests/test_torch_wkv_cuda.py``,
+which imports no JAX."""
 
 import pytest
 
@@ -7,6 +10,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.kernels.ref import wkv_chunk_ref as jax_wkv_chunk_ref  # noqa: E402
 from repro.kernels.rwkv6_chunked import wkv_chunked_matmul as jax_wkv_chunked  # noqa: E402
 from repro.models.rwkv6 import wkv_recurrence as jax_wkv_recurrence  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
@@ -14,6 +18,7 @@ from repro_torch.kernels.ops import wkv_chunked_op  # noqa: E402
 from repro_torch.kernels.rwkv6_chunked import (  # noqa: E402
     wkv_chunked_matmul,
     wkv_chunked_matmul_plain,
+    wkv_chunked_schedule_plain,
 )
 
 # the cases of tests/test_kernels.py::CHUNKED_CASES
@@ -119,26 +124,28 @@ def test_nvcc_command_targets_sm90a():
     assert "wkv_chunked" in build.sources()
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", CHUNKED_CASES)
-def test_cuda_kernel_matches_plain(cuda_device, case, dtype):
-    dt = getattr(torch, dtype)
+def test_schedule_walk_matches_jax_kernel_and_recurrence(case):
+    """The kernel's own decomposition walked on the CPU (slices of state
+    columns, the log2 decay scan, the channel groups' partial sums, the
+    state passed on) == JAX's Pallas kernel (interpret mode) and JAX's
+    ``wkv_chunk_ref`` (y and the final state)."""
     chunk = case[5]
-    arrays = [a.to(cuda_device, dt) for a in _t(*_inputs(case, seed=5))]
-    before = wkv_chunked_matmul.launches
-    y, s = wkv_chunked_matmul(*arrays, chunk=chunk)
-    torch.cuda.synchronize()
-    assert wkv_chunked_matmul.launches == before + 1
-    y_p, s_p = wkv_chunked_matmul_plain(*arrays, chunk=chunk)
-    # same f32 math in another summation order; bf16 y rounds once more
-    atol, rtol = (ATOL, RTOL) if dt == torch.float32 else (2e-2, 1.6e-2)
-    torch.testing.assert_close(y.float(), y_p.float(), atol=atol, rtol=rtol)
-    torch.testing.assert_close(s, s_p, atol=ATOL, rtol=RTOL)
+    arrays = _inputs(case, seed=6)
+    y, s = wkv_chunked_schedule_plain(*_t(*arrays), chunk=chunk)
+    expect = jax_wkv_chunked(*_j(*arrays), chunk=chunk, interpret=True)
+    y_ref, s_ref = jax_wkv_chunk_ref(*_j(*arrays))
+    np.testing.assert_allclose(y.numpy(), np.asarray(expect), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), atol=ATOL, rtol=RTOL)
+
+
+def test_schedule_walk_pads_channels_and_slices_columns():
+    """K = 48 (padded to whole channel groups), V = 80 (a full and a
+    partial slice of state columns) and a chunk of 12 (tokens padded to the
+    scan's 16) == JAX's ``wkv_chunk_ref``."""
+    arrays = _inputs((1, 48, 2, 48, 80, 12, 0.3, 0.99), seed=7)
+    y, s = wkv_chunked_schedule_plain(*_t(*arrays), chunk=12)
+    y_ref, s_ref = jax_wkv_chunk_ref(*_j(*arrays))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), atol=ATOL, rtol=RTOL)

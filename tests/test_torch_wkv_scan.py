@@ -1,5 +1,8 @@
 """The port's exact-recurrence WKV (``wkv_scan``, ``ops.wkv_op``) against
-the JAX package's Pallas kernel in interpret mode, on the same numpy inputs."""
+the JAX package's Pallas kernel in interpret mode, on the same numpy inputs.
+
+The CUDA kernel's cases on the card are in ``tests/test_torch_wkv_cuda.py``,
+which imports no JAX."""
 
 import pytest
 
@@ -20,6 +23,7 @@ from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
     MAX_HEAD_DIM,
     wkv_scan,
     wkv_scan_plain,
+    wkv_scan_schedule_plain,
     work,
 )
 
@@ -126,28 +130,27 @@ def test_input_checks_name_the_kernel(kernel):
         check_cuda_inputs(kernel, r, k, v, w.to(torch.bfloat16), u)
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("case", WKV_CASES)
-def test_cuda_kernel_matches_plain(cuda_device, case):
+def test_schedule_walk_matches_jax_kernel_and_chunk_ref(case):
+    """The kernel's own decomposition walked on the CPU (the four channel
+    groups' partial sums, the rank-one bonus once a token, 16-token
+    stages) == JAX's ``wkv_scan`` (interpret mode) and ``wkv_chunk_ref``."""
     chunk, dtype = case[5], case[6]
-    arrays = [a.to(cuda_device) for a in _t(_inputs(case, seed=5), dtype)]
-    before = wkv_scan.launches
-    y = wkv_scan(*arrays, chunk=chunk)
-    y2 = ops.wkv_op(*arrays, chunk=chunk)           # a second call from zero
-    torch.cuda.synchronize()
-    assert wkv_scan.launches == before + 2
-    assert torch.equal(y, y2)
-    # the same f32 recurrence with fused multiply-adds; bf16 y rounds once
-    tol = {"float32": (5e-4, 5e-3), "bfloat16": (2e-2, 1.6e-2)}[dtype]
-    torch.testing.assert_close(y.float(), wkv_scan_plain(*arrays, chunk=chunk).float(),
-                               atol=tol[0], rtol=tol[1])
-    with pytest.raises(ValueError, match="K, V <="):
-        big = torch.zeros((1, 8, 1, 65), device=cuda_device)
-        wkv_scan(big, big, big, big, torch.zeros((1, 65), device=cuda_device))
+    arrays = _inputs(case, seed=3)
+    got = wkv_scan_schedule_plain(*_t(arrays, dtype), chunk=chunk)
+    assert got.dtype == getattr(torch, dtype)
+    want = jax_wkv_scan(*_j(arrays, dtype), chunk=chunk, interpret=True)
+    oracle, _ = jax_ref.wkv_chunk_ref(*_j(arrays, dtype))
+    tol = TOL[dtype]
+    for expect in (want, oracle):
+        np.testing.assert_allclose(_f32(got), _f32(expect), atol=tol, rtol=tol)
+
+
+def test_schedule_walk_pads_channels_and_stages():
+    """K = 7 (padded to a channel group), V = 40 (a partial slice of state
+    columns) and S = 40 (a partial stage) == JAX's ``wkv_chunk_ref``."""
+    arrays = _inputs((1, 40, 2, 7, 40), seed=4)
+    got = wkv_scan_schedule_plain(*_t(arrays, "float32"), chunk=8)
+    oracle, _ = jax_ref.wkv_chunk_ref(*_j(arrays, "float32"))
+    np.testing.assert_allclose(_f32(got), _f32(oracle), atol=TOL["float32"],
+                               rtol=TOL["float32"])
