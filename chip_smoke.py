@@ -44,6 +44,17 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    ``tests/test_kernels.py`` and the rwkv6-1.6b layer shape, in f32 and
    bf16, against its plain version, called twice from a zero state, timed
    by CUDA-graph replay;
+3b. the group phase: the planned all-reduce (a certified ring at the
+   plan's order) over 8 processes on the one card, spawned after the
+   kernels are built, in a gloo group over a file store, on the plan's
+   group-backed mesh: each process one schedule position (its mesh slot),
+   its row run by ``run_schedule_group`` (every payload
+   staged through pinned host memory, every reduce one ``fused_add``
+   launch, counted against the schedule's reduces at that position) at
+   4 MiB a rank and at the largest bucket, in bf16 and f32; the rows
+   gathered at rank 0 bit for bit against ``run_schedule`` on the card
+   with plain ``+`` (so a wrong ``fused_add`` at these piece sizes shows);
+   two more calls a job timed (wall ms, the staging copies' share);
 4. small-input checks: the smoke ``rwkv6`` in f32 (kernel-path prefill
    and decode against the exact recurrence, greedy tokens equal); the
    smoke ``glm4-9b`` in f32 (the flash prefill against the plain one,
@@ -67,7 +78,12 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    ``attention_impl="flash"``) serves 8 requests of 2048-token prompts
    and 32 new tokens after a warm-up wave, counted (40 flash launches, one
    a layer of the prefill, every one ``flash_fwd_wgmma``), timed and
-   profiled the same way;
+   profiled the same way; then the same wave armed
+   (``GenerationEngine.arm_overlap``) with the all-gather of a simulated
+   plan of the serving mix (1e6 bytes) over an 8-rank virtual mesh,
+   counted (the same tokens, 40 ``flash_fwd_wgmma`` launches, the
+   gather's postcondition checked), its prefill and decode step timed
+   beside the unarmed ones;
 6. the training path: full-width ``qwen2-0.5b`` (bf16, random weights
    from ``--seed``) over 8 virtual data-parallel ranks of 2 x 1024
    tokens each, its gradients reduced by a certified ring all-reduce in
@@ -132,6 +148,9 @@ PLAN_FABRIC = dict(nodes_per_rack=4, racks_per_agg=2, seed=0)
 PLAN_SCRAMBLE_SEED, PLAN_PROBE_SEED, PLAN_PAYLOAD = 1, 0, 988_065_536
 # the dense serving path: glm4-9b, 8 requests x 2048-token prompts x 32 new
 DENSE_ARCH, DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = "glm4-9b", 8, 2048, 32
+# the group phase: 8 processes on the one card in a gloo group, the planned
+# all-reduce at 4 MiB a rank and at the largest bucket, 2 timed calls each
+GROUP_RANK_BYTES, GROUP_TIMED_CALLS, GROUP_TIMEOUT_S = 4 * 1024 * 1024, 2, 480
 # tests/test_kernels.py:21-29: (B, H, KV, S, hd, block_q, block_k, causal, window)
 FLASH_CASES = [
     (2, 4, 2, 64, 16, 16, 16, True, 0),
@@ -743,6 +762,103 @@ def serve_dense_full_width(seed: int, card: str) -> dict:
          f"flash_attention launches {launches['flash_attention']} "
          f"({by_kernel}) [{card}]")
     _say("serve dense " + json.dumps(res))
+    res["armed"] = serve_dense_armed(model, params, prompts, outs, cfg.n_layers,
+                                     prefill_ms, step_ms, card)
+    return res
+
+
+def serve_dense_armed(model, params, prompts, want, n_layers: int,
+                      prefill_ms: float, step_ms: float, card: str) -> dict:
+    """Phase 5c: the same glm4-9b wave with the serving plan's all-gather
+    armed (``GenerationEngine.arm_overlap``) over an 8-rank virtual mesh,
+    counted; then the armed prefill and decode step timed beside the
+    unarmed ones."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.cli import SERVE_PAYLOAD_BYTES as SERVE_PAYLOAD
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import build_mesh
+    from repro_torch.serve import GenerationConfig, GenerationEngine
+    from repro_torch.serve.engine import _grow_cache
+    from repro_torch.session import serve_mix
+
+    args = argparse.Namespace(mesh=str(RANKS), reorder="simulate",
+                              plan_cache_dir=None, payload_bytes=SERVE_PAYLOAD)
+    mesh, plan = build_mesh(args, mix=serve_mix(SERVE_PAYLOAD), device="cuda")
+    eng = GenerationEngine(model, params, GenerationConfig(
+        max_new_tokens=DENSE_NEW, eos_token=-1), plan=plan)
+    sched = eng.arm_overlap(mesh, "data", SERVE_PAYLOAD)
+    hints = eng.collective_hints(SERVE_PAYLOAD)
+    eng.generate(prompts, max_new_tokens=2)    # warm-up wave, armed
+    torch.cuda.synchronize()
+
+    counted = _counted()
+    ok = obs.metrics().counter("serve.overlap.postcondition_ok")
+    checked = ok.value
+    for fn in counted.values():
+        fn.launches = 0
+    fa.flash_attention.kernel_launches = dict.fromkeys(fa.KERNELS, 0)
+    t0 = time.monotonic()
+    outs = eng.generate(prompts)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    by_kernel = dict(fa.flash_attention.kernel_launches)
+    checked = ok.value - checked
+    if outs != want:
+        raise AssertionError("armed serving's tokens differ from the unarmed "
+                             "wave's")
+    if launches["flash_attention"] != n_layers or \
+            by_kernel["flash_fwd_wgmma"] != n_layers:
+        raise AssertionError(f"armed prefill: flash_attention launched "
+                             f"{launches['flash_attention']} times ({by_kernel}), "
+                             f"expected {n_layers}, all flash_fwd_wgmma")
+    if checked < 1:
+        raise AssertionError("armed serving checked no gather's postcondition")
+
+    P, grown = DENSE_PROMPT, DENSE_PROMPT + DENSE_NEW
+    tokens = torch.tensor(prompts, device="cuda")
+
+    def armed_prefill():
+        logits, cache = model.prefill(params, tokens)
+        return eng._gather(eng._ag_payload(logits),
+                           lambda: _grow_cache(cache, P, grown))
+
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, tokens)
+        payload = eng._ag_payload(logits)
+        cache = _grow_cache(cache, P, grown)
+        cur = logits.argmax(-1)
+        unarmed_prefill_ms = _time_ms(
+            lambda: _grow_cache(model.prefill(params, tokens)[1], P, grown),
+            3, warmup=1)
+        armed_prefill_ms = _time_ms(armed_prefill, 3, warmup=1)
+        armed_step_ms = _time_ms(lambda: eng._gather(
+            payload, lambda: model.decode_step(params, cur, cache)), 10)
+        gather_ms = _time_ms(lambda: eng._gather(payload, lambda: None), 10)
+    res = {
+        "plan_digest": plan.fingerprint.digest, "mesh_order": list(mesh.order),
+        "algorithm": sched.algorithm, "schedule_order": list(sched.order),
+        "rounds": len(sched.rounds), "payload": list(payload.shape),
+        "hints": hints, "generate_s": wall, "launches": launches,
+        "flash_kernel_launches": by_kernel, "postconditions_checked": checked,
+        "prefill_ms": {"unarmed": prefill_ms,
+                       "unarmed_with_cache_growth": unarmed_prefill_ms,
+                       "armed": armed_prefill_ms},
+        "decode_step_ms": {"unarmed": step_ms, "armed": armed_step_ms},
+        "gather_alone_ms": gather_ms, "card": card,
+    }
+    _say(f"armed serve {DENSE_ARCH}: plan {res['plan_digest']} all-gather "
+         f"{sched.algorithm} ({len(sched.rounds)} rounds, order "
+         f"{list(sched.order)}) over {RANKS} virtual ranks, payload "
+         f"{list(payload.shape)}; tokens == the unarmed wave's; flash launches "
+         f"{launches['flash_attention']} ({by_kernel}); postcondition checked "
+         f"{checked:.0f}x; prefill (+ cache growth) unarmed "
+         f"{unarmed_prefill_ms:.3f} ms, armed {armed_prefill_ms:.3f} ms; decode "
+         f"step unarmed {step_ms:.3f} ms, armed {armed_step_ms:.3f} ms; the "
+         f"gather alone {gather_ms:.3f} ms [{card}]")
+    _say("serve armed " + json.dumps(res, default=float))
     return res
 
 
@@ -1315,6 +1431,177 @@ def planned_layout(plan, layout: dict) -> dict:
     return {"reducer": red, "buckets": buckets, "widths": widths}
 
 
+def _group_input(rank: int, width: int, dtype, seed: int):
+    """Logical rank ``rank``'s input: ``width`` normal values drawn on the
+    card from ``seed + rank``, so every process draws the same rows."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + rank)
+    return torch.randn(width, generator=gen, device="cuda").to(dtype)
+
+
+def _group_worker(rank: int, store: str, plan, jobs: list, out_dir: str,
+                  seed: int) -> None:
+    """One process of the group phase (spawned; one slot of the plan's
+    group-backed mesh, one schedule position).
+
+    Each job runs the certified all-reduce through
+    ``run_schedule_group``: once counted (its ``fused_add`` launches against
+    the schedule's reduces at this position), its rows gathered at rank 0
+    and held bit for bit to the virtual-mesh runner with plain ``+`` on the
+    same card and inputs, then ``GROUP_TIMED_CALLS`` times for the wall and
+    staging times.
+    """
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", world_size=RANKS, rank=rank,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        from repro_torch.kernels import ring_collective as rc
+        from repro_torch.kernels.group_runner import (
+            gather_rows, local_rank, reduce_count, run_schedule_group)
+        from repro_torch.kernels.schedule_runner import (
+            check_postcondition, run_schedule)
+        from repro_torch.launch import make_planned_mesh
+
+        mesh = make_planned_mesh(plan, "cuda", group=dist.group.WORLD)
+        out = []
+        for label, pair, width, dtype_name in jobs:
+            sched, dtype = pair[1], getattr(torch, dtype_name)
+            x = _group_input(local_rank(sched, mesh), width, dtype, seed)
+            before = rc.fused_add.launches
+            row = run_schedule_group(x, pair, mesh)
+            torch.cuda.synchronize()
+            launches = rc.fused_add.launches - before
+            want = reduce_count(sched, mesh.slot)
+            if launches != want:
+                raise AssertionError(f"group {label} rank {rank}: {launches} "
+                                     f"fused_add launches, the schedule has "
+                                     f"{want} reduces here")
+            rows = gather_rows(row, sched, mesh)
+            del row
+            if rank == 0:
+                full = torch.stack([_group_input(r, width, dtype, seed)
+                                    for r in range(RANKS)])
+                if not torch.equal(rows, run_schedule(full, sched,
+                                                      use_kernel_add=False)):
+                    raise AssertionError(f"group {label}: the processes' rows "
+                                         f"!= the virtual-mesh runner's")
+                if dtype == torch.float32 and width * 4 <= GROUP_RANK_BYTES:
+                    bad = check_postcondition(sched, full, rows, atol=1e-4)
+                    if bad:
+                        raise AssertionError(f"group {label}: {bad[:3]}")
+                del full
+            del rows
+            torch.cuda.empty_cache()
+            walls, stages = [], []
+            for _ in range(GROUP_TIMED_CALLS):
+                stats = {}
+                dist.barrier()      # rank 0's check above must not be timed
+                run_schedule_group(x, pair, mesh, stats=stats)
+                walls.append(stats["wall_s"] * 1e3)
+                stages.append(stats["stage_s"] * 1e3)
+            out.append({"label": label, "slot": mesh.slot,
+                        "launches": launches, "reduces": want,
+                        "wall_ms": walls, "stage_ms": stages})
+            del x
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_group(seed: int, card: str, plan, planned: dict) -> dict:
+    """Phase 3b: the planned all-reduce over 8 processes on the one card.
+
+    A gloo group over a file store (NCCL builds no multi-rank communicator
+    on one GPU); every payload staged through pinned host memory; every
+    reduce one ``fused_add`` launch on the card.  Position ``i`` runs in
+    the process at group rank ``order[i]`` of the plan's mesh.  The
+    kernels were built by the parent, so no two processes run ``nvcc``.
+    """
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.train import certified_allreduce_pair
+
+    red = planned["reducer"]
+    sched = red.schedule
+    pair = certified_allreduce_pair(RANKS, red.bucket_bytes, "ring",
+                                    perm=sched.order,
+                                    chunk_factor=sched.chunk_factor)
+    if pair[1] != sched:
+        raise AssertionError("the rebuilt (program, schedule) pair is not the "
+                             "planned reducer's schedule")
+    quantum = sched.n_chunks * max(1, sched.chunk_factor)
+    jobs = []
+    for dtype, item in (("bfloat16", 2), ("float32", 4)):
+        small = GROUP_RANK_BYTES // item
+        jobs.append((f"4 MiB a rank {dtype}", pair, small - small % quantum, dtype))
+        jobs.append((f"largest bucket {dtype}", pair, max(planned["widths"]), dtype))
+    tmp = tempfile.mkdtemp(prefix="repro_torch_group_")
+    t0 = time.monotonic()
+    ctx = mp.start_processes(_group_worker, nprocs=RANKS, join=False,
+                             start_method="spawn",
+                             args=(os.path.join(tmp, "store"), plan, jobs,
+                                   tmp, seed))
+    try:
+        deadline = time.monotonic() + GROUP_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the group phase's {RANKS} processes did "
+                                   f"not finish in {GROUP_TIMEOUT_S} s")
+        wall = time.monotonic() - t0
+        per_rank = []
+        for r in range(RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                per_rank.append(json.load(f))
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    results, total = [], 0
+    for j, (label, _, width, dtype) in enumerate(jobs):
+        rows = [per_rank[r][j] for r in range(RANKS)]
+        launches = [row["launches"] for row in rows]
+        if launches != [row["reduces"] for row in rows] or min(launches) < 1:
+            raise AssertionError(f"group {label}: fused_add launches {launches}")
+        total += sum(launches)
+        # a call ends when its slowest process does
+        wall_ms = [max(row["wall_ms"][c] for row in rows)
+                   for c in range(GROUP_TIMED_CALLS)]
+        share = [sum(row["stage_ms"][c] for row in rows)
+                 / sum(row["wall_ms"][c] for row in rows)
+                 for c in range(GROUP_TIMED_CALLS)]
+        res = {"label": label, "elements_a_rank": width, "dtype": dtype,
+               "launches_per_rank": launches, "wall_ms": wall_ms,
+               "staging_share": share}
+        results.append(res)
+        _say(f"group {label} ({width} elements a rank, {RANKS} processes, "
+             f"gloo, ring at {list(sched.order)}): rows == virtual-mesh runner "
+             f"bit for bit; fused_add launches a rank {launches}; wall "
+             f"{[round(v, 2) for v in wall_ms]} ms a call, staging copies "
+             f"{[round(v, 3) for v in share]} of it [{card}]")
+    res = {"jobs": results, "launches": {"fused_add": total},
+           "order": list(sched.order), "wall_s": wall, "card": card}
+    _say(f"group phase: {RANKS} processes, {total} fused_add launches on the "
+         f"card in the counted calls, {wall:.1f} s in all")
+    _say("group " + json.dumps(res))
+    return res
+
+
 def check_peer_ring_kernel(seed: int, planned: dict) -> dict:
     """Phase 3: the peer-memory ring against its plain version, the virtual
     ring and the oracle; its times beside ``x.sum(0)``."""
@@ -1719,6 +2006,7 @@ def main(argv=None) -> int:
                check_flash_kernel(args.seed),
                check_peer_ring_kernel(args.seed, planned)]
     _free()
+    grouped = run_group(args.seed, card, plan, planned)
     check_small_model(args.seed)
     check_small_dense(args.seed)
     check_virtual_mesh(args.seed)
@@ -1755,6 +2043,8 @@ def main(argv=None) -> int:
             raise AssertionError(f"{k['name']} never launched on its path")
         if k["name"] == "peer_ring":
             k["launches_planned_run"] = trained_planned["launches"]["peer_ring"]
+        if k["name"] == "fused_add":
+            k["launches_group_run"] = grouped["launches"]["fused_add"]
 
     print(json.dumps({"kernels": kernels}))
     print(card)

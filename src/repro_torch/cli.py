@@ -8,11 +8,16 @@ Counterpart of ``repro``'s CLI (``repro/cli.py``) for four subcommands::
         --seq 1024 --steps 4 --reorder simulate
     python -m repro_torch serve --arch glm4-9b --batch 8 --prompt-len 2048
 
-``probe``, ``plan`` and ``train`` accept the reference's session
-arguments: ``--config session.json`` plus ``REPRO_*`` environment
-overrides (:meth:`~repro_torch.session.SessionConfig.from_env`) plus
-explicit flags, in that precedence order; ``--dump-config`` prints the
+Every subcommand accepts the reference's session arguments:
+``--config session.json`` plus ``REPRO_*`` environment overrides
+(:meth:`~repro_torch.session.SessionConfig.from_env`) plus explicit
+flags, in that precedence order; ``--dump-config`` prints the
 resolved config as JSON and exits.
+
+``serve`` plans the serving mix (``--payload-bytes``, 1e6 unless a flag,
+a config file or the environment sets one) over ``--mesh`` as ``train``
+does (``--reorder simulate``), hands the plan to the engine and prints
+its collective hints; a one-rank mesh, the default, plans nothing.
 
 ``train`` plans the data-parallel all-reduce through a
 :class:`~repro_torch.session.Session` (``--reorder simulate``), builds
@@ -416,20 +421,36 @@ def cmd_train(args: argparse.Namespace) -> int:
 # serve
 # ---------------------------------------------------------------------------
 
+#: ``serve``'s payload when none is set: the reference's decode-path size
+SERVE_PAYLOAD_BYTES = 1e6
+
+
 def cmd_serve(args: argparse.Namespace) -> int:
     import torch
 
     from repro_torch import obs, resolve_device
     from repro_torch.configs import get_config
+    from repro_torch.launch import build_mesh
     from repro_torch.models import get_model
     from repro_torch.serve import GenerationConfig, GenerationEngine
+    from repro_torch.session import serve_mix
 
+    cfg = session_config_from_args(args, workload="serve")
+    # decode payloads are smaller than gradient payloads: the reference's
+    # 1e6 unless a flag, a config file or the environment sets one
+    if not _payload_given(args):
+        cfg = cfg.replace(payload_bytes=SERVE_PAYLOAD_BYTES)
+    if _maybe_dump(args, cfg):
+        return 0
     device = resolve_device(args.device)
     arch = get_config(args.arch)
     if args.smoke:
         arch = arch.smoke()
     arch = dataclasses.replace(arch, wkv_impl=args.wkv_impl,
                                attention_impl=args.attention_impl)
+    mix = serve_mix(cfg.payload_bytes, moe=bool(arch.n_experts))
+    # a one-rank mesh, or --reorder none, plans nothing
+    _, plan = build_mesh(args, mix=mix, session_config=cfg, device=device)
     model = get_model(arch, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
@@ -441,7 +462,10 @@ def cmd_serve(args: argparse.Namespace) -> int:
     ]
     eng = GenerationEngine(
         model, params,
-        GenerationConfig(max_new_tokens=args.max_new, eos_token=-1))
+        GenerationConfig(max_new_tokens=args.max_new, eos_token=-1), plan=plan)
+    if plan is not None:
+        print(f"[serve] plan {plan.fingerprint.digest} hints: "
+              f"{eng.collective_hints(cfg.payload_bytes)}")
     timer = obs.tracer().timer("cli.serve.generate", batch=args.batch)
     with timer:
         outs = eng.generate(prompts)    # ends on a host copy: synchronised
@@ -491,7 +515,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=1e-3)
     p.set_defaults(fn=cmd_train, mesh_default="1")
 
-    p = sub.add_parser("serve", help="batched generation on one device")
+    p = sub.add_parser("serve", help="batched generation on one device, "
+                                     "with the serving mix's plan")
+    _add_session_args(p)
     p.add_argument("--arch", default="qwen2-0.5b")
     p.add_argument("--attention-impl", choices=["xla", "flash"], default="flash",
                    help="dense family: flash: the flash-attention CUDA kernel "
@@ -506,9 +532,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-new", type=int, default=32)
     p.add_argument("--smoke", action="store_true",
                    help="the reduced same-family config")
+    p.add_argument("--reorder", choices=["none", "simulate", "probe"],
+                   default="simulate",
+                   help="simulate: plan the serving mix on a scrambled "
+                        "simulated fabric over --mesh; none: no plan; probe: "
+                        "live probes (not ported yet: raises)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--seed", type=int, default=0, help="weight seed")
-    p.set_defaults(fn=cmd_serve)
+    p.set_defaults(fn=cmd_serve, mesh_default="1")
     return ap
 
 

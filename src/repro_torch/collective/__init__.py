@@ -18,6 +18,7 @@ from .builders import (  # noqa: F401
 )
 from .executors import (  # noqa: F401
     AnalyticExecutor,
+    Lowered,
     LoweredSchedule,
     PermuteStep,
     ScheduleLowering,

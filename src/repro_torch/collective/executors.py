@@ -2,13 +2,15 @@
 
 The port's counterpart of the lowering half of
 ``repro.collective.executors``: :class:`PermuteStep`,
-:class:`LoweredSchedule` and :class:`ScheduleLowering` (the reference's
-``JaxExecutor.lower_schedule``; the class is plain numpy in both
+:class:`LoweredSchedule`, :class:`Lowered` and :class:`ScheduleLowering`
+(the reference's ``JaxExecutor``; the class is plain numpy in both
 packages).  A :class:`LoweredSchedule` is the certified artifact the
-port's runners execute on the single-card virtual mesh
+port's runners execute, on the single-card virtual mesh
 (:mod:`repro_torch.kernels.schedule_runner`,
-:mod:`repro_torch.kernels.overlap`): position-space partial permutations
-per round, each an index gather over the leading rank dimension.
+:mod:`repro_torch.kernels.overlap`: each round's partial permutations
+are index gathers over the leading rank dimension) or over a process
+group (:mod:`repro_torch.kernels.group_runner`: send/recv between
+processes).
 
 The pricing executors are copies of the reference's:
 :class:`AnalyticExecutor` wraps the closed-form cost models of
@@ -29,13 +31,14 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.cost_models import CostModel, make_cost_model
 from repro_torch.core.simulator import simulate_rounds
 from repro_torch.fabric.topology import Fabric
 
 from .ir import Program
 
-__all__ = ["PermuteStep", "LoweredSchedule", "ScheduleLowering",
+__all__ = ["PermuteStep", "LoweredSchedule", "Lowered", "ScheduleLowering",
            "AnalyticExecutor", "SimExecutor"]
 
 
@@ -174,6 +177,32 @@ class LoweredSchedule:
         return hashlib.sha1(blob.encode()).hexdigest()[:16]
 
 
+@dataclasses.dataclass(frozen=True)
+class Lowered:
+    """A plan entry's lowering in *axis-index* (local position) space.
+
+    ``order`` is the ring order the program's permutation induces over
+    the group; ``links`` are that ring's neighbour pairs; ``shift_rounds``
+    are the per-round ``(src, dst)`` pairs (all-to-all programs only; each
+    round is a bijection).  ``schedule`` is the generalized per-round
+    :class:`LoweredSchedule`, populated for every algorithm; the ring and
+    shift views are kept as the reference's consumers read them.
+    ``fingerprint`` names the source program, and ``program`` is that
+    program itself (the port's addition, left out of equality and repr):
+    a runner certifies ``schedule`` against it before it runs
+    (:mod:`repro_torch.kernels.group_runner`).
+    """
+
+    kind: str                                    # "ring" | "shift_a2a" | "general"
+    order: Tuple[int, ...]
+    links: Tuple[Tuple[int, int], ...]
+    shift_rounds: Tuple[Tuple[Tuple[int, int], ...], ...] = ()
+    fingerprint: str = ""
+    schedule: Optional[LoweredSchedule] = None
+    program: Optional[Program] = dataclasses.field(
+        default=None, compare=False, repr=False)
+
+
 class AnalyticExecutor:
     """Prices programs with the paper's closed-form cost models.
 
@@ -229,7 +258,7 @@ class AnalyticExecutor:
         model = self.model_for(program)
         return program.chunk_factor * float(model.cost(program.local_perm))
 
-    def lower(self, program: Program) -> LoweredSchedule:
+    def lower(self, program: Program) -> Lowered:
         raise NotImplementedError(
             "AnalyticExecutor prices programs; use ScheduleLowering to lower")
 
@@ -256,9 +285,16 @@ class SimExecutor:
         return simulate_rounds(self.fabric, program.to_flows(),
                                rng=rng, jitter=self.jitter)
 
-    def lower(self, program: Program) -> LoweredSchedule:
+    def lower(self, program: Program) -> Lowered:
         raise NotImplementedError(
             "SimExecutor prices programs; use ScheduleLowering to lower")
+
+
+#: builder names with a closed-form artifact, by shape: they keep their
+#: ``kind`` (and ``links``/``shift_rounds`` views), as the reference's
+#: consumers read them; everything else lowers as ``kind="general"``
+_RING_ALGOS = ("ring", "ring_sequential", "ring_all_gather")
+_SHIFT_ALGOS = ("all_to_all",)
 
 
 def _decompose_round(
@@ -315,6 +351,12 @@ class ScheduleLowering:
     priced on.  Every registered algorithm lowers.
     """
 
+    def can_lower(self, program: Program) -> bool:
+        """Total for round-based programs: every flow round decomposes
+        into partial permutations, so any structurally valid Program
+        lowers (certification is the certifier's job, not a shape test)."""
+        return bool(program.rounds) or program.n == 1
+
     def lower_schedule(self, program: Program) -> LoweredSchedule:
         """Program rounds → per-round permute steps.  Pure structure
         translation — no certification; callers that execute the result
@@ -337,3 +379,32 @@ class ScheduleLowering:
             chunk_factor=program.chunk_factor,
             source_fingerprint=program.fingerprint(),
         )
+
+    def lower(self, program: Program) -> Lowered:
+        """The :class:`Lowered` artifact of ``program``: its
+        :meth:`lower_schedule` plus the ring or shift view the reference's
+        ``JaxExecutor.lower`` gives the same algorithm.  No certification
+        here either (:meth:`repro_torch.session.Session.lower` certifies)."""
+        with obs.tracer().span("collective.lower",
+                               algo=program.algorithm, n=program.n):
+            lp = tuple(int(i) for i in program.local_perm)
+            n = program.n
+            links = tuple((lp[i], lp[(i + 1) % n]) for i in range(n))
+            schedule = self.lower_schedule(program)
+            fp = program.fingerprint()
+            if program.algorithm in _RING_ALGOS:
+                obs.metrics().counter("collective.lowered.ring").inc()
+                return Lowered(kind="ring", order=lp, links=links,
+                               fingerprint=fp, schedule=schedule,
+                               program=program)
+            if program.algorithm in _SHIFT_ALGOS:
+                shift_rounds = tuple(
+                    tuple(sorted((lp[f.src], lp[f.dst]) for f in rnd))
+                    for rnd in program.rounds)
+                obs.metrics().counter("collective.lowered.shift_a2a").inc()
+                return Lowered(kind="shift_a2a", order=lp, links=links,
+                               shift_rounds=shift_rounds, fingerprint=fp,
+                               schedule=schedule, program=program)
+            obs.metrics().counter("collective.lowered.general").inc()
+            return Lowered(kind="general", order=lp, links=(),
+                           fingerprint=fp, schedule=schedule, program=program)

@@ -45,7 +45,7 @@ from repro_torch.collective.executors import LoweredSchedule
 from .ring_collective import accumulate
 
 __all__ = ["run_schedule", "check_postcondition", "schedule_tables",
-           "seed_state", "finish_state"]
+           "seed_state", "finish_state", "fill_row", "row_shape"]
 
 
 def _step_tables(step, n: int, n_chunks: int):
@@ -178,46 +178,60 @@ def _as_tensor(x) -> torch.Tensor:
     return x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
 
 
+def row_shape(schedule: LoweredSchedule, width: int) -> Tuple[int, int]:
+    """``(n_chunks + 1, chunk_len)`` of a position's row for inputs of
+    ``width`` elements a rank, shaped by the schedule's declared init
+    (``replicated``: the full local vector; ``sharded``: rank r's own
+    chunk; ``addressed``: the n outgoing pieces)."""
+    n, n_chunks = schedule.n, schedule.n_chunks
+    if schedule.init == "replicated":
+        if width % n_chunks:
+            raise ValueError(f"D={width} not divisible by "
+                             f"n_chunks={n_chunks}")
+        return n_chunks + 1, width // n_chunks
+    if schedule.init == "sharded":
+        return n_chunks + 1, width
+    if schedule.init == "addressed":
+        if n_chunks != n * n or width % n:
+            raise ValueError(f"addressed init wants n_chunks=n^2 and "
+                             f"D divisible by n, got D={width}")
+        return n_chunks + 1, width // n
+    raise ValueError(f"unknown init {schedule.init!r}")
+
+
+def fill_row(row: torch.Tensor, schedule: LoweredSchedule, rank: int,
+             xr: torch.Tensor) -> None:
+    """Seed one position's ``[n_chunks + 1, chunk_len]`` row (in place)
+    from logical rank ``rank``'s input ``xr``: the full vector
+    (``replicated``; the scratch row zeroed), its own chunk (``sharded``)
+    or its n outgoing pieces (``addressed``) into a zeroed row."""
+    n, n_chunks = schedule.n, schedule.n_chunks
+    if schedule.init == "replicated":
+        row[:n_chunks] = xr.reshape(n_chunks, row.shape[-1])
+        row[n_chunks].zero_()
+        return
+    row.zero_()
+    if schedule.init == "sharded":
+        row[rank] = xr
+    else:
+        row[rank * n:(rank + 1) * n] = xr.reshape(n, row.shape[-1])
+
+
 def seed_state(schedule: LoweredSchedule, x) -> torch.Tensor:
     """Position-major ``[n, n_chunks + 1, chunk_len]`` state from inputs.
 
-    ``x`` is ``[n, D]`` rank-major, shaped by the schedule's declared
-    init (``replicated``: the full local vector; ``sharded``: rank r's
-    own chunk; ``addressed``: the n outgoing pieces).  The state lies on
-    ``x``'s device, in its dtype; position p's row is filled straight
-    from rank ``rank_of[p]``'s input, one copy of the payload.
+    ``x`` is ``[n, D]`` rank-major (see :func:`row_shape`).  The state
+    lies on ``x``'s device, in its dtype; position p's row is filled
+    straight from rank ``rank_of[p]``'s input, one copy of the payload.
     """
-    n, n_chunks = schedule.n, schedule.n_chunks
+    n = schedule.n
     x = _as_tensor(x)
     if x.dim() != 2 or x.shape[0] != n:
         raise ValueError(f"want [n={n}, D] rank-major inputs, "
                          f"got {tuple(x.shape)}")
-    if schedule.init == "replicated":
-        if x.shape[1] % n_chunks:
-            raise ValueError(f"D={x.shape[1]} not divisible by "
-                             f"n_chunks={n_chunks}")
-        chunk_len = x.shape[1] // n_chunks
-    elif schedule.init == "sharded":
-        chunk_len = x.shape[1]
-    elif schedule.init == "addressed":
-        if n_chunks != n * n or x.shape[1] % n:
-            raise ValueError(f"addressed init wants n_chunks=n^2 and "
-                             f"D divisible by n, got {tuple(x.shape)}")
-        chunk_len = x.shape[1] // n
-    else:
-        raise ValueError(f"unknown init {schedule.init!r}")
-    if schedule.init == "replicated":
-        buf = x.new_empty((n, n_chunks + 1, chunk_len))
-        buf[:, n_chunks].zero_()
-    else:
-        buf = x.new_zeros((n, n_chunks + 1, chunk_len))
+    buf = x.new_empty((n, *row_shape(schedule, x.shape[1])))
     for p, r in enumerate(schedule.rank_of):
-        if schedule.init == "replicated":
-            buf[p, :n_chunks] = x[r].reshape(n_chunks, chunk_len)
-        elif schedule.init == "sharded":
-            buf[p, r] = x[r]
-        else:
-            buf[p, r * n:(r + 1) * n] = x[r].reshape(n, chunk_len)
+        fill_row(buf[p], schedule, r, x[r])
     return buf
 
 

@@ -1,5 +1,5 @@
-"""Launch helpers (counterpart of ``repro.launch``): the planned virtual
-mesh (:mod:`.mesh`) and the training launcher's ``build_mesh`` (:mod:`.train`).
+"""Launch helpers (counterpart of ``repro.launch``): the planned mesh,
+virtual or group-backed (:mod:`.mesh`), and ``build_mesh`` (:mod:`.train`).
 
 The reference's production meshes, dry-run specs, HLO analysis and serve
 launcher are not ported (ROADMAP.md §1 slice 6, item 15).

@@ -1,16 +1,24 @@
-"""Planned meshes on the virtual mesh (counterpart of ``repro.launch.mesh``).
+"""Planned meshes (counterpart of ``repro.launch.mesh``).
 
 The reference permutes a JAX device array with a solved
 :class:`~repro_torch.core.reorder.MeshPlan` before building its ``Mesh``:
 the JAX form of feeding the paper's reordered IP list to an unmodified
-backend.  The port's data-parallel ranks are virtual (the leading
-dimension of one tensor on one device); virtual rank ``r`` stands for
-node ``r`` of the planned fabric, as in the certified all-reduce's ring
-order.  :class:`PlannedMesh` holds the flat order, the mesh shape and
+backend.  :class:`PlannedMesh` holds the flat order, the mesh shape and
 axis names, and the device the ranks live on.  Mesh slot ``i`` (data
 shard ``i``) is placed on rank ``order[i]``, as the reference's mesh
 places it on device ``order[i]``: :meth:`PlannedMesh.batch_rows` is that
 placement of a global batch's rows.
+
+The ranks are virtual by default: the leading dimension of one tensor on
+one device, virtual rank ``r`` standing for node ``r`` of the planned
+fabric, as in the certified all-reduce's ring order.  Given a
+:mod:`torch.distributed` process group, :func:`make_planned_mesh` returns
+a group-backed mesh instead: rank ``r`` is the process at group rank
+``r``, so mesh slot ``i`` lives in the process at group rank
+``order[i]`` (:attr:`PlannedMesh.slot` is the calling process's slot).
+This placement is the only one: :mod:`repro_torch.kernels.group_runner`
+runs schedule position ``i`` in the process that holds slot ``i``, as the
+reference's ``shard_map`` runs it on the device at axis index ``i``.
 
 A plan without a mesh assignment raises; nothing falls back to an
 unreordered mesh.
@@ -28,13 +36,16 @@ __all__ = ["PlannedMesh", "make_mesh", "make_planned_mesh"]
 
 @dataclasses.dataclass(frozen=True)
 class PlannedMesh:
-    """A rank order over a mesh shape, on one device."""
+    """A rank order over a mesh shape: virtual ranks on one device, or
+    the processes of a group (``group``)."""
 
-    #: flat rank order: mesh slot i is placed on virtual rank ``order[i]``
+    #: flat rank order: mesh slot i is placed on rank ``order[i]``
     order: Tuple[int, ...]
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     device: Any                      # torch.device
+    #: the torch.distributed group whose rank r is rank r (None: virtual)
+    group: Any = None
 
     def __post_init__(self) -> None:
         if len(self.shape) != len(self.axis_names):
@@ -47,6 +58,24 @@ class PlannedMesh:
     @property
     def size(self) -> int:
         return int(np.prod(self.shape))
+
+    def axis_size(self, axis: str) -> int:
+        """The number of slots along ``axis``."""
+        if axis not in self.axis_names:
+            raise ValueError(f"mesh has no axis {axis!r}; axes "
+                             f"{self.axis_names}")
+        return self.shape[self.axis_names.index(axis)]
+
+    @property
+    def slot(self) -> int:
+        """The mesh slot placed on the calling process (group-backed
+        meshes only): the ``i`` with ``order[i]`` its group rank."""
+        if self.group is None:
+            raise ValueError("a virtual mesh has no slot per process; pass "
+                             "a group to make_planned_mesh")
+        import torch.distributed as dist
+
+        return self.order.index(dist.get_rank(self.group))
 
     def batch_rows(self, batch: int) -> np.ndarray:
         """A global batch's row indices in virtual-rank order.
@@ -75,16 +104,29 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
                        device=resolve_device(device))
 
 
-def make_planned_mesh(plan, device: Any = "cuda") -> PlannedMesh:
+def make_planned_mesh(plan, device: Any = "cuda", group=None) -> PlannedMesh:
     """The mesh of a compiled :class:`~repro_torch.plan.Plan`: its solved
-    ``MeshPlan``'s rank order (the paper's reordered IP list)."""
+    ``MeshPlan``'s rank order (the paper's reordered IP list).
+
+    Virtual ranks on ``device`` by default; with a process ``group``, mesh
+    slot ``i`` is placed on the process at group rank ``order[i]``, and a
+    group of another size than the mesh raises.
+    """
     from repro_torch import resolve_device
 
     mp = plan.mesh_plan
     if mp is None:
         raise ValueError("the plan was compiled without a mesh shape; "
                          "request one (SessionConfig.mesh.shape)")
-    return PlannedMesh(order=tuple(int(i) for i in mp.flat),
+    order = tuple(int(i) for i in mp.flat)
+    if group is not None:
+        import torch.distributed as dist
+
+        size = dist.get_world_size(group)
+        if size != len(order):
+            raise ValueError(f"the group has {size} processes, the planned "
+                             f"mesh {len(order)} slots")
+    return PlannedMesh(order=order,
                        shape=tuple(int(s) for s in mp.assignment.shape),
                        axis_names=tuple(mp.axis_names),
-                       device=resolve_device(device))
+                       device=resolve_device(device), group=group)

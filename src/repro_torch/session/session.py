@@ -33,10 +33,13 @@ Where the port differs from the reference:
   back ``mesh=None``, and its launcher then trains unreordered;
 * ``fabric.kind="live"`` raises until the device probe is ported
   (ROADMAP.md §1 item 13);
-* ``executor`` and ``lower`` are not ported: nothing in the port asks a
-  session for a pricing executor, and :meth:`Session.overlap_step` (via
-  :func:`repro_torch.train.reducer_from_plan`) lowers and certifies the
-  schedule the train step runs;
+* :meth:`Session.executor` takes the reference's backends; ``"jax"``,
+  the reference's name for its lowering backend, returns the port's
+  :class:`~repro_torch.collective.ScheduleLowering`.
+  :meth:`Session.lower` hands runtimes the plan's certified
+  :class:`~repro_torch.collective.Lowered`: the serve engine's planned
+  all-gather, and the process-group runner
+  (:mod:`repro_torch.kernels.group_runner`);
 * ``wrap``/``unwrap`` (patching ``make_production_mesh`` and ``arm_ep``)
   are not ported: neither patched function exists in the port.
 """
@@ -460,6 +463,81 @@ class Session:
         return out
 
     # -- collective IR: executors + lowering -------------------------------
+    def executor(self, backend: str = "auto"):
+        """A pricing or lowering executor bound to this session.
+
+        * ``"sim"``: :class:`~repro_torch.collective.SimExecutor` over the
+          attached fabric (the contention-aware oracle the plan was
+          scored on);
+        * ``"analytic"``: :class:`~repro_torch.collective.AnalyticExecutor`
+          over the probed lat/bw matrices (the only pricing available
+          after a drift re-plan);
+        * ``"jax"`` (the reference's name):
+          :class:`~repro_torch.collective.ScheduleLowering`, which lowers
+          and does not price;
+        * ``"auto"``: ``sim`` when a fabric oracle is attached, else
+          ``analytic``, whatever the compiler would score with now.
+        """
+        from repro_torch.collective import (
+            AnalyticExecutor, ScheduleLowering, SimExecutor)
+
+        self._require_open("build an executor")
+        if backend == "jax":
+            return ScheduleLowering()
+        if backend not in ("auto", "sim", "analytic"):
+            raise ValueError(f"unknown executor backend {backend!r}; "
+                             f"expected 'auto', 'sim', 'analytic' or 'jax'")
+        # attach before resolving "auto": a session not yet attached has
+        # no oracle fabric, and would pick another backend than the
+        # compiler's own oracle
+        if self._probe is None:
+            self.attach()
+        if backend == "auto":
+            backend = "sim" if self._oracle_fabric is not None else "analytic"
+        if backend == "sim":
+            if self._oracle_fabric is None:
+                raise SessionError(
+                    "executor('sim') needs an attached fabric oracle; "
+                    "attach a synthetic fabric or use 'analytic'")
+            return SimExecutor(self._oracle_fabric)
+        probe = self._probe
+        if probe.bw is not None:
+            return AnalyticExecutor(lat=probe.lat, bw=probe.bw)
+        return AnalyticExecutor(cost_matrix=probe.lat)
+
+    def lower(self, op: str, size_bytes: Optional[float] = None,
+              group: Optional[Sequence[int]] = None):
+        """The plan's certified :class:`~repro_torch.collective.Lowered`
+        for ``op`` at ``size_bytes`` (default: the session payload),
+        planning first if need be.
+
+        The entry's program is re-verified through the full gate
+        (:data:`~repro_torch.analysis.GATE_PASSES`, the ``equiv``
+        translation validator among them), lowered with
+        :class:`~repro_torch.collective.ScheduleLowering`, and the exact
+        schedule returned is certified against the program: nothing
+        uncertified reaches a runtime.
+        """
+        from repro_torch.analysis import (
+            GATE_PASSES, require_certified, require_valid)
+        from repro_torch.collective import ScheduleLowering
+
+        self._require_open("lower")
+        if self._plan is None:
+            self.plan()
+        payload = self.config.payload_bytes if size_bytes is None \
+            else float(size_bytes)
+        entry = self._plan.lookup(op, payload, group)
+        if entry is None:
+            raise SessionError(
+                f"plan has no entry for op {op!r} at {payload:.0f} bytes; "
+                f"planned ops: {sorted({k[0] for k in self._plan.entries})}")
+        prog = entry.program()
+        require_valid(prog, passes=GATE_PASSES)
+        lowered = ScheduleLowering().lower(prog)
+        require_certified(prog, lowered.schedule)
+        return lowered
+
     def overlap_step(self, *, total_bytes: Optional[float] = None,
                      mode: Optional[str] = None,
                      bucket_bytes: Optional[float] = None,

@@ -10,6 +10,7 @@ from .overlap_grads import (  # noqa: F401
     TRANSPORTS,
     OverlapGradReducer,
     certified_allreduce,
+    certified_allreduce_pair,
     make_overlap_train_step,
     partition_tree,
     reducer_from_plan,

@@ -48,7 +48,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.analysis import require_certified
-from repro_torch.collective import CollectiveOp, ScheduleLowering, compile_op
+from repro_torch.collective import CollectiveOp, Program, ScheduleLowering, compile_op
 from repro_torch.collective.executors import LoweredSchedule
 from repro_torch.collective.passes import apply_permutation, chunk as chunk_pass
 from repro_torch.kernels.overlap import run_overlapped
@@ -62,6 +62,7 @@ __all__ = [
     "GradBucket",
     "partition_tree",
     "certified_allreduce",
+    "certified_allreduce_pair",
     "OverlapGradReducer",
     "reducer_from_plan",
     "make_overlap_train_step",
@@ -118,11 +119,14 @@ def partition_tree(tree, bucket_bytes: float,
     return buckets
 
 
-def certified_allreduce(n: int, size_bytes: float, algo: str = "ring",
-                        perm: Optional[Sequence[int]] = None,
-                        chunk_factor: int = 1,
-                        **algo_kwargs) -> LoweredSchedule:
-    """Compile, lower and certify an all-reduce schedule for ``n`` ranks.
+def certified_allreduce_pair(n: int, size_bytes: float, algo: str = "ring",
+                             perm: Optional[Sequence[int]] = None,
+                             chunk_factor: int = 1, **algo_kwargs
+                             ) -> Tuple[Program, LoweredSchedule]:
+    """Compile, lower and certify an all-reduce for ``n`` ranks; returns
+    the ``(program, schedule)`` pair (what a runner that certifies its
+    own input, :func:`repro_torch.kernels.group_runner.run_schedule_group`,
+    takes).
 
     ``perm`` is the rank order (local indices); ``chunk_factor`` splits
     each chunk into serial pieces.  The schedule is proved against its
@@ -138,7 +142,16 @@ def certified_allreduce(n: int, size_bytes: float, algo: str = "ring",
         prog = chunk_pass(prog, chunk_factor)
     sched = ScheduleLowering().lower_schedule(prog)
     require_certified(prog, sched)
-    return sched
+    return prog, sched
+
+
+def certified_allreduce(n: int, size_bytes: float, algo: str = "ring",
+                        perm: Optional[Sequence[int]] = None,
+                        chunk_factor: int = 1,
+                        **algo_kwargs) -> LoweredSchedule:
+    """The certified schedule of :func:`certified_allreduce_pair`."""
+    return certified_allreduce_pair(n, size_bytes, algo, perm, chunk_factor,
+                                    **algo_kwargs)[1]
 
 
 class OverlapGradReducer:
