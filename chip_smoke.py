@@ -30,7 +30,8 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    (8 x 32 heads / 2 kv heads x 2048 x 128, causal) in bf16 and f32 and one
    qwen2-0.5b layer (8 x 14 / 2 x 2048 x 64) in bf16, timed beside
    ``F.scaled_dot_product_attention`` (the library yardstick, never on the
-   path); the peer-memory ring
+   path; ``time_flash_layer``, as at every model's layer shape below); the
+   peer-memory ring
    reduce-scatter at n = 2, 3, 4, 8 (odd chunk lengths, several ring
    orders, the plan's among them) and at every bucket shape of the planned
    training path, bit for bit against its plain version and against
@@ -108,7 +109,44 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    checkpoint of the last step in a temporary directory (deleted after):
    the plan, the steps' times and losses, the exact ``peer_ring`` launch
    count, the reducer's CUDA-event time, peak memory and the checkpoint's
-   bytes and seconds.
+   bytes and seconds;
+9. hybrid serving: full-width ``recurrentgemma-9b`` (bf16,
+   ``attention_impl="flash"``) serves 4 requests of 4096-token prompts
+   (past its 2048-token window) and 32 new tokens, counted (12
+   ``flash_fwd_mma`` launches, one an attention layer of the prefill);
+   then the same wave with ``"xla"`` on the same weights, its tokens
+   compared and every flash-wave token held, teacher forced, within
+   ``TOKEN_MARGIN`` of the xla model's top logit, and the two prefills'
+   logits within ``LOGIT_BOUND``; a control wave, the flash model with
+   half the window (``CONTROL_WINDOW``), must land outside both limits;
+   prefill, decode step, peak memory and a profiled prefill; then the
+   flash kernel at the layer's shape ``[4, 16/1, 4096, 256]`` in the
+   window, against its plain version and timed beside it and SDPA with
+   the window as a mask;
+10. Whisper serving: full-width ``whisper-small`` on the reference's
+    1500-frame stub, 8 x 64-token prompts x 32 new, the same way (24
+    ``flash_fwd_wgmma`` launches: 12 unmasked encoder layers, 12 causal
+    decoder ones), its tokens equal to the xla wave's; the encoder layer
+    ``[8, 12/12, 1500, 64]`` and the decoder layer ``[8, 12/12, 64, 64]``
+    (causal) as the hybrid's;
+11. the VLM front end: one full-width ``llava-next-mistral-7b`` prefill of
+    2 x 2048 tokens whose first 576 slots are the image stub (32
+    ``flash_fwd_wgmma`` launches), its logits against the text-only
+    prefill's, against the xla prefill's (within ``LOGIT_BOUND``) and
+    against a control prefill with a window of half the prompt (outside
+    it); the layer ``[2, 32/8, 2048, 128]`` (causal) as the hybrid's;
+12. training the ssm family: first the gradient at full width
+    (``rwkv6-1.6b`` in f32, 2 x 16 tokens): for every parameter tensor,
+    the loss's central difference along that tensor's gradient against
+    the gradient's own prediction (``GRAD_RTOL``); then the user's entry
+    point, ``python -m repro_torch train --arch rwkv6-1.6b`` over the
+    planned 8-rank mesh (64 x 16 tokens a rank, 14 steps), checked and
+    measured as phase 8: an entry-point smoke at a short sequence, not a
+    measure of training throughput.
+
+Phase 4 also holds the smoke ``recurrentgemma-9b`` (a group and a tail,
+at P > W and P == W) and ``whisper-small`` in f32 on the card: flash
+prefill == xla prefill, greedy tokens equal.
 
 Its last lines are a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -148,6 +186,15 @@ PLAN_FABRIC = dict(nodes_per_rack=4, racks_per_agg=2, seed=0)
 PLAN_SCRAMBLE_SEED, PLAN_PROBE_SEED, PLAN_PAYLOAD = 1, 0, 988_065_536
 # the dense serving path: glm4-9b, 8 requests x 2048-token prompts x 32 new
 DENSE_ARCH, DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = "glm4-9b", 8, 2048, 32
+# the hybrid serving path: recurrentgemma-9b, 4 requests x 4096-token prompts
+# (past its 2048-token window, so the ring roll and the window mask run) x 32
+HYBRID_ARCH, HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW = "recurrentgemma-9b", 4, 4096, 32
+# Whisper serving: whisper-small, 8 requests x 64-token prompts x 32 new on the
+# reference's front-end stub (ones of [batch, 1500 frames, d_model])
+WHISPER_ARCH, WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW = "whisper-small", 8, 64, 32
+# the VLM front end: llava-next-mistral-7b, 2 x 2048-token prompts whose first
+# 576 slots hold the image embeddings (the reference's stub: ones)
+VLM_ARCH, VLM_BATCH, VLM_PROMPT = "llava-next-mistral-7b", 2, 2048
 # the group phase: 8 processes on the one card in a gloo group, the planned
 # all-reduce at 4 MiB a rank and at the largest bucket, 2 timed calls each
 GROUP_RANK_BYTES, GROUP_TIMED_CALLS, GROUP_TIMEOUT_S = 4 * 1024 * 1024, 2, 480
@@ -199,6 +246,37 @@ TRAIN_CLI = ["train", "--arch", TRAIN_ARCH, "--mesh", str(RANKS),
              "--batch", str(RANKS * ROWS_PER_RANK), "--seq", str(SEQ),
              "--steps", "12", "--reorder", "simulate",
              "--payload-bytes", str(PLAN_PAYLOAD), "--lr", str(LR)]
+# bf16 serving, flash wave against the xla model on the same prefix: a
+# generated token's logit may lie TOKEN_MARGIN below the top one, and the
+# two prefills' last-position logits LOGIT_BOUND apart (in bf16 a logit of
+# magnitude 4 to 8 has a step of 1/32).  Each limit lies between the sound
+# reading and a control's: the flash model with a window of CONTROL_WINDOW
+# (half the hybrid's 2048, half the VLM's 2048-token prompt), a fault that
+# drops half of what attention should see; the phases hold both sides.
+# Readings on an H100 80GB HBM3 at 700 W, sound / control: the hybrid's
+# margin 0.125 / 0.5 and logits 0.172 / 0.730, the VLM's logits 0.086 / 3.82
+TOKEN_MARGIN = 0.25
+LOGIT_BOUND = {"recurrentgemma-9b": 0.35, "llava-next-mistral-7b": 0.25}
+CONTROL_WINDOW = 1024
+# the full-width gradient witness (rwkv6-1.6b in f32, GRAD_ROWS x SSM_SEQ
+# tokens): for each parameter tensor, the forward-mode derivative of the loss
+# along its gradient g must equal |g|^2 within GRAD_RTOL (f32 rounding: at
+# most 7.8e-7 at full width on an H100; g 10 % off in every other entry, the
+# control: at least 4.7e-2)
+GRAD_ROWS, GRAD_RTOL = 2, 1e-4
+# training the ssm family through the user's entry point: rwkv6-1.6b over 8
+# virtual ranks of 64 x 16 tokens, 14 steps (the reference's 10-step warm-up
+# of the learning rate, then 4 more), the payload its gradients' bytes.  The
+# exact WKV recurrence is a loop over tokens, so a step costs by the sequence
+# and rows are nearly free; at 2 x 64 tokens a rank and lr 1e-3 the loss
+# rose after the warm-up, here at 5e-4 it falls (the gradient itself is held
+# at full width by check_ssm_gradient).  An entry-point smoke at a short
+# sequence, not a measure of training throughput
+SSM_ARCH, SSM_ROWS_PER_RANK, SSM_SEQ, SSM_STEPS, SSM_LR = "rwkv6-1.6b", 64, 16, 14, 5e-4
+TRAIN_SSM_CLI = ["train", "--arch", SSM_ARCH, "--mesh", str(RANKS),
+                 "--batch", str(RANKS * SSM_ROWS_PER_RANK), "--seq", str(SSM_SEQ),
+                 "--steps", str(SSM_STEPS), "--reorder", "simulate",
+                 "--lr", str(SSM_LR)]
 # kernel vs plain on the same inputs: the same f32 math summed in another
 # order (f32: the chunk-form tolerance of the CPU tests); bf16 y also
 # rounds once to bf16 (2 ulps relative)
@@ -498,7 +576,6 @@ def check_flash_kernel(seed: int) -> dict:
     only).
     """
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
@@ -551,81 +628,42 @@ def check_flash_kernel(seed: int) -> dict:
          f"dtype and width select and the same bits twice: max abs err "
          f"{worst}")
 
-    def bound(B, H, KV, S, hd):
-        flops, moved = fa.work(B, H, KV, S, hd, True, 0, itemsize=2)
-        return flops, moved, max(flops / BF16_FLOPS_PER_S * 1e3,
-                                 moved / HBM_BYTES_PER_S * 1e3)
-
-    def sdpa(q, k, v):
-        return _graph_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 5)
-
-    cfg = _dense_cfg()
-    B, H, KV, S, hd = (DENSE_BATCH, cfg.n_heads, cfg.n_kv_heads, DENSE_PROMPT,
-                       cfg.head_dim)
-    layer = (B, H, KV, S, hd, 128, 128, True, 0)
-    errs, times = {}, {}
-    for dtype in ("bfloat16", "float32"):
-        errs[dtype], (q, k, v) = check(layer, dtype)
-        times[dtype] = (
-            _graph_ms(lambda: fa.flash_attention(q, k, v), 5),
-            _time_ms(lambda: fa.flash_attention_plain(q, k, v), 3, warmup=1),
-        )
-        if dtype == "bfloat16":
-            lib = sdpa(q, k, v)
-        _say(f"flash_attention {dtype} [{B},{H}/{KV},{S},{hd}] causal: max abs "
-             f"err vs plain {errs[dtype]:.3e}; kernel {times[dtype][0]:.4f} ms, "
-             f"plain {times[dtype][1]:.4f} ms")
-        del q, k, v
-        torch.cuda.empty_cache()
-    flops, moved, t_bound = bound(B, H, KV, S, hd)
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    _say(f"flash_attention bf16 work: {flops} FLOP, {moved} bytes -> "
-         f"{t_ops:.4f} ms at 989 TFLOP/s bf16, {t_bytes:.4f} ms at 3.35 TB/s; "
-         f"kernel at {t_bound / times['bfloat16'][0]:.3f} of the bound; SDPA "
-         f"(library yardstick) {lib:.4f} ms")
-
     from repro_torch.configs import get_config
 
-    qcfg = get_config(TRAIN_ARCH)      # qwen2-0.5b: 14 / 2 heads of 64
-    qshape = (DENSE_BATCH, qcfg.n_heads, qcfg.n_kv_heads, DENSE_PROMPT,
-              qcfg.head_dim)
-    q_err, (q, k, v) = check(qshape + (128, 128, True, 0), "bfloat16")
-    q_ms = _graph_ms(lambda: fa.flash_attention(q, k, v), 5)
-    q_plain = _time_ms(lambda: fa.flash_attention_plain(q, k, v), 3, warmup=1)
-    q_lib = sdpa(q, k, v)
-    _, _, q_bound = bound(*qshape)
-    _say(f"flash_attention bf16 {TRAIN_ARCH} layer [{qshape[0]},{qshape[1]}/"
-         f"{qshape[2]},{qshape[3]},{qshape[4]}] causal: max abs err vs plain "
-         f"{q_err:.3e}; kernel {q_ms:.4f} ms, plain {q_plain:.4f} ms, SDPA "
-         f"{q_lib:.4f} ms, bound {q_bound:.4f} ms (kernel at "
-         f"{q_bound / q_ms:.3f} of it)")
+    cfg = _dense_cfg()
+    shape = (DENSE_BATCH, cfg.n_heads, cfg.n_kv_heads, DENSE_PROMPT,
+             cfg.head_dim)
+    dense = time_flash_layer(DENSE_ARCH, shape, True, 0, seed)
+    err32, (q, k, v) = check(shape + (128, 128, True, 0), "float32")
+    ms32 = _graph_ms(lambda: fa.flash_attention(q, k, v), 5)
+    plain32 = _time_ms(lambda: fa.flash_attention_plain(q, k, v), 3, warmup=1)
+    _say(f"flash_attention float32 {DENSE_ARCH} layer {list(shape)} causal: "
+         f"max abs err vs plain {err32:.3e}; kernel {ms32:.4f} ms, plain "
+         f"{plain32:.4f} ms")
     del q, k, v
     torch.cuda.empty_cache()
+    qcfg = get_config(TRAIN_ARCH)      # qwen2-0.5b: 14 / 2 heads of 64
+    qwen = time_flash_layer(TRAIN_ARCH, (DENSE_BATCH, qcfg.n_heads,
+                                         qcfg.n_kv_heads, DENSE_PROMPT,
+                                         qcfg.head_dim), True, 0, seed)
     return {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:119",
         "launches": None,            # filled from the dense serving run
-        "max_abs_err": errs["bfloat16"],
-        "max_abs_err_f32": errs["float32"],
+        "max_abs_err": dense["max_abs_err"],
+        "max_abs_err_f32": err32,
         "max_abs_err_cases": worst,
-        "shape": [B, H, KV, S, hd],
-        "ms": times["bfloat16"][0],
-        "plain_ms": times["bfloat16"][1],
-        "ms_f32": times["float32"][0],
-        "plain_ms_f32": times["float32"][1],
-        "bound_ms": t_bound,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": lib,           # F.scaled_dot_product_attention, bf16
-        "shape_qwen2": list(qshape),
-        "ms_qwen2": q_ms,
-        "plain_ms_qwen2": q_plain,
-        "bound_ms_qwen2": q_bound,
-        "library_ms_qwen2": q_lib,
-        "max_abs_err_qwen2": q_err,
+        "shape": dense["shape"],
+        "ms": dense["ms"],
+        "plain_ms": dense["plain_ms"],
+        "ms_f32": ms32,
+        "plain_ms_f32": plain32,
+        "bound_ms": dense["bound_ms"],
+        "bound_by": dense["bound_by"],
+        "library_ms": dense["library_ms"],   # F.scaled_dot_product_attention
+        "qwen2_layer": qwen,
     }
 
 
@@ -672,6 +710,56 @@ def check_small_dense(seed: int) -> None:
         raise AssertionError(f"smoke dense greedy tokens differ: {a} vs {b}")
     _say(f"smoke {DENSE_ARCH} f32 on the card: flash prefill == xla prefill "
          f"(logits and k/v cache, atol/rtol 1e-4); greedy tokens equal")
+
+
+def check_small_families(seed: int) -> None:
+    """Phase 4e: the smoke recurrentgemma-9b (5 layers: a group and a tail)
+    and whisper-small in f32 on the card: the flash prefill == the plain
+    one, greedy tokens equal, the hybrid at P > W and P == W (its ring
+    buffers never grown), Whisper on random audio frames."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import get_model
+    from repro_torch.serve import GenerationConfig, GenerationEngine
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    for arch, n_layers in ((HYBRID_ARCH, 5), (WHISPER_ARCH, None)):
+        base = get_config(arch).smoke()
+        if n_layers:
+            base = dataclasses.replace(base, n_layers=n_layers)
+        ker, ref = (get_model(dataclasses.replace(base, attention_impl=impl),
+                              device="cuda") for impl in ("flash", "xla"))
+        params = ref.init(gen)
+        fe = None if base.family != "encdec" else torch.randn(
+            (2, base.n_audio_ctx, base.d_model), generator=gen, device="cuda")
+        n_flash = (base.layer_kinds().count("A") if base.family == "hybrid"
+                   else base.n_encoder_layers + base.n_layers)
+        lens = (40, base.attn_window) if base.family == "hybrid" else (24,)
+        for P in lens:
+            toks = torch.from_numpy(rng.integers(0, base.vocab_size, (2, P))).cuda()
+            before = fa.flash_attention.launches
+            with torch.inference_mode():
+                la, _ = ker.prefill(params, toks, fe)
+                lb, _ = ref.prefill(params, toks, fe)
+            if fa.flash_attention.launches - before != n_flash:
+                raise AssertionError(f"smoke {arch}: the flash prefill did not "
+                                     f"launch the kernel {n_flash} times")
+            _check_close(f"smoke {arch} logits at P={P}", la, lb, 1e-4, 1e-4)
+            cfg = GenerationConfig(max_new_tokens=8, eos_token=-1)
+            a = GenerationEngine(ker, params, cfg).generate(toks.tolist(),
+                                                            frontend_embeds=fe)
+            b = GenerationEngine(ref, params, cfg).generate(toks.tolist(),
+                                                            frontend_embeds=fe)
+            if a != b:
+                raise AssertionError(f"smoke {arch} P={P}: greedy tokens differ: "
+                                     f"{a} vs {b}")
+        _say(f"smoke {arch} f32 on the card: flash prefill == xla prefill "
+             f"(atol/rtol 1e-4) and greedy tokens equal at P = {lens}")
 
 
 def serve_dense_full_width(seed: int, card: str) -> dict:
@@ -1778,8 +1866,11 @@ def check_peer_ring_kernel(seed: int, planned: dict) -> dict:
     }
 
 
-def train_cli_full_width(card: str, layout: dict) -> dict:
-    """Phase 8: ``python -m repro_torch train`` at full width, in process.
+def train_cli_full_width(card: str, shapes, argv=TRAIN_CLI,
+                         arch: str = TRAIN_ARCH) -> dict:
+    """Phases 8 and 12: ``python -m repro_torch train`` at full width, in
+    process (``argv``; ``shapes`` the model's parameters on the meta
+    device, for its buckets).
 
     Every launch count zeroed just before ``cli.main`` and read just
     after; the reducer's calls timed with CUDA events by a spy on
@@ -1812,7 +1903,7 @@ def train_cli_full_width(card: str, layout: dict) -> dict:
         return out
 
     ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_train_")
-    argv = TRAIN_CLI + ["--ckpt-dir", ckpt_dir]
+    argv = list(argv) + ["--ckpt-dir", ckpt_dir]
     _say("python -m repro_torch " + " ".join(argv))
     buf = io.StringIO()
     overlap_grads.OverlapGradReducer.__call__ = timed
@@ -1839,7 +1930,7 @@ def train_cli_full_width(card: str, layout: dict) -> dict:
     report = json.loads(out.split("[train] report ")[1].splitlines()[0])
     steps = report["steps"]
     reducer_ms = [s.elapsed_time(e) for s, e in events]
-    buckets = len(partition_tree(layout["shapes"], report["bucket_bytes"]))
+    buckets = len(partition_tree(shapes, report["bucket_bytes"]))
     if report["buckets"] != buckets or report["transport"] != "peer_ring":
         raise AssertionError(f"the CLI's reducer: {report['buckets']} buckets "
                              f"over {report['transport']}, expected {buckets} "
@@ -1861,7 +1952,7 @@ def train_cli_full_width(card: str, layout: dict) -> dict:
         "mesh_order": report["mesh_order"],
         "bucket_bytes": report["bucket_bytes"], "buckets": buckets,
         "losses": losses, "step_ms": [v * 1e3 for v in report["step_s"]],
-        "tokens_per_s": [RANKS * ROWS_PER_RANK * SEQ / v
+        "tokens_per_s": [report["batch"] * report["seq"] / v
                          for v in report["step_s"]],
         "reducer_ms": reducer_ms, "launches": launches,
         "peak_mem_gb": peak_gb, "wall_s": wall,
@@ -1869,7 +1960,7 @@ def train_cli_full_width(card: str, layout: dict) -> dict:
         "checkpoint_snapshot_s": ck["snapshot_s"],
         "checkpoint_write_s": ck["write_s"], "card": card,
     }
-    _say(f"train CLI {TRAIN_ARCH}: plan {res['plan_digest']} {res['algorithm']} "
+    _say(f"train CLI {arch}: plan {res['plan_digest']} {res['algorithm']} "
          f"order {res['order']} (mesh order {res['mesh_order']}), "
          f"{buckets} buckets of {res['bucket_bytes']:.0f} bytes; losses "
          f"{[round(v, 4) for v in losses]}; step "
@@ -1881,6 +1972,467 @@ def train_cli_full_width(card: str, layout: dict) -> dict:
          f"{wall:.1f} s in all [{card}]")
     _say("train cli " + json.dumps(res))
     return res
+
+
+def time_flash_layer(label: str, shape, causal: bool, window: int,
+                     seed: int) -> dict:
+    """The flash kernel at one model's layer shape (bf16): held to its plain
+    version (the model path's blocks, ``gcd(S, 128)``), launched twice for
+    the same bits, timed beside the plain version and beside
+    ``F.scaled_dot_product_attention`` (the library yardstick, never on the
+    path: ``is_causal`` for a causal mask, the window as a boolean mask).
+    Every time is device time: the kernel and SDPA by CUDA-graph replay,
+    the plain version (many calls a layer) by CUDA events."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    B, H, KV, S, hd = shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+               for s in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd)))
+    block = math.gcd(S, 128)
+    kw = dict(causal=causal, window=window, block_q=block, block_k=block)
+    before = dict(fa.flash_attention.kernel_launches)
+    got = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ran = {n for n in fa.KERNELS
+           if fa.flash_attention.kernel_launches[n] != before[n]}
+    want_kernel = "flash_fwd_wgmma" if hd in (64, 128) else "flash_fwd_mma"
+    if ran != {want_kernel}:
+        raise AssertionError(f"flash_attention {label} {shape}: ran {ran}, "
+                             f"expected {want_kernel}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"flash_attention {label} {shape}: a second "
+                             f"launch gave other bits")
+    err = _check_close(f"flash_attention {label} {shape}", got,
+                       fa.flash_attention_plain(q, k, v, **kw),
+                       *FLASH_TOL["bfloat16"])
+    ms = _graph_ms(lambda: fa.flash_attention(q, k, v, **kw), 5)
+    plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 2,
+                        warmup=1)
+    sdpa = dict(enable_gqa=H != KV, is_causal=causal and not window)
+    if window:
+        pos = torch.arange(S, device="cuda")
+        rel = pos[:, None] - pos[None, :]
+        sdpa["attn_mask"] = (rel < window) & (rel >= 0 if causal else True)
+    lib_ms = _graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, **sdpa),
+                       5)
+    flops, moved = fa.work(B, H, KV, S, hd, causal, window, itemsize=2)
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    res = {"shape": list(shape), "causal": causal, "window": window,
+           "kernel": want_kernel, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "flops": flops, "bytes": moved}
+    _say(f"flash_attention bf16 {label} layer {list(shape)} causal={causal} "
+         f"window={window} ({want_kernel}): max abs err vs plain {err:.3e}; "
+         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms; "
+         f"{flops} FLOP, {moved} bytes -> bound {res['bound_ms']:.4f} ms "
+         f"({res['bound_by']}), the kernel at {res['bound_ms'] / ms:.3f} of it")
+    del q, k, v, got, again
+    torch.cuda.empty_cache()
+    return res
+
+
+def _serve_wave(model, params, prompts, new: int, fe=None):
+    """One counted wave through the engine: launch counts zeroed just
+    before ``generate``, read just after; peak memory over the wave."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve import GenerationConfig, GenerationEngine
+
+    counted = _counted()
+    eng = GenerationEngine(model, params,
+                           GenerationConfig(max_new_tokens=new, eos_token=-1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+    fa.flash_attention.kernel_launches = dict.fromkeys(fa.KERNELS, 0)
+    t0 = time.monotonic()
+    outs = eng.generate(prompts, frontend_embeds=fe)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return outs, {
+        "generate_s": wall,
+        "launches": {name: fn.launches for name, fn in counted.items()},
+        "flash_kernel_launches": dict(fa.flash_attention.kernel_launches),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _teacher_forced_margin(model, params, prompts, outs, fe) -> float:
+    """The largest gap, over every generated position, between the top
+    logit of ``model`` (fed the prompt and the tokens generated before that
+    position) and its logit of the generated token: 0 when every token is
+    ``model``'s own greedy choice on that prefix."""
+    import torch
+
+    seq = torch.tensor([p + o for p, o in zip(prompts, outs)], device="cuda")
+    P = len(prompts[0])
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    with torch.inference_mode():
+        feats, _ = model.forward(params, seq[:, :-1], fe, return_features=True)
+        logits = (feats[:, P - 1:] @ head).float()
+        chosen = logits.gather(-1, seq[:, P:, None])[..., 0]
+        return (logits.amax(-1) - chosen).max().item()
+
+
+def _held_apart(what: str, sound: float, limit: float, control: float) -> None:
+    """A check and its power: the sound reading within ``limit``, the
+    control's (a deliberately faulty path) beyond it."""
+    if not sound <= limit < control:
+        raise AssertionError(f"{what}: sound {sound:.4f}, limit {limit}, "
+                             f"control {control:.4f}: the sound reading must "
+                             f"lie within the limit and the control beyond it")
+
+
+def _prefill_logits(model, params, tokens, fe):
+    import torch
+
+    with torch.inference_mode():
+        return model.prefill(params, tokens, fe)[0].float()
+
+
+def serve_two_ways(arch: str, seed: int, card: str, batch: int, prompt: int,
+                   new: int, kernel: str, fe_slots: int = 0,
+                   exact: bool = False) -> dict:
+    """Phases 9 and 10: one model family served at full width with
+    ``attention_impl="flash"``, counted (one flash launch an attention
+    layer of the prefill, every one ``kernel``), then the same wave with
+    ``"xla"`` on the same weights; prefill time, decode step and peak
+    memory of the flash model.
+
+    The two waves' tokens are compared, but in bf16 with random weights
+    they need not be equal: the logits are bf16, their top two often tie
+    or lie within the two attention paths' rounding (each layer's flash
+    output within ``FLASH_TOL`` of the plain one), and one flipped token
+    sends a row down another continuation.  So the check is teacher
+    forced: the ``xla`` model, fed each flash row's prompt and tokens,
+    must find every generated token within ``TOKEN_MARGIN`` of its own
+    top logit, and the two prefills' logits must lie within
+    ``LOGIT_BOUND[arch]``.  A control wave, the flash model with a window
+    of ``CONTROL_WINDOW`` on the same weights, must land beyond both.
+    With ``exact`` (Whisper, whose two waves agree) the tokens must be
+    equal instead.  Exact equality is held in f32 for every family
+    (``check_small_families``).
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = dataclasses.replace(get_config(arch), attention_impl="flash")
+    model = get_model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = model.init(gen)
+    torch.cuda.empty_cache()
+    n_params = sum(t.numel() for t in _leaves(params))
+    # attention layers of one prefill: the hybrid's "A" blocks, Whisper's
+    # encoder and decoder self-attention, a decoder's every layer
+    n_flash = (cfg.layer_kinds().count("A") if cfg.family == "hybrid" else
+               cfg.n_encoder_layers + cfg.n_layers if cfg.family == "encdec"
+               else cfg.n_layers)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, prompt)).tolist()
+    fe = None if not fe_slots else torch.ones(
+        (batch, fe_slots, cfg.d_model), dtype=torch.float32, device="cuda")
+    model.init_cache(1, 1)
+    outs, counted = _serve_wave(model, params, prompts, new, fe)
+    launches, by_kernel = counted["launches"], counted["flash_kernel_launches"]
+    if launches["flash_attention"] != n_flash or by_kernel[kernel] != n_flash:
+        raise AssertionError(f"{arch}: flash_attention launched "
+                             f"{launches['flash_attention']} times in one "
+                             f"prefill ({by_kernel}), expected {n_flash}, all "
+                             f"{kernel}")
+    if len(outs) != batch or any(len(o) != new for o in outs):
+        raise AssertionError(f"{arch}: not every request got {new} tokens: "
+                             f"{[len(o) for o in outs]}")
+    if not all(0 <= t < cfg.vocab_size for o in outs for t in o):
+        raise AssertionError(f"{arch}: generated token out of the vocabulary")
+    plain = get_model(dataclasses.replace(cfg, attention_impl="xla"), device="cuda")
+    outs_xla, counted_xla = _serve_wave(plain, params, prompts, new, fe)
+    if counted_xla["launches"]["flash_attention"]:
+        raise AssertionError(f"{arch}: the xla wave launched the flash kernel")
+    equal = sum(a == b for o, p in zip(outs, outs_xla) for a, b in zip(o, p))
+    first_diff = [next((t for t, (a, b) in enumerate(zip(o, p)) if a != b), new)
+                  for o, p in zip(outs, outs_xla)]
+    margin = _teacher_forced_margin(plain, params, prompts, outs, fe)
+    tokens = torch.tensor(prompts, device="cuda")
+    lx = _prefill_logits(plain, params, tokens, fe)
+    # how far the two attention paths' bf16 logits lie apart on one prefix,
+    # and how close the xla model's top two logits come (0: a tie)
+    logit_diff = (_prefill_logits(model, params, tokens, fe) - lx).abs().max().item()
+    top2 = lx.topk(2, dim=-1).values
+    top2_gap = (top2[:, 0] - top2[:, 1]).tolist()
+    control = {}
+    if exact:
+        if equal != batch * new:
+            raise AssertionError(f"{arch}: {equal} of {batch * new} tokens "
+                                 f"equal the xla wave's")
+    else:
+        faulty = get_model(dataclasses.replace(cfg, attn_window=CONTROL_WINDOW),
+                           device="cuda")
+        outs_c, _ = _serve_wave(faulty, params, prompts, new, fe)
+        control = {
+            "window": CONTROL_WINDOW,
+            "teacher_forced_margin": _teacher_forced_margin(
+                plain, params, prompts, outs_c, fe),
+            "prefill_logit_diff_vs_xla": (_prefill_logits(
+                faulty, params, tokens, fe) - lx).abs().max().item(),
+            "tokens_equal_xla_wave": sum(a == b for o, p in zip(outs_c, outs_xla)
+                                         for a, b in zip(o, p))}
+        del faulty
+        _say(f"serve {arch} control (the flash model with a window of "
+             f"{CONTROL_WINDOW}): {control['tokens_equal_xla_wave']} of "
+             f"{batch * new} tokens equal the xla wave's; its tokens within "
+             f"{control['teacher_forced_margin']:.4f} of the xla model's top "
+             f"logit, its prefill's logits within "
+             f"{control['prefill_logit_diff_vs_xla']:.4f} of the xla model's")
+        _held_apart(f"{arch} teacher-forced margin", margin, TOKEN_MARGIN,
+                    control["teacher_forced_margin"])
+        _held_apart(f"{arch} prefill logits vs xla", logit_diff,
+                    LOGIT_BOUND[arch], control["prefill_logit_diff_vs_xla"])
+    del lx, plain
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, tokens, fe)
+        if tuple(logits.shape) != (batch, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits.float()).all()):
+            raise AssertionError(f"{arch}: prefill logits {tuple(logits.shape)} "
+                                 f"not finite / not [B, vocab]")
+        prefill_ms = _time_ms(lambda: model.prefill(params, tokens, fe), 2,
+                              warmup=1)
+        from repro_torch.serve.engine import _grow_cache
+        grow = getattr(model, "grow_cache", _grow_cache)
+        cache = grow(cache, prompt, prompt + new)
+        cur = logits.argmax(-1)
+        step_ms = _time_ms(lambda: model.decode_step(params, cur, cache), 10)
+        prof = profile_window(f"{arch} prefill",
+                              lambda: model.prefill(params, tokens, fe))
+    res = {
+        "arch": cfg.name, "params": n_params, "batch": batch,
+        "prompt_len": prompt, "new_tokens": new, "frontend_slots": fe_slots,
+        "generate_s": counted["generate_s"],
+        "generate_s_xla": counted_xla["generate_s"],
+        "prefill_ms": prefill_ms,
+        "prefill_tok_per_s": batch * prompt / (prefill_ms / 1e3),
+        "decode_step_ms": step_ms, "decode_tok_per_s": batch / (step_ms / 1e3),
+        "peak_mem_gb": counted["peak_mem_gb"],
+        "peak_mem_gb_xla": counted_xla["peak_mem_gb"],
+        "launches": launches, "flash_kernel_launches": by_kernel,
+        "tokens_equal_xla_wave": equal, "tokens": batch * new,
+        "first_divergence_step": first_diff,
+        "teacher_forced_margin": margin,
+        "prefill_logit_diff_vs_xla": logit_diff, "prefill_top2_gap_xla": top2_gap,
+        "control": control,
+        "prefill_flash_ms": prof.get("ms_by_kind", {}).get("flash_attention"),
+        "prefill_busy_ms": prof.get("busy_ms"),
+        "prefill_idle_share": prof.get("idle_share"), "card": card,
+    }
+    _say(f"serve {cfg.name} ({n_params} params, bf16, flash) batch {batch} x "
+         f"prompt {prompt} x {new} new: {equal} of {batch * new} tokens equal "
+         f"the xla wave's (rows first differ at steps {first_diff}); every "
+         f"token within {margin:.4f} of the xla model's top logit on its "
+         f"prefix (limit {'exact' if exact else TOKEN_MARGIN}); the prefill's "
+         f"logits within {logit_diff:.4f} of the xla model's (limit "
+         f"{'none' if exact else LOGIT_BOUND[arch]}), whose top two lie "
+         f"{[round(g, 4) for g in top2_gap]} apart; prefill "
+         f"{prefill_ms:.3f} ms ({res['prefill_tok_per_s']:.0f} tok/s); decode "
+         f"{step_ms:.3f} ms/step ({res['decode_tok_per_s']:.1f} tok/s); peak "
+         f"memory {res['peak_mem_gb']:.3f} GB (xla wave "
+         f"{res['peak_mem_gb_xla']:.3f}); flash_attention launches "
+         f"{launches['flash_attention']} ({by_kernel}) [{card}]")
+    _say(f"serve {arch} " + json.dumps(res))
+    return res
+
+
+def vlm_prefill_full_width(seed: int, card: str) -> dict:
+    """Phase 11: the VLM front end at full width: one prefill with the
+    576 image slots filled by the reference's stub (ones), counted (32
+    ``flash_fwd_wgmma`` launches), against the text-only prefill (the
+    image slots must move the logits), against the ``xla`` model's prefill
+    on the same weights and inputs (within ``LOGIT_BOUND``) and against a
+    control, the flash model with a window of ``CONTROL_WINDOW`` (beyond
+    it)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import get_model
+
+    counted = _counted()
+    cfg = dataclasses.replace(get_config(VLM_ARCH), attention_impl="flash")
+    model = get_model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = model.init(gen)
+    torch.cuda.empty_cache()
+    n_params = sum(t.numel() for t in _leaves(params))
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (VLM_BATCH, VLM_PROMPT))).cuda()
+    fe = torch.ones((VLM_BATCH, cfg.n_img_tokens, cfg.d_model),
+                    dtype=torch.float32, device="cuda")
+    with torch.inference_mode():
+        model.prefill(params, tokens[:, :1024], fe)      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted.values():
+            fn.launches = 0
+        fa.flash_attention.kernel_launches = dict.fromkeys(fa.KERNELS, 0)
+        logits, cache = model.prefill(params, tokens, fe)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counted.items()}
+        by_kernel = dict(fa.flash_attention.kernel_launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        text, _ = model.prefill(params, tokens)
+        prefill_ms = _time_ms(lambda: model.prefill(params, tokens, fe), 2,
+                              warmup=1)
+    del cache
+    lx = _prefill_logits(get_model(dataclasses.replace(cfg, attention_impl="xla"),
+                                   device="cuda"), params, tokens, fe)
+    lc = _prefill_logits(get_model(dataclasses.replace(
+        cfg, attn_window=CONTROL_WINDOW), device="cuda"), params, tokens, fe)
+    xla_diff = (logits.float() - lx).abs().max().item()
+    control_diff = (lc - lx).abs().max().item()
+    _say(f"VLM {cfg.name}: the flash prefill's logits within {xla_diff:.4f} "
+         f"of the xla prefill's (limit {LOGIT_BOUND[VLM_ARCH]}); the control "
+         f"(a window of {CONTROL_WINDOW}) {control_diff:.4f}")
+    _held_apart(f"{VLM_ARCH} prefill logits vs xla", xla_diff,
+                LOGIT_BOUND[VLM_ARCH], control_diff)
+    if launches["flash_attention"] != cfg.n_layers or \
+            by_kernel["flash_fwd_wgmma"] != cfg.n_layers:
+        raise AssertionError(f"{VLM_ARCH}: flash_attention launched "
+                             f"{launches['flash_attention']} times ({by_kernel}), "
+                             f"expected {cfg.n_layers}, all flash_fwd_wgmma")
+    if tuple(logits.shape) != (VLM_BATCH, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{VLM_ARCH}: prefill logits {tuple(logits.shape)} "
+                             f"not finite / not [B, vocab]")
+    diff = (logits.float() - text.float()).abs().max().item()
+    if not diff > 0.0:
+        raise AssertionError(f"{VLM_ARCH}: the image embeddings did not change "
+                             f"the logits")
+    res = {"arch": cfg.name, "params": n_params, "batch": VLM_BATCH,
+           "prompt_len": VLM_PROMPT, "image_slots": cfg.n_img_tokens,
+           "prefill_ms": prefill_ms,
+           "prefill_tok_per_s": VLM_BATCH * VLM_PROMPT / (prefill_ms / 1e3),
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "flash_kernel_launches": by_kernel,
+           "max_abs_logit_change_vs_text_only": diff,
+           "prefill_logit_diff_vs_xla": xla_diff,
+           "control": {"window": CONTROL_WINDOW,
+                       "prefill_logit_diff_vs_xla": control_diff},
+           "card": card}
+    _say(f"VLM {cfg.name} ({n_params} params, bf16, flash): prefill of "
+         f"{VLM_BATCH} x {VLM_PROMPT} tokens, {cfg.n_img_tokens} image slots, "
+         f"{prefill_ms:.3f} ms; logits differ from the text-only prefill's by "
+         f"up to {diff:.4f}; flash_attention launches "
+         f"{launches['flash_attention']} ({by_kernel}); peak memory "
+         f"{peak_gb:.3f} GB [{card}]")
+    _say("vlm " + json.dumps(res))
+    return res
+
+
+def check_ssm_gradient(seed: int, card: str) -> dict:
+    """Phase 12a: the ssm family's gradient at full width, the witness
+    beside the train command's falling loss.  ``rwkv6-1.6b`` in f32 with
+    the exact recurrence (the training path), ``GRAD_ROWS`` x ``SSM_SEQ``
+    tokens: ``loss`` and its gradient g by backward; then, for every
+    parameter tensor (stacked over the layers), the loss's derivative
+    along that tensor's g by forward-mode AD (dual numbers through every
+    op, no backward involved), which must equal |g|^2 within
+    ``GRAD_RTOL``.  The control, g made 10 % larger in every other entry,
+    must miss it for every tensor."""
+    import numpy as np
+    import torch
+    import torch.autograd.forward_ad as fwAD
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH), dtype="float32",
+                              wkv_impl="xla")
+    model = get_model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = model.init(gen)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (GRAD_ROWS, SSM_SEQ + 1))).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    named = list(_named_leaves(params))
+    for *_, t in named:
+        t.requires_grad_(True)
+    t0 = time.monotonic()
+    loss = model.loss(params, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    grad_s = time.monotonic() - t0
+
+    def along(parent, key, t, tangent) -> float:
+        """The loss's derivative along ``tangent`` in ``parent[key]``,
+        relative to ``tangent . tangent``, less one."""
+        with fwAD.dual_level():
+            parent[key] = fwAD.make_dual(t, tangent)
+            out = model.loss(params, batch)
+            got = fwAD.unpack_dual(out).tangent.double().item()
+        parent[key] = t
+        return abs(got / tangent.double().square().sum().item() - 1.0)
+
+    sound, faulty = {}, {}
+    t0 = time.monotonic()
+    with torch.no_grad():
+        for name, parent, key, t in named:
+            t.requires_grad_(False)
+            g, t.grad = t.grad, None
+            if not bool(g.any()):
+                raise AssertionError(f"{SSM_ARCH} gradient: {name} got a "
+                                     f"zero gradient")
+            sound[name] = along(parent, key, t, g)
+            g.view(-1)[::2] *= 1.1
+            faulty[name] = along(parent, key, t, g)
+            del g
+    torch.cuda.synchronize()
+    jvp_s = time.monotonic() - t0
+    worst, least = max(sound.values()), min(faulty.values())
+    res = {"arch": cfg.name, "dtype": "float32", "rows": GRAD_ROWS,
+           "seq": SSM_SEQ, "loss": loss.item(), "tensors": len(sound),
+           "max_rel_err": worst, "control_min_rel_err": least,
+           "rel_err": sound, "backward_s": grad_s, "forward_mode_s": jvp_s,
+           "card": card}
+    _say(f"{SSM_ARCH} gradient (f32, {GRAD_ROWS} x {SSM_SEQ} tokens, loss "
+         f"{res['loss']:.4f}): for each of {len(sound)} parameter tensors the "
+         f"forward-mode derivative along its gradient within {worst:.2e} of "
+         f"|g|^2 (limit {GRAD_RTOL}; the control, g 10 % off in every other "
+         f"entry, at least {least:.2e} off); backward {grad_s:.1f} s, forward "
+         f"mode {jvp_s:.1f} s [{card}]")
+    _say("ssm gradient " + json.dumps(res))
+    _held_apart(f"{SSM_ARCH} gradient vs forward mode", worst, GRAD_RTOL, least)
+    del params, named, loss
+    return res
+
+
+def ssm_shapes():
+    """rwkv6-1.6b's parameters on the meta device (its gradient buckets)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.rwkv6 import Rwkv6LM
+
+    model = Rwkv6LM(get_config(SSM_ARCH), device="cuda")
+    return L.map_spec(model.param_spec(), lambda e: torch.empty(
+        e[0], dtype=model.dtype, device="meta"))
 
 
 def _kind(kernel_name: str) -> str:
@@ -1961,9 +2513,18 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
+def _named_leaves(tree, prefix: str = ""):
+    """(dotted path, parent, key, leaf) for every leaf of a tree of dicts
+    and lists."""
+    for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        if isinstance(v, (dict, list)):
+            yield from _named_leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", tree, k, v
+
+
 def _leaves(tree):
-    for v in tree.values():
-        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+    return (leaf for *_, leaf in _named_leaves(tree))
 
 
 def main(argv=None) -> int:
@@ -1995,6 +2556,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 _say(f"ptxas {name}: {line.strip()}")
 
+    from repro_torch.configs import get_config
     from repro_torch.train import OverlapGradReducer
 
     plan = compile_plan()
@@ -2009,6 +2571,7 @@ def main(argv=None) -> int:
     grouped = run_group(args.seed, card, plan, planned)
     check_small_model(args.seed)
     check_small_dense(args.seed)
+    check_small_families(args.seed)
     check_virtual_mesh(args.seed)
     check_small_train(args.seed, plan)
     served = serve_full_width(args.seed, card)
@@ -2032,7 +2595,37 @@ def main(argv=None) -> int:
          "plan_fingerprint": plan.fingerprint.digest,
          "buckets": len(planned["buckets"]), "bucket_bytes": red.bucket_bytes})
     _free()
-    trained_cli = train_cli_full_width(card, layout)
+    trained_cli = train_cli_full_width(card, layout["shapes"])
+    _free()
+    hybrid = serve_two_ways(HYBRID_ARCH, args.seed, card, HYBRID_BATCH,
+                            HYBRID_PROMPT, HYBRID_NEW, "flash_fwd_mma")
+    _free()
+    hcfg = get_config(HYBRID_ARCH)
+    hybrid["flash_layer"] = time_flash_layer(
+        HYBRID_ARCH, (HYBRID_BATCH, hcfg.n_heads, hcfg.n_kv_heads, HYBRID_PROMPT,
+                      hcfg.head_dim), True, hcfg.attn_window, args.seed)
+    wcfg = get_config(WHISPER_ARCH)
+    whisper = serve_two_ways(WHISPER_ARCH, args.seed, card, WHISPER_BATCH,
+                             WHISPER_PROMPT, WHISPER_NEW, "flash_fwd_wgmma",
+                             fe_slots=wcfg.n_audio_ctx, exact=True)
+    _free()
+    heads = (wcfg.n_heads, wcfg.n_kv_heads)
+    whisper["flash_layer"] = time_flash_layer(
+        WHISPER_ARCH, (WHISPER_BATCH, *heads, wcfg.n_audio_ctx, wcfg.head_dim),
+        False, 0, args.seed)
+    whisper["flash_decoder_layer"] = time_flash_layer(
+        f"{WHISPER_ARCH} decoder", (WHISPER_BATCH, *heads, WHISPER_PROMPT,
+                                    wcfg.head_dim), True, 0, args.seed)
+    vlm = vlm_prefill_full_width(args.seed, card)
+    _free()
+    vcfg = get_config(VLM_ARCH)
+    vlm["flash_layer"] = time_flash_layer(
+        VLM_ARCH, (VLM_BATCH, vcfg.n_heads, vcfg.n_kv_heads, VLM_PROMPT,
+                   vcfg.head_dim), True, 0, args.seed)
+    check_ssm_gradient(args.seed, card)
+    _free()
+    trained_ssm = train_cli_full_width(card, ssm_shapes(), TRAIN_SSM_CLI,
+                                       SSM_ARCH)
     # each kernel's launches come from the path it carries; the peer ring's
     # from the user's entry point (the hand-wired planned run's beside it)
     paths = {"wkv_chunked": served, "wkv_scan": served, "fused_add": trained,
@@ -2045,6 +2638,21 @@ def main(argv=None) -> int:
             k["launches_planned_run"] = trained_planned["launches"]["peer_ring"]
         if k["name"] == "fused_add":
             k["launches_group_run"] = grouped["launches"]["fused_add"]
+        if k["name"] == "peer_ring":
+            k["launches_ssm_train"] = trained_ssm["launches"]["peer_ring"]
+        if k["name"] == "flash_attention":
+            k["launches_by_path"] = {
+                DENSE_ARCH: served_dense["launches"]["flash_attention"],
+                HYBRID_ARCH: hybrid["launches"]["flash_attention"],
+                WHISPER_ARCH: whisper["launches"]["flash_attention"],
+                VLM_ARCH: vlm["launches"]["flash_attention"]}
+            # every model's layer shape on a flash path (PERF.md section 6)
+            k["hybrid_layer"] = hybrid["flash_layer"]
+            k["whisper_encoder_layer"] = whisper["flash_layer"]
+            k["whisper_decoder_layer"] = whisper["flash_decoder_layer"]
+            k["vlm_layer"] = vlm["flash_layer"]
+    if trained_ssm["launches"]["peer_ring"] < 1:
+        raise AssertionError("peer_ring never launched on the ssm train command")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -31,6 +31,10 @@ PyTorch versions of the kernels, and the schedule runner as the
 transport); ``--smoke`` picks the reduced same-family config and is off
 by default, where the reference's cannot be turned off.  Weights are
 random: ``train`` draws them from seed 0, ``serve`` from ``--seed``.
+``serve`` takes every family the port has; the VLM and Whisper get the
+reference's front-end stub (ones of ``[batch, n_img_tokens |
+n_audio_ctx, d_model]``).  ``train`` takes every family but ``encdec``,
+whose loss needs audio the synthetic batches do not carry.
 """
 
 from __future__ import annotations
@@ -323,13 +327,17 @@ def cmd_train(args: argparse.Namespace) -> int:
                          f"{n} data-parallel ranks of --mesh {args.mesh}")
 
     arch = get_config(args.arch)
+    if arch.family == "encdec":
+        # the reference's train builds batches of tokens and labels only
+        # (host_batch), and WhisperLM.loss reads batch["frontend_embeds"]
+        raise NotImplementedError(
+            f"train has no audio batches for {arch.name} ({arch.family!r}): "
+            f"its loss needs the encoder's frontend_embeds, which the "
+            f"synthetic data does not carry (the reference's train fails on "
+            f"the same missing key)")
     if args.smoke:
         arch = dataclasses.replace(arch.smoke(), vocab_size=2048)
     model = get_model(arch, device=device)
-    if not hasattr(model, "loss"):
-        raise NotImplementedError(
-            f"repro_torch trains the dense family; {arch.name} is "
-            f"{arch.family!r}")
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     state = init_state(model, gen)
@@ -456,6 +464,10 @@ def cmd_serve(args: argparse.Namespace) -> int:
     gen.manual_seed(args.seed)
     params = model.init(gen)
 
+    # the reference's front-end stub: ones of [batch, slots, d_model]
+    slots = {"vlm": arch.n_img_tokens, "encdec": arch.n_audio_ctx}.get(arch.family)
+    fe = None if slots is None else torch.ones(
+        (args.batch, slots, arch.d_model), dtype=torch.float32, device=device)
     prompts = [
         [(11 * i + j) % arch.vocab_size for j in range(args.prompt_len)]
         for i in range(args.batch)
@@ -468,7 +480,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
               f"{eng.collective_hints(cfg.payload_bytes)}")
     timer = obs.tracer().timer("cli.serve.generate", batch=args.batch)
     with timer:
-        outs = eng.generate(prompts)    # ends on a host copy: synchronised
+        # ends on a host copy: synchronised
+        outs = eng.generate(prompts, frontend_embeds=fe)
     dt = max(timer.elapsed, 1e-9)
     total = sum(len(o) for o in outs)
     print(f"[serve] arch={arch.name} {total} tokens in {dt:.2f}s "
@@ -520,9 +533,9 @@ def build_parser() -> argparse.ArgumentParser:
     _add_session_args(p)
     p.add_argument("--arch", default="qwen2-0.5b")
     p.add_argument("--attention-impl", choices=["xla", "flash"], default="flash",
-                   help="dense family: flash: the flash-attention CUDA kernel "
-                        "for the prefill; xla: plain grouped attention (the "
-                        "reference's name)")
+                   help="attention families: flash: the flash-attention CUDA "
+                        "kernel for the prefill; xla: plain grouped attention "
+                        "(the reference's name)")
     p.add_argument("--wkv-impl", choices=["xla", "kernel"], default="kernel",
                    help="rwkv6: kernel: chunked CUDA WKV kernel for the "
                         "prefill; xla: the exact recurrence (the reference's "

@@ -3,7 +3,8 @@
 The port keeps the JAX layout (``[in, out]`` weights, block parameters
 stacked along a leading layer dimension), so converting is a leaf-by-leaf
 copy: the dtype is kept, and the tree's names and shapes are checked
-against the model's :meth:`param_spec` (``Rwkv6LM``'s or ``DecoderLM``'s).
+against the model's :meth:`param_spec` (nested dicts, and lists such as
+``RecurrentGemmaLM``'s ``"tail"`` blocks).
 The input is the JAX tree with its leaves turned into numpy arrays
 (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
 """
@@ -27,7 +28,19 @@ def tensor_from_numpy(a: np.ndarray, device: Any = "cpu") -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def _convert(tree: Dict[str, Any], spec: Dict[str, Any], device, path: str):
+def _convert(tree: Any, spec: Any, device, path: str):
+    if isinstance(spec, list):
+        if not isinstance(tree, (list, tuple)):
+            raise KeyError(f"parameter tree at {path or '<root>'}: expected a "
+                           f"list of {len(spec)} sub-trees")
+        if len(tree) != len(spec):
+            raise KeyError(f"parameter tree at {path or '<root>'}: "
+                           f"{len(tree)} entries, model wants {len(spec)}")
+        return [_convert(t, e, device, f"{path}[{i}]")
+                for i, (t, e) in enumerate(zip(tree, spec))]
+    if not isinstance(tree, dict):
+        raise KeyError(f"parameter tree at {path or '<root>'}: expected a "
+                       f"dict, got {type(tree).__name__}")
     missing = sorted(set(spec) - set(tree))
     extra = sorted(set(tree) - set(spec))
     if missing or extra:
@@ -37,8 +50,8 @@ def _convert(tree: Dict[str, Any], spec: Dict[str, Any], device, path: str):
     for name, entry in spec.items():
         where = f"{path}/{name}" if path else name
         leaf = tree[name]
-        if isinstance(entry, dict):
-            if not isinstance(leaf, dict):
+        if isinstance(entry, (dict, list)):
+            if not isinstance(leaf, (dict, list, tuple)):
                 raise KeyError(f"{where}: expected a sub-tree, got an array")
             out[name] = _convert(leaf, entry, device, where)
             continue

@@ -8,9 +8,10 @@ of ``name -> (shape, init)`` — and draws them with :func:`init_from_spec`;
 the same spec is the schema :func:`repro_torch.convert.params_from_jax`
 checks.  ``attention`` reads ``cfg.attention_impl``: ``"xla"`` is the
 plain grouped attention, ``"flash"`` the flash kernel
-(:func:`repro_torch.kernels.ops.attention_op`); ``attention_decode`` is the
-single-token step against a KV cache.  Only the dense path is here: MoE
-and MLA come with their slice (ROADMAP.md §1).
+(:func:`repro_torch.kernels.ops.attention_op`); ``kv_override`` makes it
+cross-attention (Whisper's decoder), always on the plain path, as in the
+reference; ``attention_decode`` is the single-token step against a KV
+cache.  MoE and MLA come with their slice (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from repro_torch.kernels import ops
 
 __all__ = [
     "apply_rope", "attention", "attention_decode", "attention_spec", "dense_init",
-    "init_from_spec", "make_rope", "map_spec", "mlp", "mlp_spec",
+    "init_from_spec", "layer_norm", "make_rope", "map_spec", "mlp", "mlp_spec",
     "rms_norm", "unbind_layers",
 ]
 
@@ -54,10 +55,14 @@ def dense_init(generator: torch.Generator, shape: Sequence[int],
 # parameter specs
 # ---------------------------------------------------------------------------
 
-def map_spec(spec: Params, fn: Callable[[Any], Any]) -> Params:
-    """``fn`` applied to every ``(shape, init)`` entry of a spec tree."""
-    return {k: map_spec(v, fn) if isinstance(v, dict) else fn(v)
-            for k, v in spec.items()}
+def map_spec(spec: Any, fn: Callable[[Any], Any]) -> Any:
+    """``fn`` applied to every ``(shape, init)`` entry of a spec tree
+    (dicts, and lists such as the hybrid model's ``"tail"`` blocks)."""
+    if isinstance(spec, dict):
+        return {k: map_spec(v, fn) for k, v in spec.items()}
+    if isinstance(spec, list):
+        return [map_spec(v, fn) for v in spec]
+    return fn(spec)
 
 
 def init_from_spec(generator: torch.Generator, spec: Params,
@@ -108,6 +113,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     var = x.float().square().mean(-1, keepdim=True)
     scale = torch.rsqrt(var + eps).to(x.dtype)
     return x * scale * w.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 (``layers.py:129-140``), cast back to ``x.dtype``."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -218,11 +233,28 @@ def attention(
     *,
     causal: bool = True,
     positions: Optional[torch.Tensor] = None,
+    kv_override: Optional[Tuple[torch.Tensor, ...]] = None,
     use_rope: bool = True,
     window: int = 0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence self-attention.  Returns (out [B,S,D], kv for caching)."""
+    """Full-sequence attention.  Returns (out [B,S,D], kv for caching).
+
+    ``kv_override = (src,)`` makes it cross-attention (``layers.py:243-268``):
+    k/v are projected from ``src [B, Sk, D]``, no RoPE, no mask, and the
+    plain grouped attention runs whatever ``attention_impl`` says (the
+    flash kernel takes only Sq == Sk).
+    """
     B, S, _ = x.shape
+    if kv_override is not None:
+        h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        src = kv_override[0]
+        Sk = src.shape[1]
+        q = (x @ p["wq"]).reshape(B, S, h, hd).transpose(1, 2)
+        k = (src @ p["wk"]).reshape(B, Sk, kv, hd).transpose(1, 2)
+        v = (src @ p["wv"]).reshape(B, Sk, kv, hd).transpose(1, 2)
+        out = _sdpa(q, k, v, causal=False, q_chunk=cfg.attn_q_chunk)
+        out = out.transpose(1, 2).reshape(B, S, h * hd)
+        return out @ p["wo"], {"k": k, "v": v}
     if positions is None:
         positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(p, x, cfg)

@@ -4,12 +4,14 @@ Every model exposes::
 
     init(generator) -> params
     param_spec() -> {name: (shape, init)}
-    forward(params, tokens) -> (logits, aux)
+    forward(params, tokens, frontend_embeds=None) -> (logits, aux)
+    loss(params, batch) -> scalar
 
-and ``prefill`` / ``decode_step`` / ``init_cache``, which the generation
-engine serves; where it trains, ``loss(params, batch)`` (``DecoderLM``).
-The RWKV6 (``ssm``) family serves; the dense family serves and trains.
-The others name the ROADMAP.md item that ports them.
+and ``prefill(params, tokens, frontend_embeds=None)`` / ``decode_step`` /
+``init_cache``, which the generation engine serves.  The dense, ``vlm``
+(``DecoderLM`` with the anyres stub), ``ssm`` (``Rwkv6LM``), ``hybrid``
+(``RecurrentGemmaLM``) and ``encdec`` (``WhisperLM``) families serve and
+train; MoE names the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -18,25 +20,28 @@ from typing import Any
 
 from repro_torch.configs.base import ModelConfig
 
+from .rglru import RecurrentGemmaLM
 from .rwkv6 import Rwkv6LM
 from .transformer import DecoderLM
+from .whisper import WhisperLM
 
 __all__ = ["get_model"]
 
 #: family -> where ROADMAP.md queues its port
 _NOT_YET = {
     "moe": "ROADMAP.md §1 slice 5, item 8 (MoE and MLA)",
-    "vlm": "ROADMAP.md §1 slice 5, item 7 (the VLM front end)",
-    "hybrid": "ROADMAP.md §1 slice 5, item 7 (RG-LRU)",
-    "encdec": "ROADMAP.md §1 slice 5, item 7 (Whisper)",
 }
 
 
 def get_model(cfg: ModelConfig, device: Any = "cuda"):
     if cfg.family == "ssm":
         return Rwkv6LM(cfg, device=device)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return DecoderLM(cfg, device=device)
+    if cfg.family == "hybrid":
+        return RecurrentGemmaLM(cfg, device=device)
+    if cfg.family == "encdec":
+        return WhisperLM(cfg, device=device)
     if cfg.family in _NOT_YET:
         raise NotImplementedError(
             f"repro_torch has no {cfg.family!r} model yet ({cfg.name}); "

@@ -11,7 +11,10 @@ a Python loop (the reference's ``lax.scan``).
 
 Prefill with ``wkv_impl="kernel"`` runs the chunked CUDA kernel
 (:mod:`repro_torch.kernels.rwkv6_chunked`), which returns the final WKV
-state; decode runs the exact recurrence on that state.
+state; decode runs the exact recurrence on that state.  It trains
+(``forward(..., return_features=True)``, ``loss``) through the exact
+recurrence: the WKV kernels have no backward, so the kernel path raises
+when a gradient is asked of it, as the flash path does.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -27,6 +31,7 @@ from repro_torch.kernels.ops import wkv_chunked_op
 from repro_torch.kernels.ref import wkv_recurrence
 
 from . import layers as L
+from .transformer import lm_loss
 
 __all__ = ["LORA_R", "Rwkv6LM", "wkv_recurrence"]
 
@@ -140,6 +145,13 @@ class Rwkv6LM:
                  self._heads(w.to(x.dtype)))
         if (cfg.wkv_impl == "kernel" and state is None and S > 1
                 and S % 16 == 0):
+            if torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (*heads, p["u"])):
+                raise NotImplementedError(
+                    "wkv_impl='kernel' is forward-only (the WKV kernels have "
+                    "no backward, ROADMAP.md §2, row 1): run it under "
+                    "torch.no_grad() or torch.inference_mode(), or train with "
+                    "wkv_impl='xla'")
             # chunked CUDA kernel (fresh state); it returns the final state
             y, new_state = wkv_chunked_op(*heads, p["u"])
         else:
@@ -173,24 +185,43 @@ class Rwkv6LM:
         return x + ffn, (att_sx, ffn_sx, wkv)
 
     def _layers(self, params: Params, x, cache: Optional[Params] = None):
-        """Run every block; returns ``x`` and the stacked per-layer states."""
+        """Run every block; returns ``x`` and the stacked per-layer states.
+
+        With grad enabled and ``remat="block"`` each block is checkpointed
+        (the reference's ``jax.checkpoint``)."""
         outs = []
         blocks = L.unbind_layers(params["blocks"], self.cfg.n_layers)
+        remat = self.cfg.remat == "block" and torch.is_grad_enabled()
         for i, bp in enumerate(blocks):
             carry = (() if cache is None else
                      (cache["att_sx"][i], cache["ffn_sx"][i], cache["wkv"][i]))
-            x, o = self._block(bp, x, *carry)
+            if remat:
+                x, o = checkpoint(self._block, bp, x, *carry, use_reentrant=False)
+            else:
+                x, o = self._block(bp, x, *carry)
             outs.append(o)
         att_sx, ffn_sx, wkv = (torch.stack([o[j] for o in outs]) for j in range(3))
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return x, {"att_sx": att_sx, "ffn_sx": ffn_sx, "wkv": wkv}
 
-    # -- training-shape forward --------------------------------------------
-    def forward(self, params: Params, tokens: torch.Tensor
+    # -- training ---------------------------------------------------------
+    def forward(self, params: Params, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None,
+                return_features: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Logits ``[B,S,V]`` and a zero aux loss."""
+        """Logits ``[B,S,V]`` (or the final-norm features ``[B,S,D]``) and a
+        zero aux loss; ``frontend_embeds`` is ignored, as in the reference."""
         x, _ = self._layers(params, params["embed"][tokens])
-        return x @ params["lm_head"], torch.zeros((), device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if return_features:
+            return x, aux
+        return x @ params["lm_head"], aux
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross entropy (``rwkv6.py:242-246``)."""
+        feats, _ = self.forward(params, batch["tokens"], return_features=True)
+        return lm_loss(feats, params["lm_head"], batch["labels"],
+                       self.cfg.loss_chunk_size)
 
     # -- serving ----------------------------------------------------------
     def init_cache(self, batch: int, s_max: int = 0, dtype=None) -> Params:
@@ -205,14 +236,18 @@ class Rwkv6LM:
             "pos": torch.zeros((), dtype=torch.int32, device=dev),
         }
 
-    def prefill(self, params: Params, tokens: torch.Tensor
+    @torch.no_grad()
+    def prefill(self, params: Params, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Params]:
-        """Run the prompt; returns last-token logits ``[B,V]`` and the cache."""
+        """Run the prompt; returns last-token logits ``[B,V]`` and the cache
+        (``frontend_embeds`` is ignored, as in the reference)."""
         x, cache = self._layers(params, params["embed"][tokens])
         cache["pos"] = torch.tensor(tokens.shape[1], dtype=torch.int32,
                                     device=x.device)
         return x[:, -1] @ params["lm_head"], cache
 
+    @torch.no_grad()
     def decode_step(self, params: Params, tokens: torch.Tensor, cache: Params
                     ) -> Tuple[torch.Tensor, Params]:
         """One token per sequence (``tokens [B]``) on the carried state."""

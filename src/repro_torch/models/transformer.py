@@ -11,13 +11,16 @@ It trains (``init``, ``param_spec``, ``forward``, ``loss``) and serves
 (``init_cache``, ``prefill``, ``decode_step``: the KV cache keeps the
 reference's layout ``{"scan": {"k", "v": [n, B, KV, S, hd]}, "pos"}``).
 ``cfg.attention_impl == "flash"`` runs the prefill's attention through the
-flash kernel, which is forward-only; training keeps ``"xla"``.  MoE and
-MLA come with their slice (ROADMAP.md §1 slice 5, item 8).
+flash kernel, which is forward-only; training keeps ``"xla"``.  The
+``vlm`` family (llava-next-mistral-7b) is this decoder with the
+reference's anyres stub in front: ``frontend_embeds [B, n_img, D]``
+replace the first ``n_img`` token embeddings.  MoE and MLA come with
+their slice (ROADMAP.md §1 slice 5, item 8).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -102,10 +105,22 @@ class DecoderLM:
         h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
         return x + L.mlp(p["mlp"], h)
 
-    def _features(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params: Params, tokens: torch.Tensor,
+               frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        """Token embeddings; for the ``vlm`` family the anyres stub
+        (``transformer.py:105-113``): the image embeddings replace the
+        first ``n_img`` slots."""
+        x = params["embed"][tokens]
+        if self.cfg.family == "vlm" and frontend_embeds is not None:
+            n_img = frontend_embeds.shape[1]
+            x = torch.cat([frontend_embeds.to(x.dtype), x[:, n_img:]], dim=1)
+        return x
+
+    def _features(self, params: Params, tokens: torch.Tensor,
+                  frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Final-norm hidden states ``[B, S, D]``."""
         cfg = self.cfg
-        x = params["embed"][tokens]
+        x = self._embed(params, tokens, frontend_embeds)
         positions = torch.arange(tokens.shape[1], device=x.device)
         remat = cfg.remat == "block" and torch.is_grad_enabled()
         for bp in L.unbind_layers(params["blocks"], cfg.n_layers):
@@ -117,10 +132,11 @@ class DecoderLM:
         return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
     def forward(self, params: Params, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None,
                 return_features: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens [B, S] -> (logits [B, S, V], aux loss 0)."""
-        x = self._features(params, tokens)
+        x = self._features(params, tokens, frontend_embeds)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_features:
             return x, aux
@@ -128,7 +144,8 @@ class DecoderLM:
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean next-token cross entropy; never builds the whole logits."""
-        feats = self._features(params, batch["tokens"])
+        feats = self._features(params, batch["tokens"],
+                               batch.get("frontend_embeds"))
         return lm_loss(feats, self._head(params), batch["labels"],
                        self.cfg.loss_chunk_size)
 
@@ -146,12 +163,13 @@ class DecoderLM:
                 "pos": torch.zeros((), dtype=torch.int32, device=self.device)}
 
     @torch.no_grad()
-    def prefill(self, params: Params, tokens: torch.Tensor
+    def prefill(self, params: Params, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Params]:
         """The prompt ``[B, S]`` -> (last-position logits ``[B, V]``, the
         cache sized to the prompt with every layer's roped k and v)."""
         cfg = self.cfg
-        x = params["embed"][tokens]
+        x = self._embed(params, tokens, frontend_embeds)
         positions = torch.arange(tokens.shape[1], device=x.device)
         ks, vs = [], []
         for bp in L.unbind_layers(params["blocks"], cfg.n_layers):

@@ -6,9 +6,14 @@ until every slot finishes (EOS or the token budget).  PyTorch runs
 eagerly, so the model's ``prefill`` and ``decode_step`` are called as they
 are (the reference ``jax.jit``s them).
 
-It serves the RWKV6 (``Rwkv6LM``, state caches) and dense (``DecoderLM``,
-KV caches grown by :func:`_grow_cache` to the wave's decode headroom)
-families.  As the reference's engine, it takes a compiled collective plan
+It serves every family the port has: RWKV6 (``Rwkv6LM``, state caches),
+dense and VLM (``DecoderLM``, KV caches grown by :func:`_grow_cache` to
+the wave's decode headroom), the hybrid (``RecurrentGemmaLM``, whose own
+``grow_cache`` keeps its ring-buffer window caches as they are) and
+Whisper (``WhisperLM``: self-attention k/v grown, cross-attention
+``xk``/``xv`` fixed at the audio context); the VLM and Whisper take their
+front end's embeddings as ``frontend_embeds``.
+As the reference's engine, it takes a compiled collective plan
 (``plan=``) or a :class:`~repro_torch.session.Session` that owns one
 (``session=``, whose drift re-plans it picks up), reports the plan's
 entries for the decode path's collectives
@@ -197,8 +202,14 @@ class GenerationEngine:
 
     @torch.inference_mode()
     def generate(self, prompts: List[List[int]],
-                 max_new_tokens: Optional[int] = None) -> List[List[int]]:
-        """One wave: equal-length prompts -> generated continuations."""
+                 max_new_tokens: Optional[int] = None,
+                 frontend_embeds: Optional[torch.Tensor] = None
+                 ) -> List[List[int]]:
+        """One wave: equal-length prompts -> generated continuations.
+
+        ``frontend_embeds`` (the VLM's image embeddings, Whisper's audio
+        frames) go to the model's ``prefill``.
+        """
         lens = {len(p) for p in prompts}
         if len(lens) != 1:
             raise ValueError(f"a wave needs equal prompt lengths, got {lens}")
@@ -208,20 +219,23 @@ class GenerationEngine:
         B, P = tokens.shape
 
         with obs.tracer().span("serve.prefill", batch=B, prompt_len=P):
-            logits, cache = self.model.prefill(self.params, tokens)
+            logits, cache = self.model.prefill(self.params, tokens,
+                                               frontend_embeds)
         self.stats["prefill_tokens"] += B * P
-        # grow the cache to P + max_new slots; when armed, the planned
-        # all-gather of the prompt activations rides along, with the
-        # cache growth as its resident compute
+        # grow the cache to P + max_new slots (a model whose cache has a
+        # fixed size says how through its own ``grow_cache``); when armed,
+        # the planned all-gather of the prompt activations rides along,
+        # with the cache growth as its resident compute
+        grow = getattr(self.model, "grow_cache", _grow_cache)
         if self._armed is not None:
             payload = self._ag_payload(logits)
             with obs.tracer().span("serve.overlap.prefill",
                                    bytes=float(payload.numel()
                                                * payload.element_size())):
                 _, cache = self._gather(
-                    payload, lambda: _grow_cache(cache, P, P + max_new))
+                    payload, lambda: grow(cache, P, P + max_new))
         else:
-            cache = _grow_cache(cache, P, P + max_new)
+            cache = grow(cache, P, P + max_new)
 
         # TP decode issues an all-gather + reduce-scatter of the step's
         # activations per layer; the per-step logits block is the
@@ -267,14 +281,18 @@ def _trim(row: np.ndarray, eos: int) -> int:
 
 
 #: cache keys that carry a sequence dimension, and where it sits
-#: (negative index).  State caches (wkv, *_sx) never grow.
+#: (negative index).  State caches (wkv, h, conv, *_sx) never grow, nor do
+#: Whisper's cross-attention xk/xv (fixed at the audio context).
 _SEQ_DIM = {"k": -2, "v": -2, "ckv": -2, "k_rope": -2}
 
 
 def _grow_cache(cache: Any, cur_len: int, new_len: int) -> Any:
     """Pad the sequence dim of prefill caches to decode headroom.
 
-    Key-aware: only KV/latent buffers grow; recurrent states pass through.
+    Key-aware: only KV/latent buffers grow; recurrent states and Whisper's
+    cross-attention k/v pass through.  A model whose cache has a fixed
+    size (the hybrid's ring buffers) brings its own ``grow_cache``, which
+    the engine calls instead.
     """
     if new_len <= cur_len:
         return cache

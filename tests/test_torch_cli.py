@@ -8,6 +8,7 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -109,6 +110,45 @@ def test_train_smoke_in_process(capsys, tmp_path, reorder):
     assert "[train] arch=qwen2-0.5b-smoke steps=12" in text
 
 
+def test_train_rwkv6_smoke_shows_a_falling_loss(capsys, tmp_path):
+    """The ssm family trains through the user's entry point (the exact WKV
+    recurrence, one rank); the loss falls over 12 steps."""
+    from repro_torch.cli import main
+
+    assert main(["train", "--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu",
+                 "--mesh", "1", "--batch", "8", "--seq", "32", "--steps", "12",
+                 "--lr", "1e-2", "--reorder", "none",
+                 "--ckpt-dir", str(tmp_path)]) == 0
+    text = capsys.readouterr().out
+    report = json.loads(text.split("[train] report ")[1].splitlines()[0])
+    assert report["steps"] == 12 and report["ranks"] == 1
+    losses = report["losses"]
+    assert sum(losses[-3:]) / 3 < sum(losses[:3]) / 3 - 0.03, losses
+    assert "[train] arch=rwkv6-1.6b-smoke steps=12" in text
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "llava-next-mistral-7b"])
+def test_train_takes_the_hybrid_and_vlm_families(capsys, tmp_path, arch):
+    from repro_torch.cli import main
+
+    assert main(["train", "--arch", arch, "--smoke", "--device", "cpu",
+                 "--mesh", "1", "--batch", "2", "--seq", "16", "--steps", "2",
+                 "--reorder", "none", "--ckpt-dir", str(tmp_path)]) == 0
+    assert f"[train] arch={arch}-smoke steps=2" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-small",
+                                  "llava-next-mistral-7b"])
+def test_serve_new_families_in_process(capsys, arch):
+    """The hybrid at a prompt as long as its smoke window (32), Whisper and
+    the VLM with the reference's front-end stub."""
+    from repro_torch.cli import main
+
+    assert main(["serve", "--arch", arch, "--smoke", "--device", "cpu",
+                 "--batch", "2", "--prompt-len", "32", "--max-new", "3"]) == 0
+    assert f"[serve] arch={arch}-smoke 6 tokens" in capsys.readouterr().out
+
+
 def test_train_warms_up_as_the_reference(monkeypatch, tmp_path):
     """``train`` builds its optimizer from the reference's schedule,
     ``cosine_schedule(lr, 10, steps)`` (``repro/cli.py:287``): at lr 1e-3
@@ -152,4 +192,8 @@ def test_train_refuses_what_is_not_ported(tmp_path):
               "--reorder", "probe", "--ckpt-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="item 11"):
         main(["train", "--smoke", "--device", "cpu", "--mesh", "2x2",
+              "--reorder", "none", "--ckpt-dir", str(tmp_path)])
+    # Whisper's loss needs audio the synthetic batches do not carry
+    with pytest.raises(NotImplementedError, match="frontend_embeds"):
+        main(["train", "--arch", "whisper-small", "--smoke", "--device", "cpu",
               "--reorder", "none", "--ckpt-dir", str(tmp_path)])

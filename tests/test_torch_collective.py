@@ -6,6 +6,7 @@ import random
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 from repro.analysis import require_certified as ref_require_certified  # noqa: E402
 from repro.collective import CollectiveOp as RefOp  # noqa: E402

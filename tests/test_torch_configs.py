@@ -4,7 +4,8 @@ import dataclasses
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 from repro.configs import ARCH_IDS as JAX_ARCH_IDS  # noqa: E402
 from repro.configs import SHAPES as JAX_SHAPES  # noqa: E402

@@ -4,7 +4,8 @@ The smoke ``qwen2-0.5b`` and ``glm4-9b`` configs (f32, JAX's ``init``
 carried across by ``params_from_jax``): ``init_cache``, ``prefill``,
 ``decode_step`` and the engine's greedy tokens, with the prefill's
 attention through the flash path (its plain version on the CPU) and the
-plain ``"xla"`` path.  Tolerances: f32 on both sides, the same math in
+plain ``"xla"`` path; and the smoke ``llava-next-mistral-7b`` (the same
+decoder behind the anyres stub) prefilled with image embeddings.  Tolerances: f32 on both sides, the same math in
 another summation order, so atol/rtol 2e-5 on logits and caches.
 """
 
@@ -13,6 +14,7 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -206,3 +208,37 @@ def test_cuda_flash_prefill_equals_xla_prefill():
         assert torch.equal(ca["scan"][name][0], cb["scan"][name][0])
         torch.testing.assert_close(ca["scan"][name], cb["scan"][name],
                                    atol=1e-4, rtol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def vlm():
+    """The smoke VLM's weights (JAX's init), a prompt, image embeddings and
+    JAX's prefill of both."""
+    cfg = jax_get_config("llava-next-mistral-7b").smoke()
+    jm = jax_get_model(cfg)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(2)
+    toks = rng.integers(1, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    fe = rng.standard_normal((BATCH, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    jlogits, jcache = jax.jit(jm.prefill)(jparams, jnp.asarray(toks), jnp.asarray(fe))
+    return dict(tree=jax.tree.map(np.asarray, jparams), toks=toks, fe=fe,
+                jlogits=jlogits, jcache=jcache)
+
+
+@pytest.mark.parametrize("impl", ["flash", "xla"])
+def test_vlm_prefill_with_frontend_embeds_matches_jax(vlm, impl):
+    """The VLM's prefill with 8 image embeddings in the first slots (the
+    anyres stub) equals JAX's, logits and k/v; the logits differ from the
+    text-only prefill's (``tests/test_models_smoke.py:98``)."""
+    model = get_model(dataclasses.replace(
+        get_config("llava-next-mistral-7b").smoke(), attention_impl=impl),
+        device="cpu")
+    params = params_from_jax(vlm["tree"], model)
+    toks, jlogits, jcache = vlm["toks"], vlm["jlogits"], vlm["jcache"]
+    logits, cache = model.prefill(params, torch.from_numpy(toks),
+                                  torch.from_numpy(vlm["fe"]))
+    _close(logits, jlogits)
+    for name in ("k", "v"):
+        _close(cache["scan"][name], jcache["scan"][name])
+    text, _ = model.prefill(params, torch.from_numpy(toks))
+    assert (logits - text).abs().max() > 1e-3

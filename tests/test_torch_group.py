@@ -23,6 +23,7 @@ import time
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
 import torch.distributed as dist  # noqa: E402

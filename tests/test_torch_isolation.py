@@ -8,6 +8,7 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
@@ -106,14 +107,33 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     assert get_model(cfg, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-small",
-                                  "deepseek-v2-236b", "llava-next-mistral-7b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b"])
 def test_non_ssm_families_name_their_roadmap_item(arch):
+    """MoE is the one family left to port: it names its ROADMAP item."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_model(get_config(arch).smoke(), device="cpu")
+
+
+@pytest.mark.parametrize("arch,cls", [
+    ("recurrentgemma-9b", "rglru.RecurrentGemmaLM"),
+    ("whisper-small", "whisper.WhisperLM"),
+    ("llava-next-mistral-7b", "transformer.DecoderLM")])
+def test_ported_families_give_the_port_model(arch, cls):
+    """The hybrid, encdec and vlm families (ported in the same change that
+    narrowed the test above to MoE) give the port's model on the CPU."""
+    import importlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    mod, name = cls.split(".")
+    model = get_model(get_config(arch).smoke(), device="cpu")
+    assert type(model) is getattr(
+        importlib.import_module(f"repro_torch.models.{mod}"), name)
+    assert model.device.type == "cpu" and model.cfg.name == arch + "-smoke"
 
 
 def test_dense_family_gives_a_decoder_that_serves():

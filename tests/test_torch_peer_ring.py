@@ -10,6 +10,7 @@ one-device baseline step.  The kernel itself runs only on the card.
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402

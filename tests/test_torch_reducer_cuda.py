@@ -13,6 +13,7 @@ Without a card every case skips.
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
 

@@ -4,6 +4,7 @@ against the JAX package's, on the same inputs (CPU, the smoke qwen2-0.5b)."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
