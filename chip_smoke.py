@@ -144,6 +144,23 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
     measured as phase 8: an entry-point smoke at a short sequence, not a
     measure of training throughput.
 
+13. MoE with MLA: ``deepseek-v2-236b`` at published widths cut to 4
+    layers (the dense head layer and 3 MoE layers of 160 experts top-6),
+    bf16, 4 x 2048-token prompts x 32 new through the engine (no kernel on
+    MLA's path); each MoE layer's capacity drops at 1.25; every MLA
+    layer's absorbed decode held to the naive one (``MLA_DECODE_BOUND``)
+    and ``moe_dense`` to ``moe_scatter`` at the capacity factor E/K
+    (``MOE_REL_BOUND``), each against a control;
+14. ``dbrx-132b`` cut to 4 layers, served as phase 9 (4
+    ``flash_fwd_wgmma`` launches a prefill at GQA 48/8, the ``xla`` wave,
+    margin and logits against a control whose prefill sees a 1024
+    window);
+15. the EP all-to-all armed from a plan (``serve_mix(moe=True)``) on one
+    dbrx layer over an 8-slot virtual mesh: the shift order, the three
+    certified schedule runs and their postconditions, the obs records,
+    ``moe_a2a`` against ``moe_dense`` with a control, drops and times at
+    1.25; then the flash kernel at dbrx's layer ``[4, 48/8, 2048, 128]``.
+
 Phase 4 also holds the smoke ``recurrentgemma-9b`` (a group and a tail,
 at P > W and P == W) and ``whisper-small`` in f32 on the card: flash
 prefill == xla prefill, greedy tokens equal.
@@ -161,6 +178,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
@@ -254,9 +272,11 @@ TRAIN_CLI = ["train", "--arch", TRAIN_ARCH, "--mesh", str(RANKS),
 # (half the hybrid's 2048, half the VLM's 2048-token prompt), a fault that
 # drops half of what attention should see; the phases hold both sides.
 # Readings on an H100 80GB HBM3 at 700 W, sound / control: the hybrid's
-# margin 0.125 / 0.5 and logits 0.172 / 0.730, the VLM's logits 0.086 / 3.82
+# margin 0.125 / 0.5 and logits 0.172 / 0.730, the VLM's logits 0.086 /
+# 3.82, dbrx's margin 0.125 / 8.07 and logits 0.445 / 10.53
 TOKEN_MARGIN = 0.25
-LOGIT_BOUND = {"recurrentgemma-9b": 0.35, "llava-next-mistral-7b": 0.25}
+LOGIT_BOUND = {"recurrentgemma-9b": 0.35, "llava-next-mistral-7b": 0.25,
+               "dbrx-132b": 1.0}
 CONTROL_WINDOW = 1024
 # the full-width gradient witness (rwkv6-1.6b in f32, GRAD_ROWS x SSM_SEQ
 # tokens): for each parameter tensor, the forward-mode derivative of the loss
@@ -277,6 +297,25 @@ TRAIN_SSM_CLI = ["train", "--arch", SSM_ARCH, "--mesh", str(RANKS),
                  "--batch", str(RANKS * SSM_ROWS_PER_RANK), "--seq", str(SSM_SEQ),
                  "--steps", str(SSM_STEPS), "--reorder", "simulate",
                  "--lr", str(SSM_LR)]
+# MoE and MLA serving: deepseek-v2-236b cut to 4 layers (the dense head
+# layer and 3 MoE layers) and dbrx-132b to 4, 4 requests x 2048-token
+# prompts x 32 new; every MLA layer's absorbed decode held to the naive one
+# over MLA_CHECK_STEPS teacher-forced steps; the MoE paths compared at the
+# capacity factor E/K, where no path can drop (tests/test_perf_opts.py's
+# 8.0 dropped on deepseek's real activations: 26.7 there, 4 for dbrx); the
+# armed EP check on the first EP_TOKENS positions of each prompt row, the
+# plan's all-to-all entry at EP_PAYLOAD bytes (cli.SERVE_PAYLOAD_BYTES).
+# The limits lie between the sound readings and their controls' (an H100
+# 80GB HBM3 at 700 W, sound / control): MLA's attention outputs (up to
+# 0.90) 0.0039 / 0.096 apart; the MoE paths relative to their largest
+# output (the reference's 1/sqrt(E) expert init makes a random layer's
+# outputs reach 286 on deepseek and 32768 on dbrx, where one bf16 step is
+# 2 and 256): dense vs scatter 0.0105 / 0.174, the a2a vs dense 0.0078 /
+# 0.729, about three bf16 steps at the top and over twenty
+MLA_ARCH, MLA_DEPTH, MOE_ARCH, MOE_DEPTH = "deepseek-v2-236b", 4, "dbrx-132b", 4
+MOE_BATCH, MOE_PROMPT, MOE_NEW, MLA_CHECK_STEPS = 4, 2048, 32, 4
+EP_TOKENS, EP_PAYLOAD = 512, 1e6
+MLA_DECODE_BOUND, MOE_REL_BOUND = 0.02, 0.03
 # kernel vs plain on the same inputs: the same f32 math summed in another
 # order (f32: the chunk-form tolerance of the CPU tests); bf16 y also
 # rounds once to bf16 (2 ulps relative)
@@ -2073,17 +2112,45 @@ def _teacher_forced_margin(model, params, prompts, outs, fe) -> float:
     """The largest gap, over every generated position, between the top
     logit of ``model`` (fed the prompt and the tokens generated before that
     position) and its logit of the generated token: 0 when every token is
-    ``model``'s own greedy choice on that prefix."""
+    ``model``'s own greedy choice on that prefix.
+
+    One ``forward`` over prompt and tokens; for an MoE model, whose dense
+    dispatch groups a prompt by ``moe_group_size`` tokens (the reference's
+    too), the prompt's ``prefill`` and one teacher-forced ``decode_step``
+    a generated token."""
     import torch
+
+    from repro_torch.serve.engine import _grow_cache
 
     seq = torch.tensor([p + o for p, o in zip(prompts, outs)], device="cuda")
     P = len(prompts[0])
     head = params["lm_head"] if "lm_head" in params else params["embed"].T
     with torch.inference_mode():
-        feats, _ = model.forward(params, seq[:, :-1], fe, return_features=True)
-        logits = (feats[:, P - 1:] @ head).float()
+        if model.cfg.n_experts:
+            first, cache = model.prefill(params, seq[:, :P], fe)
+            cache = _grow_cache(cache, P, seq.shape[1])
+            rows = [first]
+            for t in range(P, seq.shape[1] - 1):
+                step, cache = model.decode_step(params, seq[:, t], cache)
+                rows.append(step)
+            logits = torch.stack(rows, 1).float()
+        else:
+            feats, _ = model.forward(params, seq[:, :-1], fe,
+                                     return_features=True)
+            logits = (feats[:, P - 1:] @ head).float()
         chosen = logits.gather(-1, seq[:, P:, None])[..., 0]
         return (logits.amax(-1) - chosen).max().item()
+
+
+class _PrefillFault:
+    """The control model of a decoder without windowed decode: the sound
+    model with the faulty (windowed) model's prefill, so the fault drops
+    half of what the prompt's attention should see and decode runs on the
+    cache it leaves."""
+
+    def __init__(self, faulty, sound):
+        self.cfg, self.device = sound.cfg, sound.device
+        self.prefill, self.decode_step = faulty.prefill, sound.decode_step
 
 
 def _held_apart(what: str, sound: float, limit: float, control: float) -> None:
@@ -2104,8 +2171,9 @@ def _prefill_logits(model, params, tokens, fe):
 
 def serve_two_ways(arch: str, seed: int, card: str, batch: int, prompt: int,
                    new: int, kernel: str, fe_slots: int = 0,
-                   exact: bool = False) -> dict:
-    """Phases 9 and 10: one model family served at full width with
+                   exact: bool = False, depth: int = 0,
+                   keep: bool = False) -> dict:
+    """Phases 9, 10 and 14: one model family served at full width with
     ``attention_impl="flash"``, counted (one flash launch an attention
     layer of the prefill, every one ``kernel``), then the same wave with
     ``"xla"`` on the same weights; prefill time, decode step and peak
@@ -2123,7 +2191,11 @@ def serve_two_ways(arch: str, seed: int, card: str, batch: int, prompt: int,
     of ``CONTROL_WINDOW`` on the same weights, must land beyond both.
     With ``exact`` (Whisper, whose two waves agree) the tokens must be
     equal instead.  Exact equality is held in f32 for every family
-    (``check_small_families``).
+    (``check_small_families``).  ``depth`` > 0 cuts the model to that many
+    layers (the widths stay published); ``keep`` returns the model and
+    weights under ``"_model"``/``"_params"`` for a later phase.  A decoder
+    has no windowed decode, so its control wave decodes with the sound
+    model from the windowed prefill's cache (:class:`_PrefillFault`).
     """
     import numpy as np
     import torch
@@ -2132,6 +2204,8 @@ def serve_two_ways(arch: str, seed: int, card: str, batch: int, prompt: int,
     from repro_torch.models import get_model
 
     cfg = dataclasses.replace(get_config(arch), attention_impl="flash")
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     model = get_model(cfg, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -2183,7 +2257,8 @@ def serve_two_ways(arch: str, seed: int, card: str, batch: int, prompt: int,
     else:
         faulty = get_model(dataclasses.replace(cfg, attn_window=CONTROL_WINDOW),
                            device="cuda")
-        outs_c, _ = _serve_wave(faulty, params, prompts, new, fe)
+        waved = faulty if cfg.family == "hybrid" else _PrefillFault(faulty, model)
+        outs_c, _ = _serve_wave(waved, params, prompts, new, fe)
         control = {
             "window": CONTROL_WINDOW,
             "teacher_forced_margin": _teacher_forced_margin(
@@ -2239,6 +2314,8 @@ def serve_two_ways(arch: str, seed: int, card: str, batch: int, prompt: int,
         "prefill_busy_ms": prof.get("busy_ms"),
         "prefill_idle_share": prof.get("idle_share"), "card": card,
     }
+    if depth:
+        res["depth"] = {"n_layers": depth, "published": get_config(arch).n_layers}
     _say(f"serve {cfg.name} ({n_params} params, bf16, flash) batch {batch} x "
          f"prompt {prompt} x {new} new: {equal} of {batch * new} tokens equal "
          f"the xla wave's (rows first differ at steps {first_diff}); every "
@@ -2253,6 +2330,8 @@ def serve_two_ways(arch: str, seed: int, card: str, batch: int, prompt: int,
          f"{res['peak_mem_gb_xla']:.3f}); flash_attention launches "
          f"{launches['flash_attention']} ({by_kernel}) [{card}]")
     _say(f"serve {arch} " + json.dumps(res))
+    if keep:
+        res.update(_model=model, _params=params)
     return res
 
 
@@ -2419,6 +2498,446 @@ def check_ssm_gradient(seed: int, card: str) -> dict:
     _say("ssm gradient " + json.dumps(res))
     _held_apart(f"{SSM_ARCH} gradient vs forward mode", worst, GRAD_RTOL, least)
     del params, named, loss
+    return res
+
+
+def _moe_spy():
+    """Wrap ``layers.moe_layer``: each call on a prompt (S > 1) keeps its
+    input; ``restore()`` puts the layer back."""
+    from repro_torch.models import layers as L
+
+    real, seen = L.moe_layer, []
+
+    def spy(p, x, cfg):
+        if x.shape[1] > 1:
+            seen.append((p, x))
+        return real(p, x, cfg)
+
+    L.moe_layer = spy
+    return SimpleNamespace(seen=seen, restore=lambda: setattr(L, "moe_layer", real))
+
+
+def _no_drop(cfg):
+    """``cfg`` at the capacity factor E/K: a group's every token fits each
+    expert's queue (and, for the EP all-to-all with E/n_ep <= E/K experts
+    a rank, every rank's buffers), so no path drops a choice."""
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+
+
+def _dense_drops(p, x, cfg) -> int:
+    """(token, k) choices ``moe_dense`` drops on ``x``: per dispatch group,
+    an expert's choices past its capacity."""
+    import math
+
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+
+    B, S, D = x.shape
+    group = min(cfg.moe_group_size, S)
+    idx, _, _ = L._router_probs(p, x.reshape(-1, group, D), cfg)
+    K = idx.shape[-1]
+    C = max(int(math.ceil(group * K / cfg.n_experts * cfg.capacity_factor)), K)
+    counts = F.one_hot(idx, cfg.n_experts).sum((1, 2))        # [G, E]
+    return int((counts - C).clamp_min(0).sum())
+
+
+def _scatter_drops(p, x, cfg) -> int:
+    """(token, k) choices ``moe_scatter`` drops on ``x``: an expert's
+    choices past its capacity over all ``B*S`` tokens."""
+    import math
+
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+
+    idx, _, _ = L._router_probs(p, x.reshape(-1, x.shape[-1]), cfg)
+    T, K = idx.shape
+    C = max(int(math.ceil(T * K / cfg.n_experts * cfg.capacity_factor)), K)
+    counts = F.one_hot(idx, cfg.n_experts).sum((0, 1))
+    return int((counts - C).clamp_min(0).sum())
+
+
+def _a2a_drops(p, x, cfg, n_ep: int):
+    """(token, k) choices ``moe_a2a`` drops on ``x`` (a batch that splits
+    over the ``n_ep`` ranks): at the source (a destination rank's buffer
+    full) and at the destination (a local expert's slots full; padding
+    rows of the buffers, which the receiver also queues, not counted)."""
+    import math
+
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models.layers import _pack
+
+    E_loc = cfg.n_experts // n_ep
+    shards = x.chunk(n_ep)
+    T = shards[0].shape[0] * shards[0].shape[1]
+    K = cfg.moe_top_k
+    C = max(int(math.ceil(T * K / n_ep * cfg.capacity_factor)), K)
+    C2 = max(int(math.ceil(n_ep * C / E_loc * cfg.capacity_factor)), 1)
+    first, ids, real = 0, [], []
+    for xl in shards:
+        idx, _, _ = L._router_probs(p, xl.reshape(T, -1), cfg)
+        order, keep, slot = _pack((idx // E_loc).reshape(-1), n_ep, C)
+        first += int((~keep).sum())
+        local = (idx % E_loc).reshape(-1)[order]
+        e = torch.zeros(n_ep * C, dtype=torch.int64, device=x.device)
+        e[slot[keep]] = local[keep]
+        r = torch.zeros(n_ep * C, dtype=torch.bool, device=x.device)
+        r[slot[keep]] = True
+        ids.append(e.reshape(n_ep, C))
+        real.append(r.reshape(n_ep, C))
+    second = 0
+    for dst in range(n_ep):
+        e = torch.stack([t[dst] for t in ids]).reshape(-1)
+        r = torch.stack([t[dst] for t in real]).reshape(-1)
+        order2, keep2, _ = _pack(e, E_loc, C2)
+        second += int((~keep2 & r[order2]).sum())
+    return first, second
+
+
+def serve_mla_full_width(seed: int, card: str) -> dict:
+    """Phase 13: deepseek-v2-236b at published widths, depth cut to
+    ``MLA_DEPTH`` layers (the dense head layer and three MoE layers of 160
+    experts top-6 and 2 shared), bf16: one counted wave of ``MOE_BATCH`` x
+    ``MOE_PROMPT`` prompt tokens x ``MOE_NEW`` new through the engine (MLA
+    has no kernel on this path: its q/k width, 192, is not a flash width),
+    each MoE layer's capacity drops on the prompt at the published
+    capacity factor, prefill and decode times and peak memory; then two
+    checks, each against a control:
+
+    * the config's matrix-absorbed decode against the naive one
+      (``mla_absorb=False``) on the same weights, teacher forced on the
+      wave's tokens: every MLA layer's attention output, on the same input
+      and cache, within ``MLA_DECODE_BOUND``; the control is the absorbed
+      decode with the rope term left out (``wk_rope`` and the cache's
+      ``k_rope`` zeroed).  The two models' logits are printed, not held:
+      a bf16 difference flips the routers' top-k, and a flipped expert
+      moves the logits by whole units;
+    * ``moe_dense`` against ``moe_scatter`` on the first MoE layer's real
+      activations (one prompt row) at the capacity factor E/K, where
+      neither can drop (asserted), within ``MOE_REL_BOUND`` of the largest
+      output; the control is ``moe_scatter`` with K-1 experts a token.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.serve.engine import _grow_cache
+
+    base = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(base, n_layers=MLA_DEPTH)
+    model = get_model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = model.init(gen)
+    torch.cuda.empty_cache()
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT)).tolist()
+    spy = _moe_spy()
+    try:
+        outs, counted = _serve_wave(model, params, prompts, MOE_NEW)
+    finally:
+        spy.restore()
+    if len(outs) != MOE_BATCH or any(len(o) != MOE_NEW for o in outs) or \
+            not all(0 <= t < cfg.vocab_size for o in outs for t in o):
+        raise AssertionError(f"{MLA_ARCH}: not {MOE_NEW} in-vocabulary tokens "
+                             f"a request: {[len(o) for o in outs]}")
+    if len(spy.seen) != cfg.n_layers - cfg.n_dense_layers:
+        raise AssertionError(f"{MLA_ARCH}: {len(spy.seen)} MoE layers ran on "
+                             f"the prompt, expected "
+                             f"{cfg.n_layers - cfg.n_dense_layers}")
+    with torch.inference_mode():
+        drops = [_dense_drops(p, x, cfg) for p, x in spy.seen]
+    moe_p, moe_x = spy.seen[0]
+    spy.seen.clear()
+    tokens = torch.tensor(prompts, device="cuda")
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, tokens)
+        if tuple(logits.shape) != (MOE_BATCH, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits.float()).all()):
+            raise AssertionError(f"{MLA_ARCH}: prefill logits "
+                                 f"{tuple(logits.shape)} not finite / not "
+                                 f"[B, vocab]")
+        prefill_ms = _time_ms(lambda: model.prefill(params, tokens), 2, warmup=1)
+        steps = MOE_NEW
+        grown = _grow_cache(cache, MOE_PROMPT, MOE_PROMPT + steps)
+        cur = logits.argmax(-1)
+        step_ms = _time_ms(lambda: model.decode_step(params, cur, grown), 5)
+        prof = profile_window(f"{MLA_ARCH} prefill",
+                              lambda: model.prefill(params, tokens))
+
+        # absorbed against naive decode, teacher forced on the wave's tokens
+        forced = torch.tensor(outs, device="cuda")
+        naive_cfg = dataclasses.replace(cfg, mla_absorb=False)
+        attn = {"sound": 0.0, "control": 0.0, "scale": 0.0}
+        real = L.mla_attention_decode
+
+        def compare(p, x, c, pos, c_cfg):
+            """Each MLA layer's step: the absorbed and the control's
+            attention output against the naive one's, on copies of the
+            layer's cache; then the step itself."""
+            def run(ps, run_cfg, zero_rope=False):
+                cc = {k: v.clone() for k, v in c.items()}
+                if zero_rope:
+                    cc["k_rope"].zero_()
+                return real(ps, x, cc, pos, run_cfg)[0].float()
+
+            ref = run(p, naive_cfg)
+            no_rope = {**p, "wk_rope": torch.zeros_like(p["wk_rope"])}
+            attn["sound"] = max(attn["sound"], (run(p, cfg) - ref).abs().max().item())
+            attn["control"] = max(attn["control"], (run(no_rope, cfg, True)
+                                                    - ref).abs().max().item())
+            attn["scale"] = max(attn["scale"], ref.abs().max().item())
+            return real(p, x, c, pos, c_cfg)
+
+        def decode(m, spy=False):
+            # a padded copy of the prefill's cache, written in place
+            c = _grow_cache(cache, MOE_PROMPT, MOE_PROMPT + MLA_CHECK_STEPS)
+            rows = []
+            L.mla_attention_decode = compare if spy else real
+            try:
+                for t in range(MLA_CHECK_STEPS):
+                    step, c = m.decode_step(params, forced[:, t], c)
+                    rows.append(step.float())
+            finally:
+                L.mla_attention_decode = real
+            return torch.stack(rows)
+
+        naive = get_model(naive_cfg, device="cuda")
+        absorbed = decode(model, spy=True)
+        plain = decode(naive)
+        logit_diff = (absorbed - plain).abs().max().item()
+        argmax_equal = int((absorbed.argmax(-1) == plain.argmax(-1)).sum())
+        del naive, absorbed, plain
+    sound, control = attn["sound"], attn["control"]
+    _say(f"{MLA_ARCH} absorbed decode vs naive, every MLA layer over "
+         f"{MLA_CHECK_STEPS} teacher-forced steps: attention outputs within "
+         f"{sound:.4f} (limit {MLA_DECODE_BOUND}, outputs up to "
+         f"{attn['scale']:.3f}); the control (no rope term) {control:.4f}; the "
+         f"two models' logits {logit_diff:.4f} apart (the routers' top-k flips "
+         f"on bf16 differences, not held), {argmax_equal} of "
+         f"{MOE_BATCH * MLA_CHECK_STEPS} argmax tokens equal")
+    _held_apart(f"{MLA_ARCH} absorbed vs naive decode", sound,
+                MLA_DECODE_BOUND, control)
+    paths = check_moe_paths(moe_p, moe_x[:1], cfg)
+    del moe_p, moe_x, cache, grown, logits
+    res = {
+        "arch": cfg.name, "params": n_params, "batch": MOE_BATCH,
+        "prompt_len": MOE_PROMPT, "new_tokens": MOE_NEW,
+        "depth": {"n_layers": MLA_DEPTH, "published": base.n_layers,
+                  "dense_head_layers": cfg.n_dense_layers},
+        "generate_s": counted["generate_s"], "prefill_ms": prefill_ms,
+        "prefill_tok_per_s": MOE_BATCH * MOE_PROMPT / (prefill_ms / 1e3),
+        "decode_step_ms": step_ms,
+        "decode_tok_per_s": MOE_BATCH / (step_ms / 1e3),
+        "peak_mem_gb": counted["peak_mem_gb"], "launches": counted["launches"],
+        "capacity_factor": cfg.capacity_factor,
+        "prefill_drops_per_moe_layer": drops,
+        "choices_per_moe_layer": MOE_BATCH * MOE_PROMPT * cfg.moe_top_k,
+        "absorbed_vs_naive_decode": {
+            "steps": MLA_CHECK_STEPS, "attention_max_abs": sound,
+            "limit": MLA_DECODE_BOUND, "control_no_rope": control,
+            "attention_scale": attn["scale"], "logits_max_abs": logit_diff,
+            "argmax_equal": argmax_equal},
+        "moe_dense_vs_scatter": paths,
+        "prefill_busy_ms": prof.get("busy_ms"),
+        "prefill_idle_share": prof.get("idle_share"),
+        "prefill_ms_by_kind": prof.get("ms_by_kind"), "card": card,
+    }
+    _say(f"serve {cfg.name} ({n_params} params, bf16, {MLA_DEPTH} of "
+         f"{base.n_layers} layers) batch {MOE_BATCH} x prompt {MOE_PROMPT} x "
+         f"{MOE_NEW} new: prefill {prefill_ms:.3f} ms "
+         f"({res['prefill_tok_per_s']:.0f} tok/s); decode {step_ms:.3f} ms/step "
+         f"({res['decode_tok_per_s']:.1f} tok/s); peak memory "
+         f"{res['peak_mem_gb']:.3f} GB; capacity drops a MoE layer at "
+         f"{cfg.capacity_factor}: {drops} of {res['choices_per_moe_layer']} "
+         f"choices; kernel launches {counted['launches']} [{card}]")
+    _say(f"serve {MLA_ARCH} " + json.dumps(res))
+    return res
+
+
+def check_moe_paths(p, x, cfg) -> dict:
+    """``moe_dense`` against ``moe_scatter`` on one MoE layer's activations
+    at the capacity factor E/K (neither may drop), and the control:
+    ``moe_scatter`` with one expert fewer a token."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    wide = _no_drop(cfg)
+    with torch.inference_mode():
+        drops = {"dense": _dense_drops(p, x, wide),
+                 "scatter": _scatter_drops(p, x, wide)}
+        if any(drops.values()):
+            raise AssertionError(f"{cfg.name}: at capacity factor "
+                                 f"{wide.capacity_factor} "
+                                 f"the MoE paths drop {drops}")
+        dense = L.moe_dense(p, x, wide)[0].float()
+        scale = dense.abs().max().item()
+        sound = (L.moe_scatter(p, x, wide)[0].float() - dense).abs().max().item()
+        fewer = dataclasses.replace(wide, moe_top_k=cfg.moe_top_k - 1)
+        control = (L.moe_scatter(p, x, fewer)[0].float() - dense).abs().max().item()
+    _say(f"{cfg.name} moe_dense vs moe_scatter on a MoE layer's activations "
+         f"{list(x.shape)} at capacity factor {wide.capacity_factor:.3f} (no "
+         f"drops): within {sound:.4f} of outputs up to {scale:.3f}, "
+         f"{sound / scale:.4f} of it (limit {MOE_REL_BOUND}); the control "
+         f"(top-{cfg.moe_top_k - 1}) {control:.4f}, {control / scale:.4f}")
+    _held_apart(f"{cfg.name} moe_dense vs moe_scatter (relative)", sound / scale,
+                MOE_REL_BOUND, control / scale)
+    return {"shape": list(x.shape), "capacity_factor": wide.capacity_factor,
+            "max_abs": sound, "output_scale": scale,
+            "relative": sound / scale, "limit": MOE_REL_BOUND,
+            "control_top_k_minus_1": control / scale}
+
+
+def check_ep_armed(model, params, seed: int, card: str) -> dict:
+    """Phase 15: the expert-parallel all-to-all, armed from a plan, on one
+    full-width dbrx-132b MoE layer over an 8-slot virtual mesh (16 experts,
+    2 a rank).  A plan of the serving mix with the EP all-to-all
+    (``serve_mix(moe=True)``) compiled on the scrambled 8-node Clos fabric
+    for an ``(8,)`` data mesh; ``arm_ep`` on that planned mesh.  The first
+    MoE layer's activations from a prefill of ``MOE_BATCH`` x
+    ``MOE_PROMPT`` tokens: their first ``EP_TOKENS`` positions, each row
+    split in two, one half a rank.  Checks: the armed shift order is the
+    plan's entry order composed with the mesh placement, and every
+    all-to-all runs the certified schedule of that order; ``moe_layer``
+    (armed: ``moe_a2a``) against ``moe_dense`` at the capacity factor E/K,
+    where neither drops, within ``MOE_REL_BOUND`` of its largest output
+    (the control: the dense path at K-1); two ``all-to-all`` records a call; every schedule run's
+    postcondition; and, at the published capacity factor on all the
+    prompt's tokens (one 1024-token row a rank), the a2a's drops beside the
+    dense path's and both layers' times."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.fabric import make_datacenter, probe_fabric, scramble
+    from repro_torch.kernels import schedule_runner
+    from repro_torch.launch import make_planned_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import moe_a2a
+    from repro_torch.plan import PlanCompiler
+    from repro_torch.session import serve_mix
+
+    cfg = model.cfg
+    fab, _ = scramble(make_datacenter(RANKS, **PLAN_FABRIC), seed=PLAN_SCRAMBLE_SEED)
+    plan = PlanCompiler(fabric=fab, seed=0).compile(
+        probe_fabric(fab, seed=PLAN_PROBE_SEED),
+        serve_mix(EP_PAYLOAD, moe=True), mesh_shape=(RANKS,),
+        axis_names=("data",))
+    entry = max((e for (op, _b, grp), e in plan.entries.items()
+                 if op == "all-to-all" and len(grp) == RANKS),
+                key=lambda e: e.size_bytes)
+    flat = [int(i) for i in plan.mesh_plan.flat]
+    want = tuple(flat.index(int(node)) for node in entry.perm)
+    mesh = make_planned_mesh(plan, "cuda")
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT))).cuda()
+    spy = _moe_spy()
+    try:
+        with torch.inference_mode():
+            model.prefill(params, tokens)
+    finally:
+        spy.restore()
+    p, h = spy.seen[0]
+    spy.seen.clear()
+    x = h[:, :EP_TOKENS].reshape(2 * MOE_BATCH, EP_TOKENS // 2, -1)
+    x_all = h.reshape(RANKS, -1, h.shape[-1])
+    wide = _no_drop(cfg)
+    runs, real = [], schedule_runner.run_schedule
+    rec = obs.recorder()
+    was = rec.enabled
+
+    def run_spy(xs, sched):
+        out = real(xs, sched)
+        runs.append((sched, schedule_runner.check_postcondition(sched, xs, out)))
+        return out
+
+    moe_a2a.arm_ep(mesh, "data", None, plan=plan)
+    try:
+        armed = moe_a2a._EP_STATE["a2a_order"]
+        if armed != want:
+            raise AssertionError(f"arm_ep armed the shift order {armed}, the "
+                                 f"plan's is {want}")
+        with torch.inference_mode():
+            drops = {"a2a": _a2a_drops(p, x, wide, RANKS),
+                     "dense": _dense_drops(p, x, wide)}
+            if drops["a2a"] != (0, 0) or drops["dense"]:
+                raise AssertionError(f"at capacity factor "
+                                     f"{wide.capacity_factor} the "
+                                     f"paths drop {drops}")
+            schedule_runner.run_schedule = run_spy
+            rec.enabled, before = True, rec.captured
+            try:
+                got, _ = L.moe_layer(p, x, wide)
+            finally:
+                schedule_runner.run_schedule = real
+                rec.enabled = was
+            n_rec = rec.captured - before
+            records = rec.trace().records[len(rec) - n_rec:] if n_rec else []
+            dense = L.moe_dense(p, x, wide)[0].float()
+            scale = dense.abs().max().item()
+            sound = (got.float() - dense).abs().max().item() / scale
+            control = (L.moe_dense(p, x, dataclasses.replace(
+                wide, moe_top_k=cfg.moe_top_k - 1))[0].float()
+                - got.float()).abs().max().item() / scale
+            published = {"a2a": _a2a_drops(p, x_all, cfg, RANKS),
+                         "dense": _dense_drops(p, x_all, cfg)}
+            a2a_ms = _time_ms(lambda: L.moe_layer(p, x_all, cfg), 2, warmup=1)
+            dense_ms = _time_ms(lambda: L.moe_dense(p, x_all, cfg), 2, warmup=1)
+    finally:
+        moe_a2a.clear_ep()
+    low = moe_a2a._lowered_a2a(RANKS, want)
+    if [r[0] for r in runs] != [low.schedule] * 3:
+        raise AssertionError(f"the EP all-to-all ran {len(runs)} schedules, not "
+                             f"3 of the plan order's certified schedule")
+    bad = [b for _, b in runs if b]
+    if bad:
+        raise AssertionError(f"an EP all-to-all violated its postcondition: "
+                             f"{bad[0][:3]}")
+    if [r.op for r in records] != ["all-to-all"] * 2:
+        raise AssertionError(f"the obs recorder holds {[r.op for r in records]}"
+                             f" for one armed layer call, expected two "
+                             f"all-to-all records")
+    _say(f"EP all-to-all on {cfg.name}: plan {plan.fingerprint.digest}, entry "
+         f"{entry.algo} perm {list(entry.perm)}, mesh placement {flat} -> shift "
+         f"order {list(want)}, rounds {[list(r) for r in low.shift_rounds]}; "
+         f"3 certified all-to-all runs, postconditions held, 2 all-to-all "
+         f"records of {records[0].size_bytes:.0f} bytes")
+    _say(f"EP moe_a2a vs moe_dense on {list(x.shape)} at capacity factor "
+         f"{wide.capacity_factor} (no drops): within {sound:.4f} of outputs up "
+         f"to {scale:.1f} (relative; limit {MOE_REL_BOUND}); the control "
+         f"(dense top-{cfg.moe_top_k - 1}) {control:.4f}")
+    _held_apart(f"{cfg.name} moe_a2a vs moe_dense (relative)", sound,
+                MOE_REL_BOUND, control)
+    res = {"arch": cfg.name, "ranks": RANKS, "experts_per_rank":
+           cfg.n_experts // RANKS, "plan_fingerprint": plan.fingerprint.digest,
+           "entry_perm": list(entry.perm), "mesh_flat": flat,
+           "shift_order": list(want),
+           "shift_rounds": [list(r) for r in low.shift_rounds],
+           "check_shape": list(x.shape), "capacity_factor": wide.capacity_factor,
+           "relative": sound, "limit": MOE_REL_BOUND, "output_scale": scale,
+           "control_dense_top_k_minus_1": control,
+           "a2a_record_bytes": records[0].size_bytes,
+           "published_cf": cfg.capacity_factor,
+           "prefill_shape": list(x_all.shape),
+           "drops_at_published_cf": {"a2a_source": published["a2a"][0],
+                                     "a2a_destination": published["a2a"][1],
+                                     "dense": published["dense"]},
+           "choices": int(x_all.shape[0] * x_all.shape[1] * cfg.moe_top_k),
+           "layer_ms": {"moe_a2a": a2a_ms, "moe_dense": dense_ms},
+           "card": card}
+    _say(f"EP at the published capacity factor {cfg.capacity_factor} on "
+         f"{list(x_all.shape)}: moe_a2a drops {published['a2a'][0]} at the "
+         f"source and {published['a2a'][1]} at the destination, moe_dense "
+         f"{published['dense']}, of {res['choices']} choices; the layer "
+         f"{a2a_ms:.3f} ms through the a2a, {dense_ms:.3f} ms dense [{card}]")
+    _say("ep " + json.dumps(res))
     return res
 
 
@@ -2626,6 +3145,18 @@ def main(argv=None) -> int:
     _free()
     trained_ssm = train_cli_full_width(card, ssm_shapes(), TRAIN_SSM_CLI,
                                        SSM_ARCH)
+    _free()
+    mla = serve_mla_full_width(args.seed, card)
+    _free()
+    moe = serve_two_ways(MOE_ARCH, args.seed, card, MOE_BATCH, MOE_PROMPT,
+                         MOE_NEW, "flash_fwd_wgmma", depth=MOE_DEPTH, keep=True)
+    moe["ep"] = check_ep_armed(moe.pop("_model"), moe.pop("_params"),
+                               args.seed, card)
+    _free()
+    mcfg = get_config(MOE_ARCH)
+    moe["flash_layer"] = time_flash_layer(
+        MOE_ARCH, (MOE_BATCH, mcfg.n_heads, mcfg.n_kv_heads, MOE_PROMPT,
+                   mcfg.head_dim), True, 0, args.seed)
     # each kernel's launches come from the path it carries; the peer ring's
     # from the user's entry point (the hand-wired planned run's beside it)
     paths = {"wkv_chunked": served, "wkv_scan": served, "fused_add": trained,
@@ -2645,12 +3176,15 @@ def main(argv=None) -> int:
                 DENSE_ARCH: served_dense["launches"]["flash_attention"],
                 HYBRID_ARCH: hybrid["launches"]["flash_attention"],
                 WHISPER_ARCH: whisper["launches"]["flash_attention"],
-                VLM_ARCH: vlm["launches"]["flash_attention"]}
+                VLM_ARCH: vlm["launches"]["flash_attention"],
+                MOE_ARCH: moe["launches"]["flash_attention"],
+                MLA_ARCH: mla["launches"]["flash_attention"]}
             # every model's layer shape on a flash path (PERF.md section 6)
             k["hybrid_layer"] = hybrid["flash_layer"]
             k["whisper_encoder_layer"] = whisper["flash_layer"]
             k["whisper_decoder_layer"] = whisper["flash_decoder_layer"]
             k["vlm_layer"] = vlm["flash_layer"]
+            k["dbrx_layer"] = moe["flash_layer"]
     if trained_ssm["launches"]["peer_ring"] < 1:
         raise AssertionError("peer_ring never launched on the ssm train command")
 

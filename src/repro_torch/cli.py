@@ -33,8 +33,12 @@ by default, where the reference's cannot be turned off.  Weights are
 random: ``train`` draws them from seed 0, ``serve`` from ``--seed``.
 ``serve`` takes every family the port has; the VLM and Whisper get the
 reference's front-end stub (ones of ``[batch, n_img_tokens |
-n_audio_ctx, d_model]``).  ``train`` takes every family but ``encdec``,
-whose loss needs audio the synthetic batches do not carry.
+n_audio_ctx, d_model]``), and an MoE arch on a mesh with a data axis of
+more than one rank arms the EP all-to-all
+(:func:`repro_torch.parallel.moe_a2a.arm_ep`) in the plan's order.
+``train`` takes every family but ``encdec``, whose loss needs audio the
+synthetic batches do not carry, and ``moe``, whose training on the card
+waits for the sharding specs.
 """
 
 from __future__ import annotations
@@ -327,6 +331,14 @@ def cmd_train(args: argparse.Namespace) -> int:
                          f"{n} data-parallel ranks of --mesh {args.mesh}")
 
     arch = get_config(args.arch)
+    if arch.n_experts:
+        # the virtual-mesh trainer stacks every rank's gradients: for one
+        # full-width deepseek-v2 MoE layer that alone is 8 x 7.6 GB
+        raise NotImplementedError(
+            f"train does not take {arch.name} ({arch.family!r}) yet: MoE "
+            f"training on the card waits for the sharding specs, ROADMAP.md "
+            f"§1 item 18 (behind item 11); its loss and gradients are held "
+            f"to the reference's on the CPU")
     if arch.family == "encdec":
         # the reference's train builds batches of tokens and labels only
         # (host_batch), and WhisperLM.loss reads batch["frontend_embeds"]
@@ -440,6 +452,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
     from repro_torch.configs import get_config
     from repro_torch.launch import build_mesh
     from repro_torch.models import get_model
+    from repro_torch.parallel.moe_a2a import arm_ep, clear_ep
     from repro_torch.serve import GenerationConfig, GenerationEngine
     from repro_torch.session import serve_mix
 
@@ -458,7 +471,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
                                attention_impl=args.attention_impl)
     mix = serve_mix(cfg.payload_bytes, moe=bool(arch.n_experts))
     # a one-rank mesh, or --reorder none, plans nothing
-    _, plan = build_mesh(args, mix=mix, session_config=cfg, device=device)
+    mesh, plan = build_mesh(args, mix=mix, session_config=cfg, device=device)
     model = get_model(arch, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
@@ -478,10 +491,22 @@ def cmd_serve(args: argparse.Namespace) -> int:
     if plan is not None:
         print(f"[serve] plan {plan.fingerprint.digest} hints: "
               f"{eng.collective_hints(cfg.payload_bytes)}")
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    # the EP half of the reference's configure_sp: an MoE arch on a mesh
+    # whose data axis has more than one rank runs its prompts' experts
+    # through the EP all-to-all, in the plan's order
+    armed = bool(arch.n_experts) and sizes.get("data", 1) > 1
+    if armed:
+        arm_ep(mesh, "data", "model" if sizes.get("model", 1) > 1 else None,
+               plan=plan)
     timer = obs.tracer().timer("cli.serve.generate", batch=args.batch)
-    with timer:
-        # ends on a host copy: synchronised
-        outs = eng.generate(prompts, frontend_embeds=fe)
+    try:
+        with timer:
+            # ends on a host copy: synchronised
+            outs = eng.generate(prompts, frontend_embeds=fe)
+    finally:
+        if armed:
+            clear_ep()
     dt = max(timer.elapsed, 1e-9)
     total = sum(len(o) for o in outs)
     print(f"[serve] arch={arch.name} {total} tokens in {dt:.2f}s "

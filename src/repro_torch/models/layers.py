@@ -11,7 +11,12 @@ plain grouped attention, ``"flash"`` the flash kernel
 (:func:`repro_torch.kernels.ops.attention_op`); ``kv_override`` makes it
 cross-attention (Whisper's decoder), always on the plain path, as in the
 reference; ``attention_decode`` is the single-token step against a KV
-cache.  MoE and MLA come with their slice (ROADMAP.md §1).
+cache.  MoE (``layers.py:345-470``): experts carry a leading ``E`` dim,
+the router stays f32 in any model dtype; ``moe_layer`` picks the GShard
+one-hot dispatch (``moe_dense``), the sorted scatter (``moe_scatter``) or,
+under an armed EP mesh, :func:`repro_torch.parallel.moe_a2a.moe_a2a`.
+MLA (deepseek-v2's latent attention, ``layers.py:477-674``) caches the
+compressed ``ckv``/``k_rope`` and decodes naive or matrix-absorbed.
 """
 
 from __future__ import annotations
@@ -27,8 +32,10 @@ from repro_torch.kernels import ops
 
 __all__ = [
     "apply_rope", "attention", "attention_decode", "attention_spec", "dense_init",
-    "init_from_spec", "layer_norm", "make_rope", "map_spec", "mlp", "mlp_spec",
-    "rms_norm", "unbind_layers",
+    "init_from_spec", "layer_norm", "make_rope", "map_spec", "mla_attention",
+    "mla_attention_decode", "mla_attention_decode_absorbed", "mla_spec", "mlp",
+    "mlp_spec", "moe_dense", "moe_layer", "moe_scatter", "moe_spec", "rms_norm",
+    "stack_spec", "unbind_layers",
 ]
 
 Params = Dict[str, Any]
@@ -65,20 +72,28 @@ def map_spec(spec: Any, fn: Callable[[Any], Any]) -> Any:
     return fn(spec)
 
 
+def stack_spec(spec: Any, n: int) -> Any:
+    """``spec`` with a leading layer dimension of ``n`` on every entry."""
+    return map_spec(spec, lambda e: ((n, *e[0]), *e[1:]))
+
+
 def init_from_spec(generator: torch.Generator, spec: Params,
                    dtype: torch.dtype) -> Params:
     """Draw a parameter tree from ``spec``, in the spec's key order.
 
-    ``init`` is ``("normal", scale)`` — ``scale=None`` means
-    ``1/sqrt(fan-in)``, the ``in`` of a (possibly layer-stacked)
-    ``[..., in, out]`` weight — or ``("const", value)``.
+    An entry is ``(shape, init)`` or ``(shape, init, leaf_dtype)``; the
+    leaf is in ``leaf_dtype`` if given (the MoE router stays f32 in a bf16
+    model), else in ``dtype``.  ``init`` is ``("normal", scale)`` —
+    ``scale=None`` means ``1/sqrt(fan-in)``, the ``in`` of a (possibly
+    layer-stacked) ``[..., in, out]`` weight — or ``("const", value)``.
     """
     def make(entry):
-        shape, (kind, val) = entry
+        shape, (kind, val) = entry[:2]
+        dt = entry[2] if len(entry) > 2 else dtype
         if kind == "const":
-            return torch.full(shape, val, dtype=dtype, device=generator.device)
+            return torch.full(shape, val, dtype=dt, device=generator.device)
         scale = shape[-2] ** -0.5 if val is None else val
-        return dense_init(generator, shape, scale=scale, dtype=dtype)
+        return dense_init(generator, shape, scale=scale, dtype=dt)
 
     return map_spec(spec, make)
 
@@ -344,3 +359,306 @@ def mlp_spec(d: int, f: int) -> Params:
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (layers.py:345-470)
+# ---------------------------------------------------------------------------
+
+def moe_spec(cfg) -> Params:
+    """MoE parameters of one layer: the f32 router, the ``E`` experts'
+    gated MLPs ``[E, d, fe]``/``[E, fe, d]`` and the fused shared experts.
+
+    The reference draws the expert weights with ``dense_init``'s default,
+    ``1/sqrt(shape[0])``: ``1/sqrt(E)``, not the fan-in, so it is stated.
+    """
+    d, fe, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    s = E ** -0.5
+    p = {"router": ((d, E), ("normal", 0.02), torch.float32),
+         "w1": ((E, d, fe), ("normal", s)),
+         "w3": ((E, d, fe), ("normal", s)),
+         "w2": ((E, fe, d), ("normal", s))}
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_spec(d, fe * cfg.n_shared_experts)
+    return p
+
+
+def _router_probs(p: Params, x: torch.Tensor, cfg):
+    """Top-k gating in f32: ``(expert_idx [.., K], weights [.., K], aux)``.
+
+    The weights are the top-k probabilities renormalised; ``aux`` is the
+    Switch-style load-balancing loss ``E * sum_e f_e * p_e``.
+    """
+    E = cfg.n_experts
+    logits = x.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    weights, idx = torch.topk(probs, cfg.moe_top_k, dim=-1)
+    weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
+    lead = tuple(range(probs.dim() - 1))
+    me = probs.mean(dim=lead)
+    ce = (F.one_hot(idx, E).sum(-2) > 0).float().mean(dim=lead)
+    return idx, weights, E * torch.sum(me * ce)
+
+
+def _experts(p: Params, xin: torch.Tensor, lead: str) -> torch.Tensor:
+    """The experts' gated MLPs on their slots ``xin [.., E, C, D]``."""
+    h = F.silu(torch.einsum(f"{lead}ecd,edf->{lead}ecf", xin, p["w1"]))
+    h = h * torch.einsum(f"{lead}ecd,edf->{lead}ecf", xin, p["w3"])
+    return torch.einsum(f"{lead}ecf,efd->{lead}ecd", h, p["w2"])
+
+
+def moe_dense(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard one-hot dispatch with capacity (``layers.py:382-421``).
+
+    x ``[B, S, D]`` in groups of ``moe_group_size`` tokens along S; each
+    (token, k) choice takes the next slot of its expert's queue (f32
+    cumsum positions, exact for these counts), and a choice past the
+    capacity ``C = max(ceil(g*K/E*cf), K)`` is dropped.
+    """
+    B, S, D = x.shape
+    E = cfg.n_experts
+    group = min(cfg.moe_group_size, S)
+    n_g = max(S // group, 1)
+    xg = x.reshape(B * n_g, group, D)
+    idx, w, aux = _router_probs(p, xg, cfg)                  # [G, g, K]
+    G, K = xg.shape[0], idx.shape[-1]
+    C = max(int(math.ceil(group * K / E * cfg.capacity_factor)), K)
+    onehot = F.one_hot(idx, E).float()                      # [G, g, K, E]
+    pos_e = torch.cumsum(onehot.reshape(G, -1, E), dim=1).reshape(
+        G, group, K, E) - onehot
+    pos = torch.einsum("gtke,gtke->gtk", pos_e, onehot).to(torch.int64)
+    # masks in the activation dtype, as the reference keeps them
+    keep = (pos < C).to(x.dtype)[..., None] * onehot.to(x.dtype)
+    # one_hot of a position past C is all zeros, as jax.nn.one_hot's
+    posc = (pos[..., None] == torch.arange(C, device=x.device)).to(x.dtype)
+    dispatch = torch.einsum("gtke,gtkc->gtec", keep, posc)  # [G, g, E, C]
+    combine = torch.einsum("gtk,gtke,gtkc->gtec", w.to(x.dtype), keep, posc)
+    xin = torch.einsum("gtec,gtd->gecd", dispatch, xg)       # [G, E, C, D]
+    xout = _experts(p, xin, "g")
+    y = torch.einsum("gtec,gecd->gtd", combine, xout).reshape(B, S, D)
+    if cfg.n_shared_experts:
+        y = y + mlp(p["shared"], x)
+    return y, aux
+
+
+def _pack(dest: torch.Tensor, n: int, cap: int):
+    """Capacity-bounded slots for the choices ``dest [TK]`` in ``n``
+    queues of ``cap``: a stable argsort by queue, each choice's position
+    in its queue, ``keep`` for those under ``cap`` and their ``slot``s,
+    all in the sorted order ``order``."""
+    order = torch.argsort(dest, stable=True)
+    sorted_dest = dest[order]
+    seg = torch.searchsorted(sorted_dest, torch.arange(n, device=dest.device))
+    pos = torch.arange(dest.numel(), device=dest.device) - seg[sorted_dest]
+    keep = pos < cap
+    return order, keep, sorted_dest * cap + torch.where(keep, pos, 0)
+
+
+def moe_scatter(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort-based dispatch (``layers.py:424-458``): a stable argsort of the
+    choices by expert, capacity ``max(ceil(T*K/E*cf), K)`` over all
+    ``T = B*S`` tokens; the reference's ``.at[].add`` is ``index_add_``
+    (duplicate slots add)."""
+    B, S, D = x.shape
+    E = cfg.n_experts
+    T = B * S
+    xf = x.reshape(T, D)
+    idx, w, aux = _router_probs(p, xf, cfg)                  # [T, K]
+    K = idx.shape[-1]
+    C = max(int(math.ceil(T * K / E * cfg.capacity_factor)), K)
+    order, keep, slot = _pack(idx.reshape(-1), E, C)
+    tok = order // K
+    buf = xf.new_zeros((E * C, D)).index_add(
+        0, slot, torch.where(keep[:, None], xf[tok], 0))
+    xout = _experts(p, buf.reshape(E, C, D), "").reshape(E * C, D)
+    gathered = torch.where(keep[:, None], xout[slot], 0)
+    contrib = gathered * w.reshape(-1)[order][:, None]
+    # the reference scatters into an x.dtype buffer: the f32 products are
+    # cast to it first
+    y = xf.new_zeros((T, D)).index_add(0, tok, contrib.to(x.dtype))
+    y = y.reshape(B, S, D)
+    if cfg.n_shared_experts:
+        y = y + mlp(p["shared"], x)
+    return y, aux
+
+
+def moe_layer(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's dispatch rules (``layers.py:461-474``): ``a2a`` on a
+    prompt runs :func:`~repro_torch.parallel.moe_a2a.moe_a2a` under an
+    armed EP mesh and ``moe_dense`` without one; a decode step (S == 1)
+    takes ``moe_scatter`` under ``moe_impl="scatter"``, else ``moe_dense``
+    (one token a sequence keeps the experts' weights resident)."""
+    if cfg.moe_impl == "a2a" and x.shape[1] > 1:
+        from repro_torch.parallel.moe_a2a import ep_armed, moe_a2a
+
+        if ep_armed(cfg):
+            return moe_a2a(p, x, cfg)
+        return moe_dense(p, x, cfg)
+    if cfg.moe_impl == "scatter":
+        return moe_scatter(p, x, cfg)
+    return moe_dense(p, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2 multi-head latent attention, layers.py:477-674)
+# ---------------------------------------------------------------------------
+
+def mla_spec(cfg) -> Params:
+    """MLA parameters of one layer: the q and kv low-rank paths, their
+    norms, the shared-head rope key and the output projection."""
+    d, h = cfg.d_model, cfg.n_heads
+    qk, qr, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": ((d, cfg.q_lora_rank), ("normal", None)),
+        "q_norm": ((cfg.q_lora_rank,), ONES),
+        "wq_b": ((cfg.q_lora_rank, h * (qk + qr)), ("normal", None)),
+        "wkv_a": ((d, cfg.kv_lora_rank), ("normal", None)),
+        "kv_norm": ((cfg.kv_lora_rank,), ONES),
+        "wk_rope": ((d, qr), ("normal", None)),
+        "wkv_b": ((cfg.kv_lora_rank, h * (qk + vh)), ("normal", None)),
+        "wo": ((h * vh, d), ("normal", None)),
+    }
+
+
+def _mla_q(p: Params, x: torch.Tensor, cos, sin, cfg):
+    """The roped query halves ``(q_nope [B,H,S,qk], q_rope [B,H,S,qr])``."""
+    B, S, _ = x.shape
+    qk, qr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["wq_b"]).reshape(B, S, cfg.n_heads, qk + qr).transpose(1, 2)
+    return q[..., :qk], apply_rope(q[..., qk:], cos, sin)
+
+
+def _mla_latent(p: Params, x: torch.Tensor, cos, sin, cfg):
+    """The cached latents: ``ckv [B,S,r_kv]`` and the roped, shared-head
+    ``k_rope [B,S,qr]``."""
+    B, S, _ = x.shape
+    qr = cfg.qk_rope_head_dim
+    ckv = rms_norm(x @ p["wkv_a"], p["kv_norm"], cfg.norm_eps)
+    k_rope = (x @ p["wk_rope"]).reshape(B, S, 1, qr).transpose(1, 2)
+    return ckv, apply_rope(k_rope, cos, sin).squeeze(1)
+
+
+def _mla_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg):
+    """``(q_nope, q_rope, k_nope, k_rope, v, ckv)`` (``layers.py:495-530``):
+    per-head k/v from the latent, the rope key shared by every head."""
+    B, S, _ = x.shape
+    qk, vh = cfg.qk_nope_head_dim, cfg.v_head_dim
+    cos, sin = make_rope(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    q_nope, q_rope = _mla_q(p, x, cos, sin, cfg)
+    ckv, k_rope = _mla_latent(p, x, cos, sin, cfg)
+    kv = (ckv @ p["wkv_b"]).reshape(B, S, cfg.n_heads, qk + vh).transpose(1, 2)
+    return q_nope, q_rope, kv[..., :qk], k_rope, kv[..., qk:], ckv
+
+
+def _mla_sdpa(q_nope, q_rope, k_nope, k_rope, v, *, q_positions,
+              kv_positions, sm_scale: float, q_chunk: int = 0) -> torch.Tensor:
+    """Two-term MLA attention (``layers.py:533-556``): scores are the sum
+    of the nope and the shared rope products, accumulated in f32 (the
+    reference's ``preferred_element_type``), then the causal mask and an
+    f32 softmax; ``q_chunk`` evaluates the queries in checkpointed chunks
+    when ``Sq > 2 * q_chunk`` and divides it."""
+    B, H, Sq, _ = q_nope.shape
+    kn, kr = k_nope.float(), k_rope.float()
+
+    def block(qn, qr_, qp):
+        s = (torch.einsum("bhqd,bhsd->bhqs", qn.float(), kn)
+             + torch.einsum("bhqd,bsd->bhqs", qr_.float(), kr)) * sm_scale
+        rel = qp[:, None] - kv_positions[None, :]
+        s = torch.where(rel >= 0, s, -1e30)
+        probs = torch.softmax(s, dim=-1).to(v.dtype)
+        return torch.einsum("bhqs,bhsd->bhqd", probs, v)
+
+    if q_chunk and Sq > 2 * q_chunk and Sq % q_chunk == 0:
+        return torch.cat([
+            checkpoint(block, q_nope[:, :, i:i + q_chunk],
+                       q_rope[:, :, i:i + q_chunk], q_positions[i:i + q_chunk],
+                       use_reentrant=False)
+            for i in range(0, Sq, q_chunk)], dim=2)
+    return block(q_nope, q_rope, q_positions)
+
+
+def mla_attention(p: Params, x: torch.Tensor, cfg,
+                  positions: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training/prefill MLA: ``(out [B,S,D], {"ckv", "k_rope"})``, the
+    cache the compressed latents."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q_nope, q_rope, k_nope, k_rope, v, ckv = _mla_qkv(p, x, positions, cfg)
+    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    out = _mla_sdpa(q_nope, q_rope, k_nope, k_rope, v, q_positions=positions,
+                    kv_positions=positions, sm_scale=scale,
+                    q_chunk=cfg.attn_q_chunk)
+    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.v_head_dim)
+    return out @ p["wo"], {"ckv": ckv, "k_rope": k_rope}
+
+
+def _mla_decode_start(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                      pos: torch.Tensor, cfg):
+    """The step's roped query halves, with its latents written into
+    ``cache["ckv"]``/``cache["k_rope"]`` at ``pos`` in place; and the
+    ``[S_max]`` mask of the positions written so far."""
+    cos, sin = make_rope(pos[None], cfg.qk_rope_head_dim, cfg.rope_theta)
+    q_nope, q_rope = _mla_q(p, x, cos, sin, cfg)
+    ckv_new, kr_new = _mla_latent(p, x, cos, sin, cfg)
+    ckv, k_rope = cache["ckv"], cache["k_rope"]
+    at = pos.reshape(1).long()
+    ckv.index_copy_(1, at, ckv_new.to(ckv.dtype))
+    k_rope.index_copy_(1, at, kr_new.to(k_rope.dtype))
+    valid = torch.arange(ckv.shape[1], device=ckv.device) <= pos
+    return q_nope, q_rope, ckv, k_rope, valid
+
+
+def mla_attention_decode_absorbed(
+        p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+        pos: torch.Tensor, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Matrix-absorbed MLA decode (``layers.py:582-637``): ``wkv_b`` folded
+    into the query and output paths, so the step works in the rank-r_kv
+    latent space and builds no ``[B, H, S, .]`` tensor.  The latents are
+    written into the cache in place; the returned dict holds the same
+    tensors."""
+    B = x.shape[0]
+    h, r_kv = cfg.n_heads, cfg.kv_lora_rank
+    qk, qr, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope, ckv, k_rope, valid = _mla_decode_start(p, x, cache, pos, cfg)
+    wkv_b = p["wkv_b"].reshape(r_kv, h, qk + vh)
+    w_uk, w_uv = wkv_b[..., :qk], wkv_b[..., qk:]
+    q_lat = torch.einsum("bhqd,rhd->bhqr", q_nope, w_uk)       # [B,H,1,r_kv]
+    # operands in the model dtype, products accumulated in f32
+    scores = (torch.einsum("bhqr,bsr->bhqs", q_lat.float(), ckv.float())
+              + torch.einsum("bhqd,bsd->bhqs", q_rope.float(), k_rope.float())
+              ) / math.sqrt(qk + qr)
+    scores = torch.where(valid, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(ckv.dtype)
+    ctx = torch.einsum("bhqs,bsr->bhqr", probs, ckv)            # [B,H,1,r_kv]
+    out = torch.einsum("bhqr,rhd->bhqd", ctx, w_uv)             # [B,H,1,vh]
+    out = out.transpose(1, 2).reshape(B, 1, h * vh)
+    return out @ p["wo"], {"ckv": ckv, "k_rope": k_rope}
+
+
+def mla_attention_decode(
+        p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+        pos: torch.Tensor, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decode against the compressed cache ``ckv [B,S_max,r_kv]``,
+    ``k_rope [B,S_max,qr]`` (``layers.py:640-674``): per-head k/v
+    re-expanded from the latent (the naive decode), or, with
+    ``cfg.mla_absorb``, :func:`mla_attention_decode_absorbed`."""
+    if cfg.mla_absorb:
+        return mla_attention_decode_absorbed(p, x, cache, pos, cfg)
+    B = x.shape[0]
+    h = cfg.n_heads
+    qk, qr, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope, ckv, k_rope, valid = _mla_decode_start(p, x, cache, pos, cfg)
+    S_max = ckv.shape[1]
+    kv = (ckv @ p["wkv_b"]).reshape(B, S_max, h, qk + vh).transpose(1, 2)
+    k_nope, v = kv[..., :qk], kv[..., qk:]
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope[:, None].expand(B, h, S_max, qr)], dim=-1)
+    scores = torch.einsum("bhqd,bhsd->bhqs", q_full, k_full).float()
+    scores = torch.where(valid, scores / math.sqrt(qk + qr), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqs,bhsd->bhqd", probs, v)
+    out = out.transpose(1, 2).reshape(B, 1, h * vh)
+    return out @ p["wo"], {"ckv": ckv, "k_rope": k_rope}

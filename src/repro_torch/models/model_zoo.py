@@ -8,10 +8,10 @@ Every model exposes::
     loss(params, batch) -> scalar
 
 and ``prefill(params, tokens, frontend_embeds=None)`` / ``decode_step`` /
-``init_cache``, which the generation engine serves.  The dense, ``vlm``
+``init_cache``, which the generation engine serves.  The dense, ``moe``
+(``DecoderLM`` with MoE blocks, and MLA for deepseek), ``vlm``
 (``DecoderLM`` with the anyres stub), ``ssm`` (``Rwkv6LM``), ``hybrid``
-(``RecurrentGemmaLM``) and ``encdec`` (``WhisperLM``) families serve and
-train; MoE names the ROADMAP.md item that ports it.
+(``RecurrentGemmaLM``) and ``encdec`` (``WhisperLM``) families serve.
 """
 
 from __future__ import annotations
@@ -27,23 +27,14 @@ from .whisper import WhisperLM
 
 __all__ = ["get_model"]
 
-#: family -> where ROADMAP.md queues its port
-_NOT_YET = {
-    "moe": "ROADMAP.md §1 slice 5, item 8 (MoE and MLA)",
-}
-
 
 def get_model(cfg: ModelConfig, device: Any = "cuda"):
     if cfg.family == "ssm":
         return Rwkv6LM(cfg, device=device)
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg, device=device)
     if cfg.family == "hybrid":
         return RecurrentGemmaLM(cfg, device=device)
     if cfg.family == "encdec":
         return WhisperLM(cfg, device=device)
-    if cfg.family in _NOT_YET:
-        raise NotImplementedError(
-            f"repro_torch has no {cfg.family!r} model yet ({cfg.name}); "
-            f"its port is queued in {_NOT_YET[cfg.family]}")
     raise ValueError(f"unknown family {cfg.family!r}")

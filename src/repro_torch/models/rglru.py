@@ -202,7 +202,7 @@ class RecurrentGemmaLM:
                  for i, kind in enumerate(self.pattern)}
         spec: Params = {
             "embed": ((cfg.vocab_size, cfg.d_model), ("normal", 0.02)),
-            "groups": L.map_spec(group, lambda e: ((n, *e[0]), e[1])),
+            "groups": L.stack_spec(group, n),
             "final_norm": ((cfg.d_model,), L.ONES),
             "lm_head": ((cfg.d_model, cfg.vocab_size), ("normal", 0.02)),
         }

@@ -101,7 +101,7 @@ class Rwkv6LM:
                  "time_mix": tm, "channel_mix": cm}
         return {
             "embed": ((cfg.vocab_size, d), ("normal", 0.02)),
-            "blocks": L.map_spec(block, lambda e: ((n, *e[0]), e[1])),
+            "blocks": L.stack_spec(block, n),
             "final_norm": ((d,), ones),
             "lm_head": ((d, cfg.vocab_size), ("normal", 0.02)),
         }

@@ -1,26 +1,33 @@
-"""Decoder-only transformer LM, the dense path (port of ``repro.models.transformer``).
+"""Decoder-only transformer LM: dense, MoE, MLA, VLM (port of ``repro.models.transformer``).
 
 GQA attention with RoPE and a gated MLP per block (qwen2-0.5b, glm4-9b,
-granite-8b, minitron-8b).  Parameters keep the JAX layout — ``[in, out]``
+granite-8b, minitron-8b); MoE blocks (dbrx-132b); MLA with MoE
+(deepseek-v2-236b).  Parameters keep the JAX layout — ``[in, out]``
 weights, block parameters stacked along a leading layer dimension — so
-:func:`repro_torch.convert.params_from_jax` is a copy.  The layers run
-in a Python loop (the reference's ``lax.scan``); ``remat="block"``
-checkpoints each block with ``torch.utils.checkpoint``.
+:func:`repro_torch.convert.params_from_jax` is a copy.  An MoE model's
+leading ``n_dense_layers`` blocks (deepseek's first, with ``d_ff``) are a
+list, ``"head_blocks"``, run before the stacked ``"blocks"``, as the
+reference unrolls them.  The layers run in a Python loop (the reference's
+``lax.scan``); ``remat="block"`` checkpoints each block with
+``torch.utils.checkpoint``.
 
-It trains (``init``, ``param_spec``, ``forward``, ``loss``) and serves
-(``init_cache``, ``prefill``, ``decode_step``: the KV cache keeps the
-reference's layout ``{"scan": {"k", "v": [n, B, KV, S, hd]}, "pos"}``).
-``cfg.attention_impl == "flash"`` runs the prefill's attention through the
-flash kernel, which is forward-only; training keeps ``"xla"``.  The
-``vlm`` family (llava-next-mistral-7b) is this decoder with the
+It trains (``init``, ``param_spec``, ``forward``, ``loss`` = cross entropy
++ 0.01 x the routers' aux loss) and serves (``init_cache``, ``prefill``,
+``decode_step``: the cache keeps the reference's layout ``{"scan": {"k",
+"v": [n, B, KV, S, hd]}, "pos"}``, with MLA's latents ``"ckv"`` and
+``"k_rope"`` in place of k/v and a ``"head"`` sub-tree for the head
+blocks).  ``cfg.attention_impl == "flash"`` runs the prefill's GQA
+attention through the flash kernel, which is forward-only; training keeps
+``"xla"``.  MLA's q/k head width (nope + rope, 192 for deepseek) is not a
+flash width, so MLA keeps its two-term attention, as the reference does.
+The ``vlm`` family (llava-next-mistral-7b) is this decoder with the
 reference's anyres stub in front: ``frontend_embeds [B, n_img, D]``
-replace the first ``n_img`` token embeddings.  MoE and MLA come with
-their slice (ROADMAP.md §1 slice 5, item 8).
+replace the first ``n_img`` token embeddings.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -38,38 +45,47 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class DecoderLM:
-    """The dense decoder LM: ``init`` / ``param_spec`` / ``forward`` /
-    ``loss`` / ``init_cache`` / ``prefill`` / ``decode_step``.
+    """The decoder LM: ``init`` / ``param_spec`` / ``forward`` / ``loss`` /
+    ``init_cache`` / ``prefill`` / ``decode_step``.
 
     Parameters are a nested dict of tensors passed to each call, as in the
     reference; the model object holds the config and the device.
     """
 
     def __init__(self, cfg: ModelConfig, device: Any = "cuda"):
-        if cfg.n_experts or cfg.use_mla:
-            raise NotImplementedError(
-                f"repro_torch's DecoderLM has the dense path only; {cfg.name} "
-                f"needs MoE/MLA, queued in ROADMAP.md §1 slice 5, item 8")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.dtype]
+        #: leading dense blocks of an MoE model, then the stacked blocks
+        self.n_head = cfg.n_dense_layers if cfg.n_experts else 0
+        self.n_scan = cfg.n_layers - self.n_head
 
     # -- parameters -------------------------------------------------------
-    def param_spec(self) -> Params:
-        """The parameter tree: ``name -> (shape, init)``, blocks stacked."""
+    def _block_spec(self, moe: bool) -> Params:
         cfg = self.cfg
-        d, n = cfg.d_model, cfg.n_layers
-        block = {
+        d = cfg.d_model
+        return {
             "attn_norm": ((d,), L.ONES),
             "mlp_norm": ((d,), L.ONES),
-            "attn": L.attention_spec(cfg),
-            "mlp": L.mlp_spec(d, cfg.d_ff),
+            "attn": L.mla_spec(cfg) if cfg.use_mla else L.attention_spec(cfg),
+            **({"moe": L.moe_spec(cfg)} if moe else
+               {"mlp": L.mlp_spec(d, cfg.d_ff)}),
         }
+
+    def param_spec(self) -> Params:
+        """The parameter tree: ``name -> (shape, init[, dtype])``, blocks
+        stacked, head blocks a list."""
+        cfg = self.cfg
+        d = cfg.d_model
         spec: Params = {
             "embed": ((cfg.vocab_size, d), ("normal", 0.02)),
-            "blocks": L.map_spec(block, lambda e: ((n, *e[0]), e[1])),
+            "blocks": L.stack_spec(self._block_spec(cfg.n_experts > 0),
+                                   self.n_scan),
             "final_norm": ((d,), L.ONES),
         }
+        if self.n_head:
+            spec["head_blocks"] = [self._block_spec(False)
+                                   for _ in range(self.n_head)]
         if not cfg.tie_embeddings:
             spec["lm_head"] = ((d, cfg.vocab_size), ("normal", 0.02))
         return spec
@@ -84,26 +100,47 @@ class DecoderLM:
     def _head(self, params: Params) -> torch.Tensor:
         return params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
 
+    def _layers(self, params: Params) -> List[Tuple[str, Params]]:
+        """``(cache sub-tree, block)`` of every layer in order."""
+        return ([("head", bp) for bp in params.get("head_blocks", [])]
+                + [("scan", bp)
+                   for bp in L.unbind_layers(params["blocks"], self.n_scan)])
+
     # -- blocks -----------------------------------------------------------
+    def _ffn(self, p: Params, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if "moe" in p:
+            return L.moe_layer(p["moe"], h, self.cfg)
+        return L.mlp(p["mlp"], h), torch.zeros((), dtype=torch.float32,
+                                               device=h.device)
+
     def _block_fwd(self, p: Params, x: torch.Tensor, positions: torch.Tensor
-                   ) -> Tuple[torch.Tensor, Params]:
-        """One block over the whole sequence: ``(x, its roped k/v)``."""
+                   ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
+        """One block over the whole sequence: ``(x, aux, its cache
+        entries)`` — roped k/v, or MLA's latents."""
         cfg = self.cfg
         h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        attn_out, kv = L.attention(p["attn"], h, cfg, causal=True,
-                                   positions=positions, window=cfg.attn_window)
+        if cfg.use_mla:
+            attn_out, kv = L.mla_attention(p["attn"], h, cfg, positions)
+        else:
+            attn_out, kv = L.attention(p["attn"], h, cfg, causal=True,
+                                       positions=positions,
+                                       window=cfg.attn_window)
         x = x + attn_out
-        h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-        return x + L.mlp(p["mlp"], h), kv
+        y, aux = self._ffn(p, L.rms_norm(x, p["mlp_norm"], cfg.norm_eps))
+        return x + y, aux, kv
 
     def _block_decode(self, p: Params, x: torch.Tensor, layer_cache: Params,
                       pos: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        attn_out, _ = L.attention_decode(p["attn"], h, layer_cache, pos, cfg)
+        if cfg.use_mla:
+            attn_out, _ = L.mla_attention_decode(p["attn"], h, layer_cache,
+                                                 pos, cfg)
+        else:
+            attn_out, _ = L.attention_decode(p["attn"], h, layer_cache, pos, cfg)
         x = x + attn_out
-        h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-        return x + L.mlp(p["mlp"], h)
+        y, _ = self._ffn(p, L.rms_norm(x, p["mlp_norm"], cfg.norm_eps))
+        return x + y
 
     def _embed(self, params: Params, tokens: torch.Tensor,
                frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
@@ -117,69 +154,90 @@ class DecoderLM:
         return x
 
     def _features(self, params: Params, tokens: torch.Tensor,
-                  frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Final-norm hidden states ``[B, S, D]``."""
+                  frontend_embeds: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Final-norm hidden states ``[B, S, D]`` and the summed aux loss.
+
+        The head blocks run unchecked, the stacked ones under
+        ``remat="block"`` checkpointed, as the reference's scan body."""
         cfg = self.cfg
         x = self._embed(params, tokens, frontend_embeds)
         positions = torch.arange(tokens.shape[1], device=x.device)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = cfg.remat == "block" and torch.is_grad_enabled()
-        for bp in L.unbind_layers(params["blocks"], cfg.n_layers):
-            if remat:
-                x, _ = checkpoint(self._block_fwd, bp, x, positions,
-                                  use_reentrant=False)
+        for where, bp in self._layers(params):
+            if remat and where == "scan":
+                x, aux, _ = checkpoint(self._block_fwd, bp, x, positions,
+                                       use_reentrant=False)
             else:
-                x, _ = self._block_fwd(bp, x, positions)
-        return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+                x, aux, _ = self._block_fwd(bp, x, positions)
+            aux_total = aux_total + aux
+        return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
 
     def forward(self, params: Params, tokens: torch.Tensor,
                 frontend_embeds: Optional[torch.Tensor] = None,
                 return_features: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens [B, S] -> (logits [B, S, V], aux loss 0)."""
-        x = self._features(params, tokens, frontend_embeds)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        """tokens [B, S] -> (logits [B, S, V], aux loss)."""
+        x, aux = self._features(params, tokens, frontend_embeds)
         if return_features:
             return x, aux
         return x @ self._head(params), aux
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Mean next-token cross entropy; never builds the whole logits."""
-        feats = self._features(params, batch["tokens"],
-                               batch.get("frontend_embeds"))
-        return lm_loss(feats, self._head(params), batch["labels"],
-                       self.cfg.loss_chunk_size)
+        """Mean next-token cross entropy + 0.01 x the aux loss; never
+        builds the whole logits."""
+        feats, aux = self._features(params, batch["tokens"],
+                                    batch.get("frontend_embeds"))
+        ce = lm_loss(feats, self._head(params), batch["labels"],
+                     self.cfg.loss_chunk_size)
+        return ce + 0.01 * aux
 
     # -- serving ----------------------------------------------------------
-    def init_cache(self, batch: int, s_max: int, dtype=None) -> Params:
-        """An empty KV cache for ``s_max`` positions."""
+    def _cache_leaves(self, n: int, batch: int, s_max: int, dtype) -> Params:
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, cfg.n_kv_heads, s_max, cfg.head_dim)
+
+        def zeros(*shape):
+            return torch.zeros((n, batch, *shape), dtype=dtype,
+                               device=self.device)
+
+        if cfg.use_mla:
+            return {"ckv": zeros(s_max, cfg.kv_lora_rank),
+                    "k_rope": zeros(s_max, cfg.qk_rope_head_dim)}
+        kv = (cfg.n_kv_heads, s_max, cfg.head_dim)
+        return {"k": zeros(*kv), "v": zeros(*kv)}
+
+    def init_cache(self, batch: int, s_max: int, dtype=None) -> Params:
+        """An empty cache for ``s_max`` positions."""
         dt = dtype or self.dtype
-
-        def zeros():
-            return torch.zeros(shape, dtype=dt, device=self.device)
-
-        return {"scan": {"k": zeros(), "v": zeros()},
-                "pos": torch.zeros((), dtype=torch.int32, device=self.device)}
+        cache: Params = {
+            "scan": self._cache_leaves(self.n_scan, batch, s_max, dt),
+            "pos": torch.zeros((), dtype=torch.int32, device=self.device)}
+        if self.n_head:
+            cache["head"] = self._cache_leaves(self.n_head, batch, s_max, dt)
+        return cache
 
     @torch.no_grad()
     def prefill(self, params: Params, tokens: torch.Tensor,
                 frontend_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Params]:
         """The prompt ``[B, S]`` -> (last-position logits ``[B, V]``, the
-        cache sized to the prompt with every layer's roped k and v)."""
+        cache sized to the prompt with every layer's roped k and v, or
+        MLA's latents)."""
         cfg = self.cfg
         x = self._embed(params, tokens, frontend_embeds)
         positions = torch.arange(tokens.shape[1], device=x.device)
-        ks, vs = [], []
-        for bp in L.unbind_layers(params["blocks"], cfg.n_layers):
-            x, kv = self._block_fwd(bp, x, positions)
-            ks.append(kv["k"])
-            vs.append(kv["v"])
+        kvs: Dict[str, List[Params]] = {"head": [], "scan": []}
+        for where, bp in self._layers(params):
+            x, _, kv = self._block_fwd(bp, x, positions)
+            kvs[where].append(kv)
         x = L.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
-        cache = {"scan": {"k": torch.stack(ks), "v": torch.stack(vs)},
-                 "pos": torch.tensor(tokens.shape[1], dtype=torch.int32,
-                                     device=x.device)}
+        cache: Params = {"pos": torch.tensor(tokens.shape[1], dtype=torch.int32,
+                                             device=x.device)}
+        for where, entries in kvs.items():
+            if entries:
+                cache[where] = {k: torch.stack([e[k] for e in entries])
+                                for k in entries[0]}
         return x @ self._head(params), cache
 
     @torch.no_grad()
@@ -187,20 +245,24 @@ class DecoderLM:
                     ) -> Tuple[torch.Tensor, Params]:
         """tokens ``[B]`` -> (logits ``[B, V]``, the cache one position on).
 
-        The new k/v are written into ``cache``'s buffers in place; the
+        The new entries are written into ``cache``'s buffers in place; the
         returned cache shares them and carries ``pos + 1``.
         """
         cfg = self.cfg
         if cfg.attn_window:
             raise NotImplementedError("windowed decode lives in the hybrid model")
         pos = cache["pos"]
-        ks, vs = cache["scan"]["k"], cache["scan"]["v"]
         x = params["embed"][tokens][:, None, :]
-        for i, bp in enumerate(L.unbind_layers(params["blocks"], cfg.n_layers)):
-            x = self._block_decode(bp, x, {"k": ks[i], "v": vs[i]}, pos)
+        seen = {"head": 0, "scan": 0}
+        for where, bp in self._layers(params):
+            i = seen[where]
+            seen[where] += 1
+            layer_cache = {k: v[i] for k, v in cache[where].items()}
+            x = self._block_decode(bp, x, layer_cache, pos)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return (x @ self._head(params))[:, 0], {"scan": {"k": ks, "v": vs},
-                                                "pos": pos + 1}
+        new_cache = {k: v for k, v in cache.items() if k != "pos"}
+        new_cache["pos"] = pos + 1
+        return (x @ self._head(params))[:, 0], new_cache
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -92,15 +92,12 @@ class WhisperLM:
         dec = {"ln1": ln, "self_attn": attn, "ln_x": ln, "cross_attn": attn,
                "ln2": ln, "mlp": mlp}
 
-        def stack(block, n):
-            return L.map_spec(block, lambda e: ((n, *e[0]), e[1]))
-
         return {
             "embed": ((cfg.vocab_size, d), ("normal", 0.02)),
             "dec_pos": ((cfg.max_positions, d), ("normal", 0.01)),
-            "enc_blocks": stack(enc, cfg.n_encoder_layers),
+            "enc_blocks": L.stack_spec(enc, cfg.n_encoder_layers),
             "enc_ln": ln,
-            "dec_blocks": stack(dec, cfg.n_layers),
+            "dec_blocks": L.stack_spec(dec, cfg.n_layers),
             "dec_ln": ln,
         }
 

@@ -202,8 +202,8 @@ class GenerationEngine:
 
     @torch.inference_mode()
     def generate(self, prompts: List[List[int]],
-                 max_new_tokens: Optional[int] = None,
-                 frontend_embeds: Optional[torch.Tensor] = None
+                 frontend_embeds: Optional[torch.Tensor] = None,
+                 max_new_tokens: Optional[int] = None
                  ) -> List[List[int]]:
         """One wave: equal-length prompts -> generated continuations.
 

@@ -138,15 +138,43 @@ def test_train_takes_the_hybrid_and_vlm_families(capsys, tmp_path, arch):
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-small",
-                                  "llava-next-mistral-7b"])
+                                  "llava-next-mistral-7b", "deepseek-v2-236b",
+                                  "dbrx-132b"])
 def test_serve_new_families_in_process(capsys, arch):
     """The hybrid at a prompt as long as its smoke window (32), Whisper and
-    the VLM with the reference's front-end stub."""
+    the VLM with the reference's front-end stub, and the two MoE archs
+    (deepseek's MLA)."""
     from repro_torch.cli import main
 
     assert main(["serve", "--arch", arch, "--smoke", "--device", "cpu",
                  "--batch", "2", "--prompt-len", "32", "--max-new", "3"]) == 0
     assert f"[serve] arch={arch}-smoke 6 tokens" in capsys.readouterr().out
+
+
+def test_serve_moe_over_a_mesh_arms_the_ep_all_to_all(capsys, monkeypatch):
+    """``serve --mesh 4`` on an MoE arch runs the prompt's experts through
+    the EP all-to-all in the plan's order (the reference's configure_sp),
+    and leaves nothing armed behind it."""
+    from repro_torch.cli import main
+    from repro_torch.parallel import moe_a2a
+
+    seen = []
+    real = moe_a2a.moe_a2a
+
+    def spy(p, x, cfg):
+        seen.append(moe_a2a._EP_STATE["a2a_order"])
+        return real(p, x, cfg)
+
+    monkeypatch.setattr(moe_a2a, "moe_a2a", spy)
+    assert main(["serve", "--arch", "dbrx-132b", "--smoke", "--device", "cpu",
+                 "--batch", "4", "--prompt-len", "8", "--max-new", "2",
+                 "--mesh", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "[serve] arch=dbrx-132b-smoke 8 tokens" in out and "all-to-all" in out
+    # one prefill of the two MoE layers (4 experts, one a rank), in the
+    # plan's order
+    assert len(seen) == 2 and seen[0] is not None and sorted(seen[0]) == [0, 1, 2, 3]
+    assert moe_a2a._EP_STATE["mesh"] is None
 
 
 def test_train_warms_up_as_the_reference(monkeypatch, tmp_path):
@@ -192,6 +220,10 @@ def test_train_refuses_what_is_not_ported(tmp_path):
               "--reorder", "probe", "--ckpt-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="item 11"):
         main(["train", "--smoke", "--device", "cpu", "--mesh", "2x2",
+              "--reorder", "none", "--ckpt-dir", str(tmp_path)])
+    # MoE training on the card waits for the sharding specs
+    with pytest.raises(NotImplementedError, match="item 18"):
+        main(["train", "--arch", "dbrx-132b", "--smoke", "--device", "cpu",
               "--reorder", "none", "--ckpt-dir", str(tmp_path)])
     # Whisper's loss needs audio the synthetic batches do not carry
     with pytest.raises(NotImplementedError, match="frontend_embeds"):

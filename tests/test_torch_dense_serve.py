@@ -242,3 +242,27 @@ def test_vlm_prefill_with_frontend_embeds_matches_jax(vlm, impl):
         _close(cache["scan"][name], jcache["scan"][name])
     text, _ = model.prefill(params, torch.from_numpy(toks))
     assert (logits - text).abs().max() > 1e-3
+
+
+def test_generate_takes_the_references_parameter_order(vlm):
+    """``generate(prompts, frontend_embeds, max_new_tokens)``, as the
+    reference's (``repro/serve/engine.py:209-214``): a call written for the
+    reference, with the image embeddings passed by position, gives the
+    reference's tokens on the smoke VLM."""
+    import inspect
+
+    want = list(inspect.signature(JaxGenerationEngine.generate).parameters)
+    assert list(inspect.signature(GenerationEngine.generate).parameters) == want
+    assert want == ["self", "prompts", "frontend_embeds", "max_new_tokens"]
+    cfg = get_config("llava-next-mistral-7b").smoke()
+    model = get_model(cfg, device="cpu")
+    prompts = vlm["toks"].tolist()
+    expect = JaxGenerationEngine(
+        jax_get_model(jax_get_config("llava-next-mistral-7b").smoke()),
+        jax.tree.map(jnp.asarray, vlm["tree"]),
+        JaxGenerationConfig(max_new_tokens=NEW, eos_token=-1)).generate(
+            prompts, jnp.asarray(vlm["fe"]))
+    got = GenerationEngine(model, params_from_jax(vlm["tree"], model),
+                           GenerationConfig(max_new_tokens=NEW, eos_token=-1)
+                           ).generate(prompts, torch.from_numpy(vlm["fe"]))
+    assert got == expect and all(len(row) == NEW for row in got)

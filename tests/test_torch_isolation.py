@@ -109,21 +109,29 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b"])
 def test_non_ssm_families_name_their_roadmap_item(arch):
-    """MoE is the one family left to port: it names its ROADMAP item."""
+    """MoE, the last family to be ported, gives the port's decoder; what
+    it still cannot do, ``train``, names its ROADMAP item."""
+    from repro_torch.cli import main
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
+    from repro_torch.models.transformer import DecoderLM
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model(get_config(arch).smoke(), device="cpu")
+    model = get_model(get_config(arch).smoke(), device="cpu")
+    assert type(model) is DecoderLM and model.cfg.use_mla and model.n_head == 1
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 18"):
+        main(["train", "--arch", arch, "--smoke", "--device", "cpu",
+              "--reorder", "none"])
 
 
 @pytest.mark.parametrize("arch,cls", [
     ("recurrentgemma-9b", "rglru.RecurrentGemmaLM"),
     ("whisper-small", "whisper.WhisperLM"),
-    ("llava-next-mistral-7b", "transformer.DecoderLM")])
+    ("llava-next-mistral-7b", "transformer.DecoderLM"),
+    ("dbrx-132b", "transformer.DecoderLM"),
+    ("deepseek-v2-236b", "transformer.DecoderLM")])
 def test_ported_families_give_the_port_model(arch, cls):
-    """The hybrid, encdec and vlm families (ported in the same change that
-    narrowed the test above to MoE) give the port's model on the CPU."""
+    """The hybrid, encdec, vlm and moe families give the port's model on
+    the CPU."""
     import importlib
 
     from repro_torch.configs import get_config
