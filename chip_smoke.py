@@ -56,6 +56,31 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    gathered at rank 0 bit for bit against ``run_schedule`` on the card
    with plain ``+`` (so a wrong ``fused_add`` at these piece sizes shows);
    two more calls a job timed (wall ms, the staging copies' share);
+   before the spawn, the pipeline on the virtual mesh (``pipeline_virtual``):
+   full-width ``qwen2-0.5b``'s 24 blocks as 8 stages of 3 over 8
+   microbatches of 2 x 1024 tokens, a bf16 forward with
+   ``attention_impl="flash"`` counted (192 ``flash_fwd_wgmma`` launches)
+   and held to the blocks in sequence (``PIPE_BF16_BOUND``, with a
+   control), then ``pipeline_loss`` forward and backward in f32 on the
+   plain attention path, the gradients held to the sequential chain's
+   (``PIPE_GRAD_BOUND``, with a control); in the same spawn, after the
+   all-reduce jobs, that f32 step over the 8 processes (stage i in the
+   process of slot i), every stage's gradient, the output and the loss
+   bit for bit against the virtual run's, its wall time a step beside
+   the bubble share 7/15; and one ``dbrx-132b`` MoE layer at published
+   widths armed over the group (``arm_ep`` on the group-backed mesh of a
+   ``serve_mix(moe=True)`` plan, 2 experts and 1024 tokens a process), its
+   rows and aux loss bit for bit against ``moe_a2a`` on the virtual mesh,
+   its drops and wall time beside the virtual layer's;
+3c. gradient compression: ``compressed_psum`` on each of the training
+   path's buckets over 8 virtual ranks, counted (``fused_add`` a reduce),
+   bit for bit against plain ``+`` and within the f32 rounding of the
+   dequantized rows' sum (one scale over the ranks as the control), and
+   error feedback over 50 steps at the largest bucket's width;
+3d. the solver's batched evaluator: a 1024-node datacenter's ring cost
+   matrix and a [256, 1024] batch of permutations on the card against
+   numpy's f64 costs, timed beside numpy; ``solve_sa(backend="jax")``
+   against ``backend="numpy"`` on one seed and budget, each engine;
 4. small-input checks: the smoke ``rwkv6`` in f32 (kernel-path prefill
    and decode against the exact recurrence, greedy tokens equal); the
    smoke ``glm4-9b`` in f32 (the flash prefill against the plain one,
@@ -316,6 +341,34 @@ MLA_ARCH, MLA_DEPTH, MOE_ARCH, MOE_DEPTH = "deepseek-v2-236b", 4, "dbrx-132b", 4
 MOE_BATCH, MOE_PROMPT, MOE_NEW, MLA_CHECK_STEPS = 4, 2048, 32, 4
 EP_TOKENS, EP_PAYLOAD = 512, 1e6
 MLA_DECODE_BOUND, MOE_REL_BOUND = 0.02, 0.03
+# the pipeline (GPipe, parallel/pipeline.py): qwen2-0.5b's 24 stacked blocks
+# as PIPE_STAGES stages of 3 over PIPE_MICRO microbatches of PIPE_ROWS x SEQ
+# tokens (16,384, a train step's), on the virtual mesh and over the group's 8
+# processes (stage i in the process holding slot i of the training plan's
+# mesh).  The bf16 flash forward against the same blocks in sequence on the
+# whole batch, relative to its largest output: the same per-row math, the
+# matmuls batched otherwise (a bf16 step is 2^-8 of the top; the control, the
+# sequence without its last stage, is far).  The f32 gradients against the
+# sequential chain's, each relative to its largest entry: f32 sums over
+# 16,384 tokens in another order (the control: the chain on 7 of the 8
+# microbatches, a lost drain tick, about 1/8 off)
+PIPE_ARCH, PIPE_STAGES, PIPE_MICRO, PIPE_ROWS = TRAIN_ARCH, 8, 8, 2
+# the LM loss's sequence chunk: every process of the group computes the loss
+# on its copy of the output, as the reference's stages do, so the [16, chunk,
+# 151936] f32 logits of 8 processes share the card (512, the config's, ran
+# out of its 80 GB)
+PIPE_LOSS_CHUNK = 64
+PIPE_BF16_BOUND, PIPE_GRAD_BOUND = 0.05, 1e-3
+# the EP all-to-all over the group: one dbrx-132b MoE layer at published
+# widths (16 experts top-4, 2 a process), one 1024-token row a process
+EP_GROUP_SEQ = 1024
+# compression: error feedback over COMP_STEPS steps at one bucket's width
+COMP_STEPS = 50
+# the solver evaluator: a SOLVER_NODES-node datacenter's ring cost matrix at
+# the training payload, a [SOLVER_CHAINS, SOLVER_NODES] batch of
+# permutations; solve_sa on both backends, each engine at its iterations
+SOLVER_NODES, SOLVER_CHAINS = 1024, 256
+SOLVER_ITERS = {"vectorized": 256, "reference": 32}
 # kernel vs plain on the same inputs: the same f32 math summed in another
 # order (f32: the chunk-form tolerance of the CPU tests); bf16 y also
 # rounds once to bf16 (2 ulps relative)
@@ -1569,7 +1622,7 @@ def _group_input(rank: int, width: int, dtype, seed: int):
 
 
 def _group_worker(rank: int, store: str, plan, jobs: list, out_dir: str,
-                  seed: int) -> None:
+                  seed: int, port: dict) -> None:
     """One process of the group phase (spawned; one slot of the plan's
     group-backed mesh, one schedule position).
 
@@ -1578,7 +1631,8 @@ def _group_worker(rank: int, store: str, plan, jobs: list, out_dir: str,
     the schedule's reduces at this position), its rows gathered at rank 0
     and held bit for bit to the virtual-mesh runner with plain ``+`` on the
     same card and inputs, then ``GROUP_TIMED_CALLS`` times for the wall and
-    staging times.
+    staging times.  Then the pipeline's f32 step (:func:`_group_pipeline`)
+    and the EP all-to-all (:func:`_group_ep`) in the same processes.
     """
     import datetime
 
@@ -1640,14 +1694,281 @@ def _group_worker(rank: int, store: str, plan, jobs: list, out_dir: str,
                         "launches": launches, "reduces": want,
                         "wall_ms": walls, "stage_ms": stages})
             del x
+        res = {"jobs": out,
+               "pipeline": _group_pipeline(rank, seed, plan, port["ref_dir"]),
+               "ep": _group_ep(rank, seed, port["ep_plan"])}
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(out, f)
+            json.dump(res, f)
     finally:
         dist.destroy_process_group()
 
 
-def run_group(seed: int, card: str, plan, planned: dict) -> dict:
-    """Phase 3b: the planned all-reduce over 8 processes on the one card.
+def _group_pipeline(rank: int, seed: int, plan, ref_dir: str) -> dict:
+    """This process's stage of the pipeline's f32 step over the group
+    (stage ``i`` in the process holding slot ``i`` of ``plan``'s mesh):
+    ``pipeline_loss`` forward and backward, every process backpropagating
+    its own loss, twice (the first warms up); then its stage's gradients
+    and the output held to the virtual run's (``ref_dir``), and the other
+    stages' gradient slices zero here."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_planned_mesh
+    from repro_torch.parallel.pipeline import pipeline_forward, pipeline_loss
+    from repro_torch.tree import tree_leaves, tree_map
+
+    # the first checkpoint call imports torch._dynamo (seconds); here every
+    # process pays it at once, not each in its turn along the stage chain
+    import torch._dynamo  # noqa: F401
+
+    st = _pipe_setup(seed)
+    mesh = make_planned_mesh(plan, "cuda", group=dist.group.WORLD)
+    axis = mesh.axis_names[0]
+    fwd = _pipe_stage_fn(st.model, st.per, remat=True)
+    head_fn = _pipe_head(st.model, st.head)
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        leaves = tree_map(lambda a: a.detach().requires_grad_(True), st.staged)
+        dist.barrier()
+        t0 = time.perf_counter()
+        loss = pipeline_loss(fwd, head_fn, leaves, st.x, st.labels, mesh,
+                             axis=axis)
+        loss.backward()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s = mesh.slot
+    grads = [t.grad for t in tree_leaves(leaves)]
+    ref = torch.load(os.path.join(ref_dir, f"stage{s}.pt"))
+    mine = [g[s].cpu() for g in grads]
+    others = any(bool(g[:s].any()) or bool(g[s + 1:].any()) for g in grads)
+    del grads, leaves
+    with torch.no_grad():
+        y = pipeline_forward(fwd, st.staged, st.x, mesh, axis=axis).cpu()
+    out = torch.load(os.path.join(ref_dir, "out.pt"))
+    res = {"rank": rank, "stage": s, "wall_s": walls, "peak_gb": peak_gb,
+           "grads_equal": all(torch.equal(g, r) for g, r in zip(mine, ref)),
+           "grad_relative": max(_rel(g, r) for g, r in zip(mine, ref)),
+           "other_stages_zero": not others,
+           "loss_equal": bool(torch.equal(loss.detach().cpu(), out["loss"])),
+           "y_equal": bool(torch.equal(y, out["y"])),
+           "y_relative": _rel(y, out["y"])}
+    del st, y, out, mine, ref
+    _free()
+    return res
+
+
+def _group_pipeline_report(per_rank: list, card: str) -> dict:
+    rows = sorted((r["pipeline"] for r in per_rank), key=lambda p: p["stage"])
+    if [p["stage"] for p in rows] != list(range(PIPE_STAGES)):
+        raise AssertionError(f"the group's stages {[p['stage'] for p in rows]}")
+    bad = [p for p in rows if not (p["grads_equal"] and p["loss_equal"]
+                                   and p["y_equal"] and p["other_stages_zero"])]
+    # a step ends when its slowest process does
+    wall_ms = [max(p["wall_s"][c] for p in rows) * 1e3 for c in range(2)]
+    bubble = (PIPE_STAGES - 1) / (PIPE_MICRO + PIPE_STAGES - 1)
+    res = {"stages_by_rank": {p["rank"]: p["stage"] for p in rows},
+           "step_wall_ms": wall_ms, "bubble_share": bubble,
+           "bit_for_bit": not bad,
+           "worst_grad_relative": max(p["grad_relative"] for p in rows),
+           "worst_y_relative": max(p["y_relative"] for p in rows),
+           "peak_gb_by_stage": [p["peak_gb"] for p in rows], "card": card}
+    _say(f"pipeline over {PIPE_STAGES} gloo processes ({PIPE_ARCH}, f32, "
+         f"stage by rank {res['stages_by_rank']}): every stage's gradient, the "
+         f"output and the loss == the virtual mesh's bit for bit: {not bad} "
+         f"(worst relative {res['worst_grad_relative']:.3g}, output "
+         f"{res['worst_y_relative']:.3g}); a step {wall_ms[1]:.1f} ms of wall "
+         f"time (the first, warming up, {wall_ms[0]:.1f} ms), bubble share "
+         f"{PIPE_STAGES - 1}/{PIPE_MICRO + PIPE_STAGES - 1} = {bubble:.4f} of "
+         f"the schedule's ticks; peak memory a process up to "
+         f"{max(res['peak_gb_by_stage']):.3f} GB [{card}; host clock]")
+    if bad:
+        raise AssertionError(f"the group pipeline parts from the virtual "
+                             f"mesh's on stages {[p['stage'] for p in bad]}: "
+                             f"{bad[:2]}")
+    return res
+
+
+def compile_ep_plan():
+    """A plan of the serving mix with the EP all-to-all
+    (``serve_mix(moe=True)``) on the scrambled 8-node Clos fabric for an
+    ``(8,)`` data mesh; its all-to-all entry, the mesh placement and the
+    shift order ``arm_ep`` must arm (the entry's node order in axis-index
+    space)."""
+    from repro_torch.fabric import make_datacenter, probe_fabric, scramble
+    from repro_torch.plan import PlanCompiler
+    from repro_torch.session import serve_mix
+
+    fab, _ = scramble(make_datacenter(RANKS, **PLAN_FABRIC), seed=PLAN_SCRAMBLE_SEED)
+    plan = PlanCompiler(fabric=fab, seed=0).compile(
+        probe_fabric(fab, seed=PLAN_PROBE_SEED),
+        serve_mix(EP_PAYLOAD, moe=True), mesh_shape=(RANKS,),
+        axis_names=("data",))
+    entry = max((e for (op, _b, grp), e in plan.entries.items()
+                 if op == "all-to-all" and len(grp) == RANKS),
+                key=lambda e: e.size_bytes)
+    flat = [int(i) for i in plan.mesh_plan.flat]
+    want = tuple(flat.index(int(node)) for node in entry.perm)
+    return plan, entry, flat, want
+
+
+def _ep_layer(cfg, seed: int, experts) -> dict:
+    """One MoE layer of ``cfg`` holding ``experts``: the f32 router, and
+    each expert's ``w1``/``w3``/``w2`` drawn from its own seed at the
+    spec's scale, so a process holding two experts and one holding all
+    sixteen hold the same values."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    spec = L.moe_spec(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    shape, (_, scale), rdt = spec["router"]
+    p = {"router": L.dense_init(gen, shape, scale, rdt)}
+    if "shared" in spec:
+        p["shared"] = L.init_from_spec(gen, spec["shared"], dtype)
+    experts = list(experts)
+    for k in ("w1", "w3", "w2"):
+        p[k] = torch.empty((len(experts), *spec[k][0][1:]), dtype=dtype,
+                           device="cuda")
+    for i, e in enumerate(experts):
+        gen.manual_seed(seed * 1000 + 1 + e)
+        for k in ("w1", "w3", "w2"):
+            shape, (_, scale) = spec[k][:2]
+            p[k][i] = L.dense_init(gen, shape[1:], scale, dtype)
+    return p
+
+
+def _ep_input(cfg, seed: int):
+    """``[RANKS, EP_GROUP_SEQ, D]`` layer inputs from ``seed``, one row a
+    process."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 7)
+    return torch.randn((RANKS, EP_GROUP_SEQ, cfg.d_model), generator=gen,
+                       device="cuda").to(getattr(torch, cfg.dtype))
+
+
+def _group_ep(rank: int, seed: int, ep_plan) -> dict:
+    """This process's EP rank of one dbrx-132b MoE layer at published
+    widths, armed over the group from the plan: its row of tokens, its
+    two experts; the layer once checked and twice timed.  Rank 0 gathers
+    the rows in EP rank order and holds them, and the aux loss, bit for
+    bit to ``moe_a2a`` on the virtual mesh (all sixteen experts, the same
+    plan's order), and reports its drops and time."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_planned_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import moe_a2a
+
+    plan, _entry, _flat, want = ep_plan
+    cfg = get_config(MOE_ARCH)
+    E_loc = cfg.n_experts // RANKS
+    mesh = make_planned_mesh(plan, "cuda", group=dist.group.WORLD)
+    moe_a2a.arm_ep(mesh, "data", None, plan=plan)
+    try:
+        r = moe_a2a.ep_rank()
+        order = moe_a2a._EP_STATE["a2a_order"]
+        p = _ep_layer(cfg, seed, range(r * E_loc, (r + 1) * E_loc))
+        x = _ep_input(cfg, seed)[r:r + 1].clone()
+        walls = []
+        with torch.inference_mode():
+            y, aux = L.moe_layer(p, x, cfg)
+            torch.cuda.synchronize()
+            for _ in range(2):
+                dist.barrier()
+                t0 = time.perf_counter()
+                y2, _ = L.moe_layer(p, x, cfg)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        moe_a2a.clear_ep()
+    res = {"rank": rank, "ep_rank": r, "order": list(order),
+           "wall_ms": walls, "repeat_equal": bool(torch.equal(y, y2))}
+    del p, y2
+    got = [None] * RANKS if rank == 0 else None
+    dist.gather_object((r, y.cpu(), aux.item()), got, dst=0)
+    del x, y
+    _free()
+    if rank != 0:
+        return res
+    blocks = dict((i, (yb, a)) for i, yb, a in got)
+    p = _ep_layer(cfg, seed, range(cfg.n_experts))
+    x_all = _ep_input(cfg, seed)
+    moe_a2a.arm_ep(make_planned_mesh(plan, "cuda"), "data", None, plan=plan)
+    try:
+        with torch.inference_mode():
+            y_v, aux_v = moe_a2a.moe_a2a(p, x_all, cfg)
+            virtual_ms = _time_ms(lambda: L.moe_layer(p, x_all, cfg), 2,
+                                  warmup=1)
+            drops = _a2a_drops(p, x_all, cfg, RANKS)
+            dense = _dense_drops(p, x_all, cfg)
+    finally:
+        moe_a2a.clear_ep()
+    y_g = torch.cat([blocks[i][0] for i in range(RANKS)]).to(y_v.device)
+    aux_g = torch.tensor([blocks[i][1] for i in range(RANKS)],
+                         dtype=torch.float32)
+    res.update(want_order=list(want), bit_for_bit=bool(torch.equal(y_g, y_v)),
+               relative=_rel(y_g, y_v),
+               aux_equal=bool(aux_g.eq(aux_v.cpu()).all()),
+               finite=bool(torch.isfinite(y_g.float()).all()),
+               virtual_ms=virtual_ms, drops_source=drops[0],
+               drops_destination=drops[1], dense_drops=dense,
+               choices=RANKS * EP_GROUP_SEQ * cfg.moe_top_k)
+    del p, x_all, y_v, y_g
+    _free()
+    return res
+
+
+def _group_ep_report(per_rank: list, card: str) -> dict:
+    rows = sorted((r["ep"] for r in per_rank), key=lambda e: e["ep_rank"])
+    head = next(e for e in rows if e["rank"] == 0)
+    want = head["want_order"]
+    wall_ms = [max(e["wall_ms"][c] for e in rows) for c in range(2)]
+    res = {"arch": MOE_ARCH, "ep_ranks": RANKS, "tokens": RANKS * EP_GROUP_SEQ,
+           "ep_rank_by_rank": {e["rank"]: e["ep_rank"] for e in rows},
+           "order": want, "bit_for_bit": head["bit_for_bit"],
+           "relative": head["relative"], "aux_equal": head["aux_equal"],
+           "wall_ms": wall_ms, "virtual_ms": head["virtual_ms"],
+           "drops": {"a2a_source": head["drops_source"],
+                     "a2a_destination": head["drops_destination"],
+                     "dense": head["dense_drops"]},
+           "choices": head["choices"], "card": card}
+    _say(f"EP all-to-all over {RANKS} gloo processes ({MOE_ARCH}, one MoE "
+         f"layer, {RANKS} x {EP_GROUP_SEQ} tokens, 2 experts a process, shift "
+         f"order {want}): the rows == the virtual mesh's moe_a2a bit for bit: "
+         f"{head['bit_for_bit']} (relative {head['relative']:.3g}), aux equal "
+         f"{head['aux_equal']}; drops at the source {head['drops_source']}, "
+         f"at the destination {head['drops_destination']} (moe_dense "
+         f"{head['dense_drops']}) of {head['choices']} choices; the layer "
+         f"{wall_ms[1]:.1f} ms of wall time over the group (first "
+         f"{wall_ms[0]:.1f} ms), {head['virtual_ms']:.3f} ms on the virtual "
+         f"mesh [{card}; host clock for the group, CUDA events for the "
+         f"virtual layer]")
+    if [e["ep_rank"] for e in rows] != list(range(RANKS)):
+        raise AssertionError(f"EP ranks {[e['ep_rank'] for e in rows]}")
+    if any(e["order"] != want for e in rows):
+        raise AssertionError(f"a process armed another shift order than the "
+                             f"plan's {want}: {[e['order'] for e in rows]}")
+    if not (head["bit_for_bit"] and head["aux_equal"] and head["finite"]
+            and all(e["repeat_equal"] for e in rows)):
+        raise AssertionError(f"the EP all-to-all over the group parts from "
+                             f"the virtual mesh's: {head}")
+    return res
+
+
+def run_group(seed: int, card: str, plan, planned: dict, port: dict) -> dict:
+    """Phase 3b: the planned all-reduce over 8 processes on the one card,
+    then the pipeline's f32 step and the EP all-to-all in those processes
+    (``port``: the virtual pipeline's saved results, ``ref_dir``, and the
+    serving plan with the all-to-all, ``ep_plan``).
 
     A gloo group over a file store (NCCL builds no multi-rank communicator
     on one GPU); every payload staged through pinned host memory; every
@@ -1681,7 +2002,7 @@ def run_group(seed: int, card: str, plan, planned: dict) -> dict:
     ctx = mp.start_processes(_group_worker, nprocs=RANKS, join=False,
                              start_method="spawn",
                              args=(os.path.join(tmp, "store"), plan, jobs,
-                                   tmp, seed))
+                                   tmp, seed, port))
     try:
         deadline = time.monotonic() + GROUP_TIMEOUT_S
         while not ctx.join(timeout=5):
@@ -1701,7 +2022,7 @@ def run_group(seed: int, card: str, plan, planned: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     results, total = [], 0
     for j, (label, _, width, dtype) in enumerate(jobs):
-        rows = [per_rank[r][j] for r in range(RANKS)]
+        rows = [per_rank[r]["jobs"][j] for r in range(RANKS)]
         launches = [row["launches"] for row in rows]
         if launches != [row["reduces"] for row in rows] or min(launches) < 1:
             raise AssertionError(f"group {label}: fused_add launches {launches}")
@@ -1722,10 +2043,467 @@ def run_group(seed: int, card: str, plan, planned: dict) -> dict:
              f"{[round(v, 2) for v in wall_ms]} ms a call, staging copies "
              f"{[round(v, 3) for v in share]} of it [{card}]")
     res = {"jobs": results, "launches": {"fused_add": total},
-           "order": list(sched.order), "wall_s": wall, "card": card}
+           "order": list(sched.order), "wall_s": wall, "card": card,
+           "pipeline": _group_pipeline_report(per_rank, card),
+           "ep": _group_ep_report(per_rank, card)}
     _say(f"group phase: {RANKS} processes, {total} fused_add launches on the "
          f"card in the counted calls, {wall:.1f} s in all")
     _say("group " + json.dumps(res))
+    return res
+
+
+def _pipe_setup(seed: int):
+    """The pipeline's model, weights and step from ``seed`` on the card:
+    qwen2-0.5b in f32 (its 24 stacked blocks regrouped as ``PIPE_STAGES``
+    stages), the step's tokens and labels as ``PIPE_MICRO`` microbatches
+    of ``PIPE_ROWS`` x ``SEQ``, and their embeddings.  Every process of
+    the group phase draws the same."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config(PIPE_ARCH), dtype="float32",
+                              attention_impl="xla")
+    model = DecoderLM(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = model.init(gen)
+    per = cfg.n_layers // PIPE_STAGES
+    staged = tree_map(lambda a: a.reshape(PIPE_STAGES, per, *a.shape[1:]),
+                      params["blocks"])
+    rng = np.random.default_rng(seed)
+    shape = (PIPE_MICRO, PIPE_ROWS, SEQ)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).cuda()
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).cuda()
+    with torch.no_grad():
+        x = params["embed"][tokens]
+    head = {"embed": params["embed"], "final_norm": params["final_norm"]}
+    return SimpleNamespace(cfg=cfg, model=model, staged=staged, x=x,
+                           labels=labels, head=head, per=per)
+
+
+def _pipe_stage_fn(model, per: int, remat: bool):
+    """``per`` blocks of ``model`` on a microbatch (the model's own block
+    forward, each block checkpointed under grad as ``remat="block"``)."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.tree import tree_map
+
+    def one(bp, h):
+        pos = torch.arange(h.shape[1], device=h.device)
+        return model._block_fwd(bp, h, pos)[0]
+
+    def stage_fn(p, h):
+        for j in range(per):
+            bp = tree_map(lambda a: a[j], p)
+            h = checkpoint(one, bp, h, use_reentrant=False) \
+                if remat and torch.is_grad_enabled() else one(bp, h)
+        return h
+
+    return stage_fn
+
+
+def _pipe_head(model, head):
+    """The LM loss on the pipeline's output (the final norm, the tied head,
+    cross entropy over all microbatches in sequence chunks of
+    ``PIPE_LOSS_CHUNK``); the head's weights are not stage parameters and
+    take no gradient."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import lm_loss
+
+    cfg = model.cfg
+    embed, norm = head["embed"].detach(), head["final_norm"].detach()
+
+    def head_fn(y, labels):
+        feats = L.rms_norm(y.reshape(-1, *y.shape[2:]), norm, cfg.norm_eps)
+        return lm_loss(feats, embed.T, labels.reshape(-1, labels.shape[-1]),
+                       PIPE_LOSS_CHUNK)
+
+    return head_fn
+
+
+def _rel(a, b) -> float:
+    """max |a - b| relative to max |b|."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _pipe_sequence(stage_fn, staged, x, stages: int = PIPE_STAGES):
+    """The first ``stages`` stages' blocks in sequence on the whole batch
+    ``x [n_micro, rows, S, D]`` at once."""
+    from repro_torch.tree import tree_map
+
+    h = x.reshape(-1, *x.shape[2:])
+    for i in range(stages):
+        h = stage_fn(tree_map(lambda a, i=i: a[i], staged), h)
+    return h.reshape(x.shape)
+
+
+def pipeline_virtual(seed: int, card: str, ref_dir: str) -> dict:
+    """The pipeline on the virtual mesh: qwen2-0.5b's 24 blocks as 8 stages
+    of 3 over 8 microbatches of 2 x 1024 tokens.
+
+    A bf16 forward with ``attention_impl="flash"``, counted (one
+    ``flash_fwd_wgmma`` launch a block a microbatch), held to the same
+    blocks run in sequence on the whole batch within ``PIPE_BF16_BOUND``
+    of its largest output (the control: the sequence without its last
+    stage); then ``pipeline_loss`` forward and backward in f32 on the plain
+    attention path, every stage's gradient held to the sequential chain's
+    within ``PIPE_GRAD_BOUND`` of its largest entry (the control: the chain
+    on the first 7 microbatches, a lost drain tick).  The stages'
+    gradients, the output and the loss go to ``ref_dir`` for the group
+    phase.
+    """
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import make_mesh
+    from repro_torch.parallel.pipeline import pipeline_forward, pipeline_loss
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.monotonic()
+    st = _pipe_setup(seed)
+    cfg, per = st.cfg, st.per
+    mesh = make_mesh((PIPE_STAGES,), ("stage",), device="cuda")
+    model16 = type(st.model)(dataclasses.replace(
+        cfg, dtype="bfloat16", attention_impl="flash"), device="cuda")
+    staged16 = tree_map(lambda a: a.to(torch.bfloat16), st.staged)
+    x16 = st.x.to(torch.bfloat16)
+    fwd16 = _pipe_stage_fn(model16, per, remat=False)
+    counted = _counted()
+    with torch.inference_mode():
+        pipeline_forward(fwd16, staged16, x16, mesh)          # warm-up
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+        fa.flash_attention.kernel_launches = dict.fromkeys(fa.KERNELS, 0)
+        y16 = pipeline_forward(fwd16, staged16, x16, mesh)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counted.items()}
+        by_kernel = dict(fa.flash_attention.kernel_launches)
+        want = cfg.n_layers * PIPE_MICRO
+        if launches["flash_attention"] != want or \
+                by_kernel["flash_fwd_wgmma"] != want:
+            raise AssertionError(f"the pipeline's forward launched flash "
+                                 f"{launches['flash_attention']} times "
+                                 f"({by_kernel}), expected {want}, all "
+                                 f"flash_fwd_wgmma")
+        if tuple(y16.shape) != tuple(x16.shape) or \
+                not bool(torch.isfinite(y16.float()).all()):
+            raise AssertionError(f"the bf16 pipeline's output "
+                                 f"{tuple(y16.shape)} is not finite or not "
+                                 f"the microbatches' shape")
+        seq16 = _pipe_sequence(fwd16, staged16, x16)
+        bf16_rel = _rel(y16, seq16)
+        bf16_control = _rel(_pipe_sequence(fwd16, staged16, x16,
+                                           PIPE_STAGES - 1), seq16)
+        fwd_ms = _time_ms(lambda: pipeline_forward(fwd16, staged16, x16, mesh),
+                          2, warmup=0)
+        seq_ms = _time_ms(lambda: _pipe_sequence(fwd16, staged16, x16), 2,
+                          warmup=0)
+    _held_apart("the bf16 pipeline vs the blocks in sequence (relative)",
+                bf16_rel, PIPE_BF16_BOUND, bf16_control)
+    del model16, staged16, x16, y16, seq16
+    _free()
+
+    # -- f32 loss forward and backward, plain attention ------------------
+    fwd32 = _pipe_stage_fn(st.model, per, remat=True)
+    head_fn = _pipe_head(st.model, st.head)
+
+    def run(n_micro, pipelined):
+        leaves = tree_map(lambda a: a.detach().requires_grad_(True), st.staged)
+        x, labels = st.x[:n_micro], st.labels[:n_micro]
+        t0 = time.monotonic()
+        if pipelined:
+            loss = pipeline_loss(fwd32, head_fn, leaves, x, labels, mesh)
+        else:
+            loss = head_fn(_pipe_sequence(fwd32, leaves, x), labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        return (loss.detach(), [t.grad for t in tree_leaves(leaves)],
+                time.monotonic() - t0)
+
+    run(PIPE_MICRO, True)                                     # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads, step_s = run(PIPE_MICRO, True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    seq_loss, seq_grads, seq_step_s = run(PIPE_MICRO, False)
+    grad_rel = max(_rel(g, w) for g, w in zip(grads, seq_grads))
+    _, short_grads, _ = run(PIPE_MICRO - 1, False)
+    grad_control = min(_rel(g, w) for g, w in zip(short_grads, seq_grads))
+    del short_grads, seq_grads
+    with torch.no_grad():
+        y32 = pipeline_forward(fwd32, st.staged, st.x, mesh)
+        out_rel = _rel(y32, _pipe_sequence(fwd32, st.staged, st.x))
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"the pipeline's loss {loss.item()} is not finite")
+    _held_apart("the f32 pipeline's gradients vs the sequential chain's "
+                "(relative, the worst tensor)", grad_rel, PIPE_GRAD_BOUND,
+                grad_control)
+    for i in range(PIPE_STAGES):
+        torch.save([g[i].cpu() for g in grads],
+                    os.path.join(ref_dir, f"stage{i}.pt"))
+    torch.save({"y": y32.cpu(), "loss": loss.cpu()},
+               os.path.join(ref_dir, "out.pt"))
+    res = {"arch": PIPE_ARCH, "stages": PIPE_STAGES, "blocks_per_stage": per,
+           "microbatches": PIPE_MICRO, "microbatch": [PIPE_ROWS, SEQ],
+           "tokens": PIPE_MICRO * PIPE_ROWS * SEQ,
+           "bf16_flash": {"launches": launches,
+                          "flash_kernel_launches": by_kernel,
+                          "relative_to_sequence": bf16_rel,
+                          "limit": PIPE_BF16_BOUND,
+                          "control_last_stage_dropped": bf16_control,
+                          "forward_ms": fwd_ms, "sequence_ms": seq_ms},
+           "f32": {"loss": loss.item(), "sequence_loss": seq_loss.item(),
+                   "grad_relative": grad_rel, "grad_limit": PIPE_GRAD_BOUND,
+                   "grad_control_7_of_8_microbatches": grad_control,
+                   "output_relative": out_rel, "step_s": step_s,
+                   "sequence_step_s": seq_step_s, "peak_mem_gb": peak_gb},
+           "card": card}
+    del grads, y32, st
+    _free()
+    res["phase_s"] = time.monotonic() - t_phase
+    _say(f"pipeline {PIPE_ARCH} on the virtual mesh: {PIPE_STAGES} stages x "
+         f"{per} blocks, {PIPE_MICRO} microbatches of {PIPE_ROWS} x {SEQ}; bf16 "
+         f"flash forward {fwd_ms:.3f} ms (the blocks in sequence "
+         f"{seq_ms:.3f} ms), {launches['flash_attention']} flash launches "
+         f"({by_kernel}), within {bf16_rel:.4g} of the sequence (limit "
+         f"{PIPE_BF16_BOUND}, control {bf16_control:.4g}); f32 loss "
+         f"{loss.item():.6f} (sequence {seq_loss.item():.6f}), step "
+         f"{step_s:.3f} s (sequence {seq_step_s:.3f} s), gradients within "
+         f"{grad_rel:.4g} (limit {PIPE_GRAD_BOUND}, control "
+         f"{grad_control:.4g}), peak {peak_gb:.3f} GB; phase "
+         f"{res['phase_s']:.1f} s [{card}]")
+    _say("pipeline " + json.dumps(res))
+    return res
+
+
+def check_compression(seed: int, card: str, layout: dict) -> dict:
+    """Gradient compression on the training path's buckets: every bucket
+    of qwen2-0.5b's gradients (``train_layout``) over the 8 virtual ranks,
+    rank ``r``'s f32 rows at its own scale, through ``compressed_psum``
+    (each rank's int8 quantization, the certified ring with ``fused_add``
+    a reduce), its launches counted against the schedule's reduces, bit
+    for bit against the run with plain ``+``, and within the f32 rounding
+    of two summation orders of the dequantized rows' ``sum(0)`` (each
+    element within ``2 (n - 1) u`` of the sum of the magnitudes, ``u =
+    2^-24``); the control: one scale over the stacked ranks, outside it.
+    Then error feedback over ``COMP_STEPS`` steps of one constant gradient
+    at the largest bucket's width, as ``tests/test_substrate.py:71-82``."""
+    import torch
+
+    from repro_torch.kernels import ring_collective as rc
+    from repro_torch.kernels.schedule_runner import schedule_tables
+    from repro_torch.launch import make_mesh
+    from repro_torch.optim import compression as C
+    from repro_torch.train import certified_allreduce_pair
+
+    t_phase = time.monotonic()
+    mesh = make_mesh((RANKS,), ("data",), device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 11)
+    scales = torch.logspace(-4, -2, RANKS, device="cuda")[:, None]
+    u = 2.0 ** -24
+    buckets, launches, reduces = [], 0, 0
+    for b in layout["buckets"]:
+        width = int(b.n_elems)
+        x = torch.randn((RANKS, width), generator=gen, device="cuda") * scales
+        sched = certified_allreduce_pair(RANKS, width * 4.0, "ring")[1]
+        tables, ops = schedule_tables(sched)
+        want_launches = sum(1 for rnd, rops in zip(tables, ops)
+                            for (eff, _, _), op in zip(rnd, rops)
+                            if op == "reduce" and eff) * max(1, sched.chunk_factor)
+        before = rc.fused_add.launches
+        got = C.compressed_psum(x, mesh)
+        torch.cuda.synchronize()
+        n_launch = rc.fused_add.launches - before
+        if n_launch != want_launches:
+            raise AssertionError(f"compressed_psum launched fused_add "
+                                 f"{n_launch} times, the schedule has "
+                                 f"{want_launches} reduces")
+        ms = _time_ms(lambda: C.compressed_psum(x, mesh), 1, warmup=0)
+        before = rc.fused_add.launches
+        if not torch.equal(got, C.compressed_psum(x, mesh,
+                                                  use_kernel_add=False)):
+            raise AssertionError("compressed_psum with fused_add != with +")
+        if rc.fused_add.launches != before:
+            raise AssertionError("the plain-+ run launched fused_add")
+        deq = torch.stack([C._dequantize(*C._quantize(r)) for r in x])
+        want = deq.sum(0)
+        room = 2 * (RANKS - 1) * u * deq.abs().sum(0)
+        worst = max(float(((g - want).abs() / room.clamp_min(1e-30)).max())
+                    for g in got)
+        q, sc = C._quantize(x)
+        one_scale = float(((C._dequantize(q, sc).sum(0) - want).abs()
+                           / room.clamp_min(1e-30)).max())
+        del deq, q, got, x
+        _free()
+        if worst > 1.0 or one_scale <= 1.0:
+            raise AssertionError(f"compressed_psum's rows at {worst:.3g} of "
+                                 f"the f32 rounding room (limit 1), one scale "
+                                 f"over the ranks at {one_scale:.3g}")
+        launches += n_launch
+        reduces += want_launches
+        buckets.append({"elements_a_rank": width, "fused_add": n_launch,
+                        "ms": ms, "of_rounding_room": worst,
+                        "one_scale_control": one_scale})
+    width = max(int(b.n_elems) for b in layout["buckets"])
+    g = {"w": torch.randn(width, generator=gen, device="cuda") * 1e-3}
+    residual = C.error_feedback_update(g)
+    acc = torch.zeros(width, device="cuda")
+    t0 = time.monotonic()
+    for _ in range(COMP_STEPS):
+        q, sc, residual = C.compress_grads(g, residual)
+        acc += C.decompress_grads(q, sc)["w"]
+    torch.cuda.synchronize()
+    ef_s = time.monotonic() - t0
+    mean_err = float((acc / COMP_STEPS - g["w"]).abs().max())
+    res_max = float(residual["w"].abs().max())
+    del g, residual, acc, q
+    if mean_err > 1e-4 or res_max >= 1e-3:
+        raise AssertionError(f"error feedback: mean {mean_err:.3g} from the "
+                             f"gradient (limit 1e-4), residual {res_max:.3g}")
+    res = {"ranks": RANKS, "buckets": buckets,
+           "launches": {"fused_add": launches}, "schedule_reduces": reduces,
+           "error_feedback": {"width": width, "steps": COMP_STEPS,
+                              "mean_max_abs_err": mean_err,
+                              "residual_max": res_max, "seconds": ef_s},
+           "card": card}
+    _free()
+    res["phase_s"] = time.monotonic() - t_phase
+    _say(f"compressed_psum on {len(buckets)} qwen2-0.5b buckets x {RANKS} "
+         f"virtual ranks: {launches} fused_add launches (the schedules' "
+         f"{reduces} reduces), == the plain-+ run bit for bit, within "
+         f"{max(b['of_rounding_room'] for b in buckets):.3g} of the f32 "
+         f"rounding room of the rows' sum (one scale over the ranks: "
+         f"{min(b['one_scale_control'] for b in buckets):.3g}); "
+         f"{[round(b['ms'], 3) for b in buckets]} ms a call; error feedback "
+         f"over {COMP_STEPS} steps at {width} elements: mean within "
+         f"{mean_err:.3g}, residual {res_max:.3g}; phase {res['phase_s']:.1f} "
+         f"s [{card}]")
+    _say("compression " + json.dumps(res))
+    return res
+
+
+def _canonical_ring(perm) -> list:
+    """A ring as a sequence from node 0 in its smaller direction."""
+    p = [int(v) for v in perm]
+    i = p.index(0)
+    r = p[i:] + p[:i]
+    return min(r, [r[0]] + r[1:][::-1])
+
+
+def check_solver_eval(seed: int, card: str) -> dict:
+    """The solver's batched evaluator on the card: the ring cost matrix of
+    a ``SOLVER_NODES``-node datacenter at the training payload and a
+    ``[SOLVER_CHAINS, SOLVER_NODES]`` batch of permutations, against
+    numpy's f64 ``cost_batch`` (within ``N u`` relative, f32 sums of N
+    positive terms); a call's host time (the permutations shipped, the
+    costs back) and the gather and sum's device time beside numpy's host
+    time; then ``solve_sa(backend="jax")`` against ``backend="numpy"`` on
+    one seed and budget, each engine: both reported costs (f64), wall
+    times, the evaluator's calls, and whether the tours agree."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import cost_models as cm
+    from repro_torch.core import solver as so
+    from repro_torch.fabric import make_datacenter
+    from repro_torch.kernels import solver_eval as se
+
+    t_phase = time.monotonic()
+    fab = make_datacenter(SOLVER_NODES, seed=seed)
+    fabric_s = time.monotonic() - t_phase
+    model = cm.make_cost_model("ring", lat=fab.lat, bw=fab.bw,
+                               size_bytes=PLAN_PAYLOAD)
+    c = so._ring_matrix(model)
+    rng = np.random.default_rng(seed)
+    perms = np.stack([rng.permutation(SOLVER_NODES)
+                      for _ in range(SOLVER_CHAINS)])
+    evaluate = se.make_ring_evaluator(c, device="cuda")
+    got, want = evaluate(perms), model.cost_batch(perms)
+    rel = float(np.max(np.abs(got - want) / want))
+    bound = SOLVER_NODES * 2.0 ** -24
+    if not np.all(np.isfinite(got)) or rel > bound:
+        raise AssertionError(f"the evaluator on the card is {rel:.3g} from "
+                             f"numpy's f64 costs (limit {bound:.3g})")
+    t0 = time.perf_counter()
+    for _ in range(20):
+        evaluate(perms)
+    call_ms = (time.perf_counter() - t0) / 20 * 1e3
+    cd = torch.as_tensor(c.astype(np.float32), device="cuda")
+    pd = torch.as_tensor(perms, device="cuda")
+    device_ms = _time_ms(lambda: se._ring_cost(cd, pd), 20)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        model.cost_batch(perms)
+    numpy_ms = (time.perf_counter() - t0) / 5 * 1e3
+    del cd, pd
+
+    calls = [0]
+    real = se.make_ring_evaluator
+
+    def counted(cmat, device="cuda"):
+        fn = real(cmat, device)
+
+        def call(p):
+            calls[0] += 1
+            return fn(p)
+        return call
+
+    solves = {}
+    se.make_ring_evaluator = counted
+    try:
+        for engine, iters in SOLVER_ITERS.items():
+            calls[0] = 0
+            out = {}
+            for backend in ("jax", "numpy"):
+                t0 = time.perf_counter()
+                r = so.solve_sa(model, iters=iters, chains=SOLVER_CHAINS,
+                                seed=seed, engine=engine, backend=backend,
+                                device="cuda")
+                out[backend] = (r, time.perf_counter() - t0)
+                if sorted(r.perm) != list(range(SOLVER_NODES)) or \
+                        r.cost != float(model.cost(r.perm)):
+                    raise AssertionError(f"solve_sa({backend}) reported "
+                                         f"{r.cost}, not its tour's f64 cost")
+            (a, ta), (b, tb) = out["jax"], out["numpy"]
+            if calls[0] < 2:
+                raise AssertionError(f"solve_sa(backend='jax') called the "
+                                     f"evaluator {calls[0]} times")
+            solves[engine] = {
+                "iters": iters, "cost_jax": a.cost, "cost_numpy": b.cost,
+                "wall_s_jax": ta, "wall_s_numpy": tb,
+                "evaluator_calls": calls[0],
+                "perms_equal": [int(v) for v in a.perm] ==
+                [int(v) for v in b.perm],
+                "same_ring": _canonical_ring(a.perm) == _canonical_ring(b.perm)}
+    finally:
+        se.make_ring_evaluator = real
+    res = {"nodes": SOLVER_NODES, "chains": SOLVER_CHAINS,
+           "payload_bytes": PLAN_PAYLOAD, "relative_to_f64": rel,
+           "limit": bound, "evaluator_call_ms_host": call_ms,
+           "gather_sum_ms_device": device_ms, "numpy_cost_batch_ms_host":
+           numpy_ms, "fabric_s_host": fabric_s, "solve_sa": solves,
+           "card": card}
+    res["phase_s"] = time.monotonic() - t_phase
+    _say(f"solver evaluator: {SOLVER_CHAINS} x {SOLVER_NODES} ring costs on "
+         f"the card within {rel:.3g} of numpy's f64 (limit {bound:.3g}); a "
+         f"call {call_ms:.3f} ms host clock (the gather and sum "
+         f"{device_ms:.4f} ms of device time), numpy's cost_batch "
+         f"{numpy_ms:.3f} ms host clock; solve_sa " + "; ".join(
+             f"{e}: jax {v['cost_jax']:.6f} in {v['wall_s_jax']:.2f} s "
+             f"({v['evaluator_calls']} evaluator calls), numpy "
+             f"{v['cost_numpy']:.6f} in {v['wall_s_numpy']:.2f} s, tours "
+             f"equal {v['perms_equal']} (same ring {v['same_ring']})"
+             for e, v in solves.items())
+         + f"; the fabric {fabric_s:.1f} s; phase {res['phase_s']:.1f} s "
+         f"[{card}]")
+    _say("solver " + json.dumps(res))
     return res
 
 
@@ -2816,25 +3594,13 @@ def check_ep_armed(model, params, seed: int, card: str) -> dict:
     import torch
 
     from repro_torch import obs
-    from repro_torch.fabric import make_datacenter, probe_fabric, scramble
     from repro_torch.kernels import schedule_runner
     from repro_torch.launch import make_planned_mesh
     from repro_torch.models import layers as L
     from repro_torch.parallel import moe_a2a
-    from repro_torch.plan import PlanCompiler
-    from repro_torch.session import serve_mix
 
     cfg = model.cfg
-    fab, _ = scramble(make_datacenter(RANKS, **PLAN_FABRIC), seed=PLAN_SCRAMBLE_SEED)
-    plan = PlanCompiler(fabric=fab, seed=0).compile(
-        probe_fabric(fab, seed=PLAN_PROBE_SEED),
-        serve_mix(EP_PAYLOAD, moe=True), mesh_shape=(RANKS,),
-        axis_names=("data",))
-    entry = max((e for (op, _b, grp), e in plan.entries.items()
-                 if op == "all-to-all" and len(grp) == RANKS),
-                key=lambda e: e.size_bytes)
-    flat = [int(i) for i in plan.mesh_plan.flat]
-    want = tuple(flat.index(int(node)) for node in entry.perm)
+    plan, entry, flat, want = compile_ep_plan()
     mesh = make_planned_mesh(plan, "cuda")
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT))).cuda()
@@ -3079,6 +3845,7 @@ def main(argv=None) -> int:
     from repro_torch.train import OverlapGradReducer
 
     plan = compile_plan()
+    ep_plan = compile_ep_plan()
     layout = train_layout()
     planned = planned_layout(plan, layout)
     kernels = [check_wkv_kernel(args.seed),
@@ -3087,7 +3854,23 @@ def main(argv=None) -> int:
                check_flash_kernel(args.seed),
                check_peer_ring_kernel(args.seed, planned)]
     _free()
-    grouped = run_group(args.seed, card, plan, planned)
+    import shutil
+    import tempfile
+
+    ref_dir = tempfile.mkdtemp(prefix="repro_torch_pipeline_")
+    try:
+        piped = pipeline_virtual(args.seed, card, ref_dir)
+        _free()
+        t0 = time.monotonic()
+        grouped = run_group(args.seed, card, plan, planned,
+                            {"ref_dir": ref_dir, "ep_plan": ep_plan})
+        _say(f"the group phase with the pipeline and EP cases took "
+             f"{time.monotonic() - t0:.1f} s")
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    compressed = check_compression(args.seed, card, layout)
+    _free()
+    solver = check_solver_eval(args.seed, card)
     check_small_model(args.seed)
     check_small_dense(args.seed)
     check_small_families(args.seed)
@@ -3169,6 +3952,7 @@ def main(argv=None) -> int:
             k["launches_planned_run"] = trained_planned["launches"]["peer_ring"]
         if k["name"] == "fused_add":
             k["launches_group_run"] = grouped["launches"]["fused_add"]
+            k["launches_compression"] = compressed["launches"]["fused_add"]
         if k["name"] == "peer_ring":
             k["launches_ssm_train"] = trained_ssm["launches"]["peer_ring"]
         if k["name"] == "flash_attention":
@@ -3178,7 +3962,9 @@ def main(argv=None) -> int:
                 WHISPER_ARCH: whisper["launches"]["flash_attention"],
                 VLM_ARCH: vlm["launches"]["flash_attention"],
                 MOE_ARCH: moe["launches"]["flash_attention"],
-                MLA_ARCH: mla["launches"]["flash_attention"]}
+                MLA_ARCH: mla["launches"]["flash_attention"],
+                f"{PIPE_ARCH} pipeline": piped["bf16_flash"]["launches"][
+                    "flash_attention"]}
             # every model's layer shape on a flash path (PERF.md section 6)
             k["hybrid_layer"] = hybrid["flash_layer"]
             k["whisper_encoder_layer"] = whisper["flash_layer"]
@@ -3187,6 +3973,9 @@ def main(argv=None) -> int:
             k["dbrx_layer"] = moe["flash_layer"]
     if trained_ssm["launches"]["peer_ring"] < 1:
         raise AssertionError("peer_ring never launched on the ssm train command")
+    _say("new phases' seconds: " + json.dumps({
+        "pipeline_virtual": piped["phase_s"], "group_spawn": grouped["wall_s"],
+        "compression": compressed["phase_s"], "solver_eval": solver["phase_s"]}))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -29,9 +29,11 @@ its changed-edge list so acceptance uses O(K) edge deltas
 (:func:`_edge_delta`) instead of a full re-evaluation.  The seed
 implementations are retained as ``engine="reference"``
 (:func:`_propose_reference`, :func:`_or_opt_reference`) for equivalence
-tests.  A copy of ``repro.core.solver``; the reference's optional
-``backend="jax"`` evaluator is not ported (ROADMAP.md §1 item 14), so
-the port takes ``backend="numpy"`` only and raises on anything else.
+tests.  A copy of ``repro.core.solver``.  ``backend="jax"`` (the
+reference's spelling) routes full ring evaluations through the batched
+torch evaluator of :mod:`repro_torch.kernels.solver_eval`, on ``device``
+(``cuda`` unless the caller passes ``"cpu"``); any other backend than
+``"numpy"`` or ``"jax"`` raises.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 
@@ -642,6 +644,7 @@ def solve_sa(
     engine: str = "vectorized",
     backend: str = "numpy",
     resync_every: int = 256,
+    device: Any = "cuda",
 ) -> SolveResult:
     """Multi-chain simulated annealing with batched cost evaluation.
 
@@ -649,18 +652,13 @@ def solve_sa(
     vectorized numpy and, for symmetric ring objectives, scores them with
     O(K) edge deltas (full evaluations only every ``resync_every`` iters
     to cancel float drift).  ``engine="reference"`` is the seed per-chain
-    loop with full re-evaluation every iteration.  ``backend`` must be
-    ``"numpy"``: the reference's ``backend="jax"`` evaluator
-    (``repro.kernels.solver_eval``) is not ported yet (ROADMAP.md §1
-    item 14), and asking for it raises rather than silently running
-    numpy.
+    loop with full re-evaluation every iteration.  ``backend="jax"``
+    routes full ring evaluations through the batched evaluator of
+    :mod:`repro_torch.kernels.solver_eval` on ``device``, where the
+    reference routes them to its jitted one (other cost models evaluate
+    in numpy, as there); without CUDA it raises unless ``device="cpu"``.
     """
-    if backend != "numpy":
-        raise ValueError(
-            f"solve backend {backend!r} is not available in repro_torch: "
-            "only 'numpy' is; the batched evaluator of the reference's "
-            "backend='jax' is not ported yet (ROADMAP.md §1 item 14, "
-            "solver evaluator)")
+    dev = _backend_device(backend, device)
     # solver wall clock stays raw: the SA hot loop checks timeout_s
     # per iteration and cannot afford a tracer call per check
     t_start = time.perf_counter()  # lint: allow(raw-perf-counter)
@@ -672,6 +670,10 @@ def solve_sa(
     ring_mat = None
     if isinstance(cost_model, RingCost):
         ring_mat = _ring_matrix(cost_model)
+        if dev is not None:
+            from repro_torch.kernels.solver_eval import make_ring_evaluator
+
+            evaluate = make_ring_evaluator(ring_mat, dev)
     use_delta = (
         engine == "vectorized"
         and ring_mat is not None
@@ -824,6 +826,19 @@ def solve_sa(
 # Orchestration
 # ---------------------------------------------------------------------------
 
+def _backend_device(backend: str, device: Any):
+    """The evaluator's device for ``backend="jax"`` (resolved, so a
+    missing card raises), None for ``"numpy"``; any other name raises."""
+    if backend == "numpy":
+        return None
+    if backend == "jax":
+        from repro_torch import resolve_device
+
+        return resolve_device(device)
+    raise ValueError(f"unknown solve backend {backend!r}: want 'numpy' or "
+                     f"'jax' (the batched evaluator)")
+
+
 def _ring_matrix(cost_model: CostModel) -> np.ndarray:
     """Effective symmetric edge-cost matrix for ring objectives."""
     if cost_model.c is not None:
@@ -840,6 +855,7 @@ def solve(
     timeout_s: Optional[float] = None,
     engine: str = "vectorized",
     backend: str = "numpy",
+    device: Any = "cuda",
 ) -> SolveResult:
     """Full two-stage pipeline.
 
@@ -852,8 +868,10 @@ def solve(
       * ``"sa"``    — stage-1 only.
 
     ``engine="reference"`` runs the seed implementation end to end (seed
-    SA loop + first-improve or-opt); ``backend`` is forwarded to stage 1.
+    SA loop + first-improve or-opt); ``backend`` and ``device`` are
+    forwarded to stage 1.
     """
+    _backend_device(backend, device)
     t_start = time.perf_counter()  # lint: allow(raw-perf-counter)
     n = cost_model.n
     is_ring = isinstance(cost_model, RingCost)
@@ -867,7 +885,8 @@ def solve(
                            time.perf_counter() - t_start)  # lint: allow(raw-perf-counter)
 
     sa = solve_sa(cost_model, iters=iters, chains=chains, seed=seed,
-                  timeout_s=timeout_s, engine=engine, backend=backend)
+                  timeout_s=timeout_s, engine=engine, backend=backend,
+                  device=device)
     candidates.append((sa.perm, sa.cost, "sa"))
     trace = list(sa.trace)
 

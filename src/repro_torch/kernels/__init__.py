@@ -1,4 +1,6 @@
-"""Hand-written CUDA kernels, each with its plain PyTorch version.
+"""Hand-written CUDA kernels, each with its plain PyTorch version, and the
+solver's batched evaluator (:mod:`~repro_torch.kernels.solver_eval`, torch
+ops on the card, the reference's ``backend="jax"`` path).
 
 Building a kernel (``nvcc``) happens at its first launch, never at import.
 """
@@ -16,3 +18,4 @@ from .ring_collective import (  # noqa: F401
 )
 from .rwkv6_chunked import wkv_chunked_matmul, wkv_chunked_matmul_plain  # noqa: F401
 from .rwkv6_scan import wkv_scan, wkv_scan_plain  # noqa: F401
+from .solver_eval import make_ring_evaluator, ring_cost_batch  # noqa: F401

@@ -1,4 +1,5 @@
-"""Optimizers (counterpart of ``repro.optim``): AdamW."""
+"""Optimizers (counterpart of ``repro.optim``): AdamW and int8 gradient
+compression with error feedback."""
 
 from .adamw import (  # noqa: F401
     AdamWConfig,
@@ -7,4 +8,10 @@ from .adamw import (  # noqa: F401
     cosine_schedule,
     global_norm,
     init_opt,
+)
+from .compression import (  # noqa: F401
+    compress_grads,
+    compressed_psum,
+    decompress_grads,
+    error_feedback_update,
 )

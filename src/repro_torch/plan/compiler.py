@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -332,7 +332,7 @@ class SolveBudget:
     min_chunk_bytes: float = 64 * 1024
     #: forwarded to :func:`repro_torch.core.solver.solve`
     engine: str = "vectorized"          # "vectorized" | "reference"
-    backend: str = "numpy"              # "numpy" only (ROADMAP.md §1 item 14)
+    backend: str = "numpy"              # "numpy" | "jax" (the batched evaluator)
     #: groups at least this large solve by hierarchy decomposition
     #: (per-cluster then inter-cluster) when a recovered
     #: :class:`repro_torch.fabric.HierarchyModel` is available — the flat SA
@@ -355,10 +355,13 @@ class PlanCompiler:
     """
 
     def __init__(self, fabric: Optional[Fabric] = None,
-                 budget: Optional[SolveBudget] = None, seed: int = 0):
+                 budget: Optional[SolveBudget] = None, seed: int = 0,
+                 device: Any = "cuda"):
         self.fabric = fabric
         self.budget = budget or SolveBudget()
         self.seed = seed
+        #: where ``budget.backend="jax"`` evaluates (unused by "numpy")
+        self.device = device
         # static-verification verdicts, keyed by the program's schedule
         # *structure* (see _verify_key): size- and placement-invariant,
         # so one verify covers every bucket/group reusing the same
@@ -601,7 +604,8 @@ class PlanCompiler:
                 solved = solve(model, method="auto", iters=self.budget.iters,
                                chains=self.budget.chains, seed=self.seed,
                                engine=self.budget.engine,
-                               backend=self.budget.backend)
+                               backend=self.budget.backend,
+                               device=self.device)
                 solved_local = np.asarray(solved.perm)
             for local in (identity_local, solved_local):
                 node_perm = g[local]

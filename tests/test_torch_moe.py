@@ -371,10 +371,18 @@ def test_moe_a2a_matches_dense_on_the_virtual_mesh():
 
 
 def test_ep_refuses_a_group_backed_mesh_and_a_second_axis():
+    """A group-backed mesh arms (the EP all-to-all over processes runs in
+    ``tests/test_torch_group.py``'s spawn), and its path refuses a layer
+    under grad before any exchange (item 18); a second axis is refused."""
     group_mesh = PlannedMesh(order=tuple(range(8)), shape=(8,), axis_names=("data",),
                              device=torch.device("cpu"), group=object())
-    with pytest.raises(NotImplementedError, match="item 19"):
-        moe_a2a.arm_ep(group_mesh)
+    moe_a2a.arm_ep(group_mesh)
+    gcfg = dataclasses.replace(get_config("dbrx-132b").smoke(), n_experts=8)
+    assert moe_a2a.ep_armed(gcfg) and moe_a2a._EP_STATE["mesh"] is group_mesh
+    gp = L.init_from_spec(torch.Generator(), L.moe_spec(gcfg), torch.float32)
+    gx = torch.zeros(1, 4, gcfg.d_model, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        L.moe_layer(gp, gx, gcfg)
     cfg = dataclasses.replace(get_config("dbrx-132b").smoke(), n_experts=4)
     moe_a2a.arm_ep(make_mesh((2, 2), ("data", "model"), device="cpu"))
     p = L.init_from_spec(torch.Generator(), L.moe_spec(cfg), torch.float32)

@@ -303,15 +303,38 @@ def test_reducer_from_plan_certifies_the_reference_schedule(smoke_plans):
                              transport="runner").schedule == red.schedule
 
 
-def test_solver_refuses_the_jax_backend():
+def test_solver_refuses_the_jax_backend(monkeypatch):
+    """``backend="jax"``, the reference's spelling, runs the port's batched
+    evaluator (``repro_torch.kernels.solver_eval``) in ``solve``,
+    ``solve_sa`` and a ``SolveBudget``; an unknown backend still raises,
+    and so does the default ``cuda`` device without a card: nothing falls
+    back to numpy."""
+    import repro_torch.kernels.solver_eval as T_se
+
+    bound = []
+    real = T_se.make_ring_evaluator
+
+    def spy(cmat, device="cuda"):
+        bound.append(str(device))
+        return real(cmat, device)
+
+    monkeypatch.setattr(T_se, "make_ring_evaluator", spy)
     lat, _, _ = _cost_inputs(16, seed=0)
     model = T_cm.make_cost_model("ring", cost_matrix=lat, size_bytes=1e6)
-    for call in (lambda: T_so.solve(model, iters=10, chains=2, backend="jax"),
-                 lambda: T_so.solve_sa(model, iters=10, chains=2, backend="jax")):
-        with pytest.raises(ValueError, match="ROADMAP.md .*item 14"):
+    for solve in (T_so.solve, T_so.solve_sa):
+        res = solve(model, iters=10, chains=2, backend="jax", device="cpu")
+        assert sorted(res.perm) == list(range(16))
+        assert res.cost == pytest.approx(float(model.cost(res.perm)), rel=1e-12)
+    assert bound == ["cpu", "cpu"]
+    for call in (lambda: T_so.solve(model, iters=10, chains=2, backend="cupy"),
+                 lambda: T_so.solve_sa(model, iters=10, chains=2, backend="cupy")):
+        with pytest.raises(ValueError, match="unknown solve backend 'cupy'"):
             call()
     budget = T_plan.SolveBudget(iters=10, chains=2, backend="jax")
     fab = T_fab.make_datacenter(16, nodes_per_rack=4, seed=0)
-    with pytest.raises(ValueError, match="item 14"):
-        T_plan.PlanCompiler(budget=budget).compile(
-            T_fab.probe_fabric(fab, seed=0), T_train_mix(1e6))
+    plan = T_plan.PlanCompiler(budget=budget, device="cpu").compile(
+        T_fab.probe_fabric(fab, seed=0), T_train_mix(1e6))
+    assert plan.entries and len(bound) > 2
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            T_so.solve_sa(model, iters=10, chains=2, backend="jax")
