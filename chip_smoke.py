@@ -186,6 +186,20 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
     ``moe_a2a`` against ``moe_dense`` with a control, drops and times at
     1.25; then the flash kernel at dbrx's layer ``[4, 48/8, 2048, 128]``.
 
+16. ``python -m repro_torch bench --scenario overlap`` at full width: the
+    scenario's ``run`` (``repro_torch.bench.overlap_step``) with
+    ``qwen2-0.5b`` at published widths in f32 over 8 virtual ranks of one
+    16-token row, the modeled section (the planned ring on the scrambled
+    8-node fabric, the 1.15x gate) and the three overlap modes beside the
+    baseline step, comm-only and compute-only, each mode's loss held to the
+    baseline's at ``rtol=2e-5``, the postcondition, ``peer_ring`` counted
+    at one launch a bucket a reducer call; then ``bucketed`` over the
+    runner transport, one ``fused_add`` a reduce step a bucket, counted;
+17. the host commands through ``repro_torch.cli.main`` on a machine with
+    no JAX: ``bench`` (plan, faults, obs), ``analyze`` (sweep, ``--equiv``,
+    ``--plan``, ``--lint`` over this checkout), ``status``, ``trace
+    export`` and ``trace replay``, each required to exit 0, each timed.
+
 Phase 4 also holds the smoke ``recurrentgemma-9b`` (a group and a tail,
 at P > W and P == W) and ``whisper-small`` in f32 on the card: flash
 prefill == xla prefill, greedy tokens equal.
@@ -3707,6 +3721,250 @@ def check_ep_armed(model, params, seed: int, card: str) -> dict:
     return res
 
 
+def bench_overlap_full_width(seed: int, card: str, shapes) -> dict:
+    """Phase 16: ``bench --scenario overlap`` at full width on the card.
+
+    The scenario's ``run`` (``repro_torch.bench.overlap_step``) with
+    ``qwen2-0.5b`` at published widths over 8 virtual ranks and all three
+    modes, 5 timed calls each after an untimed one (the reference's count
+    at full width); every launch count zeroed just
+    before and read just after, every reducer call timed with CUDA events by
+    a spy on ``OverlapGradReducer.__call__`` that calls through.  Each mode's
+    loss against the baseline's at the scenario's ``rtol``, the
+    postcondition, the transport (``peer_ring``, as ``train`` picks on
+    CUDA), and ``peer_ring`` launched once a bucket a reducer call.  Then
+    ``bucketed`` once more over the runner transport, counted: one
+    ``fused_add`` a reduce step, a piece and a bucket (as ``train_layout``
+    reckons them), its loss against the baseline's the same way.
+    ``shapes`` is the model's parameters on the meta device.
+    """
+    import contextlib
+    import io
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.bench import overlap_step
+    from repro_torch.kernels import ring_collective as rc
+    from repro_torch.train import (
+        OverlapGradReducer, make_overlap_train_step, make_train_step,
+        partition_tree)
+    from repro_torch.train import overlap_grads
+
+    counted = _counted()
+    calls = []
+    inner = overlap_grads.OverlapGradReducer.__call__
+
+    def timed(self, stacked, compute=()):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(self, stacked, compute)
+        end.record()
+        calls.append((self.transport, self.mode, start, end))
+        return out
+
+    out_dir = tempfile.mkdtemp(prefix="repro_torch_bench_overlap_")
+    path = os.path.join(out_dir, "o.json")
+    buf = io.StringIO()
+    overlap_grads.OverlapGradReducer.__call__ = timed
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            res = overlap_step.run(smoke=False, seed=seed, device="cuda",
+                                   out_path=path)
+        torch.cuda.synchronize()
+        scenario_s = time.monotonic() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with open(path) as f:
+            written = json.load(f)
+    finally:
+        overlap_grads.OverlapGradReducer.__call__ = inner
+        # the scenario's rows, and its JSON, also when its gate failed
+        for line in buf.getvalue().splitlines():
+            _say("bench overlap | " + line)
+        if os.path.exists(path):
+            with open(path) as f:
+                _say("bench overlap json " + f.read().replace("\n", " "))
+        shutil.rmtree(out_dir, ignore_errors=True)
+    host, modeled = res["host"], res["modeled"]
+    if written["host"] != host or not res["gate_ok"]:
+        raise AssertionError("bench overlap: the JSON written is not the run's")
+    base_loss = host["baseline_loss"]
+    for mode in ("sequential", "bucketed", "fused"):
+        loss = host[f"{mode}_loss"]
+        if not (host[f"{mode}_loss_ok"] and math.isfinite(loss) and math.isclose(
+                loss, base_loss, rel_tol=overlap_step.LOSS_RTOL)):
+            raise AssertionError(f"bench overlap {mode}: loss {loss!r} against "
+                                 f"the baseline's {base_loss!r}")
+    if not host["postcondition_ok"]:
+        raise AssertionError("bench overlap: the postcondition failed")
+    buckets = len(partition_tree(shapes, host["bucket_bytes"]))
+    reps = host["reps"]
+    # each mode and the comm-only run: one untimed call, then reps timed
+    want_calls = 4 * (reps + 1)
+    if host["transport"] != "peer_ring" or host["buckets"] != buckets:
+        raise AssertionError(f"bench overlap: {host['buckets']} buckets over "
+                             f"{host['transport']}, expected {buckets} over "
+                             f"peer_ring")
+    if len(calls) != want_calls or launches["peer_ring"] != buckets * want_calls:
+        raise AssertionError(f"bench overlap: peer_ring launched "
+                             f"{launches['peer_ring']} times in {len(calls)} "
+                             f"reducer calls, expected {buckets} x {want_calls}")
+    if launches["fused_add"] != 0 or rc.ring_status() != 0:
+        raise AssertionError(f"bench overlap: fused_add {launches['fused_add']} "
+                             f"launches on the peer_ring path, or the ring's "
+                             f"status word is set")
+    reducer_ms = {}
+    for transport, mode, start, end in calls:
+        reducer_ms.setdefault(mode, []).append(start.elapsed_time(end))
+
+    # bucketed again over the runner transport, so fused_add runs on this path
+    t_runner = time.monotonic()
+    _free()
+    h = overlap_step.host_setup(res["scenario"], smoke=False, device="cuda")
+    sched = h.schedule
+    reduce_steps = sum(1 for rnd in sched.rounds for st in rnd
+                       if st.op == "reduce")
+    per_step = buckets * reduce_steps * max(1, sched.chunk_factor)
+    runner_base = float(make_train_step(h.model, h.opt)(h.state, h.batch)[1]["loss"])
+    red = OverlapGradReducer(sched, bucket_bytes=h.bucket_bytes,
+                             mode="bucketed", transport="runner")
+    step = make_overlap_train_step(h.model, h.opt, red)
+    torch.cuda.synchronize()
+    runner = {}
+    for name in ("warm-up", "counted"):
+        for fn in counted.values():
+            fn.launches = 0
+        del calls[:]
+        overlap_grads.OverlapGradReducer.__call__ = timed
+        try:
+            t0 = time.monotonic()
+            loss = float(step(h.state, h.batch)[1]["loss"])
+            torch.cuda.synchronize()
+            runner[name] = {"step_ms": (time.monotonic() - t0) * 1e3,
+                            "reducer_ms": calls[0][2].elapsed_time(calls[0][3]),
+                            "loss": loss,
+                            "launches": {k: fn.launches
+                                         for k, fn in counted.items()}}
+        finally:
+            overlap_grads.OverlapGradReducer.__call__ = inner
+    got = runner["counted"]["launches"]
+    if got["fused_add"] != per_step or got["peer_ring"] != 0:
+        raise AssertionError(f"bench overlap runner: fused_add launched "
+                             f"{got['fused_add']} times, expected {buckets} "
+                             f"buckets x {reduce_steps} reduce steps x "
+                             f"{max(1, sched.chunk_factor)} pieces = {per_step}")
+    if not math.isclose(runner["counted"]["loss"], runner_base,
+                        rel_tol=overlap_step.LOSS_RTOL):
+        raise AssertionError(f"bench overlap runner: loss "
+                             f"{runner['counted']['loss']!r} against the "
+                             f"baseline's {runner_base!r}")
+    del h, red, step
+    out = {
+        "arch": host["config"], "ranks": overlap_step.N, "tokens_per_rank":
+        overlap_step.SEQ, "reps": reps, "transport": host["transport"],
+        "buckets": buckets, "bucket_bytes": host["bucket_bytes"],
+        "param_bytes": host["param_bytes"],
+        "algorithm": res["scenario"]["algo"], "perm": res["scenario"]["perm"],
+        "host_clock_s": {k: host[f"{k}_s"] for k in (
+            "baseline", "sequential", "bucketed", "fused", "comm_only",
+            "compute_only")},
+        "exposed_comm_fraction": host["exposed_comm_fraction"],
+        "modeled_speedup": modeled["speedup_bucketed_vs_sequential"],
+        "modeled_exposed_fraction": modeled["modeled_exposed_fraction"],
+        "losses": {k: host[f"{k}_loss"] for k in (
+            "baseline", "sequential", "bucketed", "fused")},
+        "reducer_cuda_ms": reducer_ms, "launches": launches,
+        "peak_mem_gb": peak_gb, "scenario_s": scenario_s,
+        "runner": dict(runner, baseline_loss=runner_base,
+                       fused_add_per_step=per_step,
+                       reduce_steps=reduce_steps),
+        "card": card,
+    }
+    out["phase_s"] = scenario_s + time.monotonic() - t_runner
+    _say("bench overlap " + json.dumps(res["scenario"]))
+    _say("bench overlap modeled " + json.dumps(modeled))
+    _say(f"bench overlap {host['config']} over {overlap_step.N} ranks x "
+         f"{overlap_step.SEQ} tokens, {buckets} buckets of "
+         f"{host['bucket_bytes']:.0f} bytes over {host['transport']} at "
+         f"{res['scenario']['perm']}, {reps} reps; host clock (obs timers, "
+         f"synchronised), s a call: " + ", ".join(
+             f"{k} {v:.4f}" for k, v in out["host_clock_s"].items())
+         + f"; exposed fraction {host['exposed_comm_fraction']:.4f} (modeled "
+         f"{modeled['modeled_exposed_fraction']:.4f}, modeled speedup "
+         f"{modeled['speedup_bucketed_vs_sequential']:.4f}); reducer CUDA "
+         f"events, mean ms a call: " + ", ".join(
+             f"{k} {sum(v) / len(v):.3f}" for k, v in reducer_ms.items())
+         + f"; peer_ring launches {launches['peer_ring']} ({buckets} x "
+         f"{want_calls}); peak memory {peak_gb:.3f} GB; runner step "
+         f"{runner['counted']['step_ms']:.1f} ms host clock, its reducer "
+         f"{runner['counted']['reducer_ms']:.2f} ms CUDA events, fused_add "
+         f"{got['fused_add']} ({per_step} a step) [{card}]")
+    _say("bench overlap full " + json.dumps(out))
+    return out
+
+
+def host_commands(card: str) -> dict:
+    """Phase 17: the host-only commands through ``repro_torch.cli.main`` on
+    a machine with no JAX, each required to exit 0, timed on the host
+    clock; the tracer's state restored after (``trace export`` turns it
+    on)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch import cli, obs
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="repro_torch_host_cmds_")
+    commands = [
+        ["bench", "--smoke"],
+        ["bench", "--scenario", "faults", "--smoke"],
+        ["bench", "--scenario", "obs", "--smoke"],
+        ["analyze", "--n-list", "4,8,16"],
+        ["analyze", "--equiv", "--n-list", "4,8,16"],
+        ["analyze", "--plan"],
+        ["analyze", "--lint", "--root", root],
+        ["status", "--format", "prom"],
+        ["trace", "export", "--out", os.path.join(tmp, "trace.json")],
+        ["trace", "replay"],
+    ]
+    enabled = obs.tracer().enabled
+    seconds = {}
+    t_all = time.monotonic()
+    try:
+        for argv in commands:
+            buf = io.StringIO()
+            t0 = time.monotonic()
+            with contextlib.redirect_stdout(buf):
+                code = cli.main(list(argv))
+            dt = time.monotonic() - t0
+            text = buf.getvalue().strip().splitlines()
+            label = " ".join(argv).replace(tmp, "<tmp>").replace(root, "<repo>")
+            seconds[label] = dt
+            _say(f"python -m repro_torch {label}: exit {code} in {dt:.2f} s "
+                 f"(host clock) | {text[-1] if text else ''}")
+            if code != 0:
+                raise AssertionError(f"python -m repro_torch {label} exited "
+                                     f"{code}:\n" + "\n".join(text[-30:]))
+    finally:
+        obs.tracer().set_enabled(enabled)
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"seconds": seconds, "phase_s": time.monotonic() - t_all,
+           "card": card}
+    _say("host commands " + json.dumps(res))
+    return res
+
+
 def ssm_shapes():
     """rwkv6-1.6b's parameters on the meta device (its gradient buckets)."""
     import torch
@@ -3816,6 +4074,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_start = time.monotonic()
 
     import torch
 
@@ -3940,6 +4199,10 @@ def main(argv=None) -> int:
     moe["flash_layer"] = time_flash_layer(
         MOE_ARCH, (MOE_BATCH, mcfg.n_heads, mcfg.n_kv_heads, MOE_PROMPT,
                    mcfg.head_dim), True, 0, args.seed)
+    _free()
+    bench_overlap = bench_overlap_full_width(args.seed, card, layout["shapes"])
+    _free()
+    host_cmds = host_commands(card)
     # each kernel's launches come from the path it carries; the peer ring's
     # from the user's entry point (the hand-wired planned run's beside it)
     paths = {"wkv_chunked": served, "wkv_scan": served, "fused_add": trained,
@@ -3953,8 +4216,11 @@ def main(argv=None) -> int:
         if k["name"] == "fused_add":
             k["launches_group_run"] = grouped["launches"]["fused_add"]
             k["launches_compression"] = compressed["launches"]["fused_add"]
+            k["launches_bench_overlap_runner"] = bench_overlap["runner"][
+                "counted"]["launches"]["fused_add"]
         if k["name"] == "peer_ring":
             k["launches_ssm_train"] = trained_ssm["launches"]["peer_ring"]
+            k["launches_bench_overlap"] = bench_overlap["launches"]["peer_ring"]
         if k["name"] == "flash_attention":
             k["launches_by_path"] = {
                 DENSE_ARCH: served_dense["launches"]["flash_attention"],
@@ -3975,7 +4241,10 @@ def main(argv=None) -> int:
         raise AssertionError("peer_ring never launched on the ssm train command")
     _say("new phases' seconds: " + json.dumps({
         "pipeline_virtual": piped["phase_s"], "group_spawn": grouped["wall_s"],
-        "compression": compressed["phase_s"], "solver_eval": solver["phase_s"]}))
+        "compression": compressed["phase_s"], "solver_eval": solver["phase_s"],
+        "bench_overlap": bench_overlap["phase_s"],
+        "host_commands": host_cmds["phase_s"]}))
+    _say(f"the whole script: {time.monotonic() - t_start:.1f} s (host clock)")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

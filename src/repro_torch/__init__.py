@@ -13,7 +13,11 @@ beside it and imports nothing of it (nor JAX).  Module names mirror
   apply → monitor) and its ``SessionConfig``;
 * :mod:`repro_torch.train` — the train steps, the planned reducer and the
   fault-tolerant ``Trainer``;
-* :mod:`repro_torch.obs` — tracer, metrics and workload recorder;
+* :mod:`repro_torch.faults` — fault injection (``FaultSchedule``,
+  ``FaultyFabric``) and the session's resilience machinery;
+* :mod:`repro_torch.obs` — tracer, metrics, workload capture and replay;
+* :mod:`repro_torch.bench` — the overlapped-train-step scenario of
+  ``python -m repro_torch bench --scenario overlap``;
 * :mod:`repro_torch.convert` — JAX parameter trees to torch tensors.
 
 Entry points take a ``device`` that defaults to ``"cuda"`` and raise when
@@ -28,14 +32,21 @@ from __future__ import annotations
 import importlib
 from typing import Any
 
+__version__ = "0.3.0"
+
 __all__ = [
+    "FaultEvent",
+    "FaultSchedule",
+    "FaultyFabric",
     "GenerationConfig",
     "GenerationEngine",
     "ModelConfig",
+    "ProbeTimeout",
     "Session",
     "SessionConfig",
     "Trainer",
     "TrainerConfig",
+    "__version__",
     "default_device",
     "get_config",
     "get_model",
@@ -46,6 +57,10 @@ __all__ = [
 ]
 
 _LAZY = {
+    "FaultEvent": "repro_torch.faults",
+    "FaultSchedule": "repro_torch.faults",
+    "FaultyFabric": "repro_torch.faults",
+    "ProbeTimeout": "repro_torch.faults",
     "GenerationConfig": "repro_torch.serve.engine",
     "GenerationEngine": "repro_torch.serve.engine",
     "ModelConfig": "repro_torch.configs.base",

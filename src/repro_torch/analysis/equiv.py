@@ -26,7 +26,8 @@ bisimulation:
 :func:`require_certified` is the hard gate: the port's runners
 (:mod:`repro_torch.kernels.schedule_runner`,
 :mod:`repro_torch.kernels.overlap`, :mod:`repro_torch.train.overlap_grads`)
-run only schedules it has passed.
+run only schedules it has passed; :func:`certify_stages` re-certifies a
+program after each rewrite pass (``analyze --equiv``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ __all__ = [
     "PASS",
     "analyze_equiv",
     "bisimulate",
+    "certify_stages",
     "symbolic_execute",
     "require_certified",
 ]
@@ -317,6 +319,57 @@ def require_certified(program: Program,
             f"{len(errors)} error(s): {errors[0].code} — "
             f"{errors[0].message}", report=report)
     return stats
+
+
+def certify_stages(
+    program: Program,
+    perm: Optional[Tuple[int, ...]] = None,
+    chunk_k: int = 1,
+    fuse: bool = True,
+) -> List[Dict[str, object]]:
+    """Differential translation validation across the rewrite passes.
+
+    Starting from ``program`` (stage ``base``), applies each rewrite in
+    the compiler's order — ``apply_permutation(perm)``, ``chunk(k)``,
+    ``fuse_rounds`` — re-lowering and re-bisimulating after every one.
+    Returns one verdict dict per executed stage::
+
+        {"stage", "ok", "n_findings", "codes", "stats",
+         "program_fingerprint"}
+
+    A lowering bug that only manifests after a particular rewrite
+    (e.g. fusion changing the step packing) is pinned to its stage.
+    Stages whose rewrite is a no-op (identity perm / k=1 / nothing to
+    fuse) still certify — the proof is cheap and the matrix stays
+    rectangular.  ``analyze --equiv`` runs it over every builder.
+    """
+    from repro_torch.collective.passes import apply_permutation, chunk, fuse_rounds
+
+    out: List[Dict[str, object]] = []
+    current = program
+
+    def run(stage: str, prog: Program) -> None:
+        findings, stats = bisimulate(prog)
+        out.append({
+            "stage": stage,
+            "ok": not any(f.severity == "error" for f in findings),
+            "n_findings": len(findings),
+            "codes": sorted({f.code for f in findings}),
+            "stats": stats,
+            "program_fingerprint": prog.fingerprint(),
+        })
+
+    run("base", current)
+    if perm is not None:
+        current = apply_permutation(current, perm)
+        run("apply_permutation", current)
+    if chunk_k > 1:
+        current = chunk(current, chunk_k)
+        run("chunk", current)
+    if fuse:
+        current, _ = fuse_rounds(current, verify=False)
+        run("fuse_rounds", current)
+    return out
 
 
 def analyze_equiv(

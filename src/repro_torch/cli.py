@@ -1,12 +1,17 @@
 """``python -m repro_torch``: the port's command-line interface.
 
-Counterpart of ``repro``'s CLI (``repro/cli.py``) for four subcommands::
+Counterpart of ``repro``'s CLI (``repro/cli.py``), every subcommand::
 
     python -m repro_torch probe --fabric datacenter --nodes 64
     python -m repro_torch plan  --mesh 8 --payload-bytes 988065536 --dry-run
     python -m repro_torch train --arch qwen2-0.5b --mesh 8 --batch 16 \\
         --seq 1024 --steps 4 --reorder simulate
     python -m repro_torch serve --arch glm4-9b --batch 8 --prompt-len 2048
+    python -m repro_torch bench --smoke [--scenario plan|faults|obs|overlap]
+    python -m repro_torch analyze [--lint | --program ALGO | --plan | --equiv]
+    python -m repro_torch status --format prom
+    python -m repro_torch trace export --out trace.json
+    python -m repro_torch trace replay [--trace capture.json]
 
 Every subcommand accepts the reference's session arguments:
 ``--config session.json`` plus ``REPRO_*`` environment overrides
@@ -39,6 +44,14 @@ more than one rank arms the EP all-to-all
 ``train`` takes every family but ``encdec``, whose loss needs audio the
 synthetic batches do not carry, and ``moe``, whose training on the card
 waits for the sharding specs.
+
+``bench``, ``analyze``, ``status`` and ``trace`` are the reference's,
+host-only numpy over the port's planner, with the reference's JSON and
+exit codes; the one device path is ``bench --scenario overlap``
+(:mod:`repro_torch.bench.overlap_step`), which runs the overlapped train
+step on CUDA unless ``--device cpu`` is given and writes its JSON only
+where ``--out`` says (the reference writes ``BENCH_overlap.json`` in the
+working directory).
 """
 
 from __future__ import annotations
@@ -51,7 +64,10 @@ import sys
 import tempfile
 from typing import Any, Dict, List, Optional
 
-__all__ = ["main", "build_parser", "session_config_from_args"]
+from repro_torch import obs
+
+__all__ = ["main", "build_parser", "session_config_from_args",
+           "run_obs_scenario"]
 
 #: the reducer's bucket payload when no plan supplies one (``--reorder none``)
 DEFAULT_BUCKET_BYTES = 4 * 1024 * 1024
@@ -101,7 +117,8 @@ def _add_session_args(ap: argparse.ArgumentParser) -> None:
                    choices=["vectorized", "reference"])
     g.add_argument("--solver-backend", default=None,
                    choices=["numpy", "jax"],
-                   help="jax raises: the port's solver runs numpy only")
+                   help="jax: the batched torch evaluator "
+                        "(kernels/solver_eval.py)")
     g.add_argument("--solver-seed", type=int, default=None)
     g.add_argument("--drift-threshold", type=float, default=None)
     g.add_argument("--dump-config", action="store_true",
@@ -302,7 +319,7 @@ def cmd_train(args: argparse.Namespace) -> int:
     import numpy as np
     import torch
 
-    from repro_torch import obs, resolve_device
+    from repro_torch import resolve_device
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.launch import (
@@ -448,7 +465,7 @@ SERVE_PAYLOAD_BYTES = 1e6
 def cmd_serve(args: argparse.Namespace) -> int:
     import torch
 
-    from repro_torch import obs, resolve_device
+    from repro_torch import resolve_device
     from repro_torch.configs import get_config
     from repro_torch.launch import build_mesh
     from repro_torch.models import get_model
@@ -514,10 +531,623 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# bench
+# ---------------------------------------------------------------------------
+
+def cmd_bench_faults(args: argparse.Namespace) -> int:
+    """Seeded churn scenario: preempt 25% of the nodes mid-session, let
+    the degradation ladder recover, referee the recovered order against
+    identity, and rejoin the preempted nodes.  Fails (exit 1) if any
+    recovery raises, loses the plan, or serves an order the cost model
+    scores worse than identity."""
+    from repro_torch.faults import FaultSchedule, FaultyFabric
+    from repro_torch.fabric import make_datacenter, scramble
+    from repro_torch.session import Session
+
+    n = 16 if args.smoke else 32
+    iters = 200 if args.smoke else 400
+    fab, _ = scramble(make_datacenter(n, seed=0), seed=1)
+    schedule = FaultSchedule.generate(
+        n, ticks=8, seed=args.seed, preempt_frac=0.25,
+        timeout_rate=0.0, drop_rate=0.0, nan_rate=0.0)
+    faulty = FaultyFabric(fab, schedule)
+    cfg = session_config_from_args(args).replace(
+        mesh={"shape": ()}, cache={"dir": None},
+        probe={"n_probes": 4},
+        solver={"budget": {"iters": iters, "chains": 4}})
+    events: List[Dict[str, Any]] = []
+    with Session(cfg) as s:
+        s.attach(fab)
+        s.plan()
+        for _ in range(8):
+            for ev in faulty.advance():
+                timer = obs.tracer().timer("bench.recovery", kind=ev.kind)
+                with timer:
+                    if ev.kind == "node_preempt":
+                        alive = s.alive
+                        plan = s.on_node_leave(
+                            [alive.index(b) for b in ev.nodes if b in alive])
+                    else:
+                        plan = s.on_node_join(
+                            [b for b in ev.nodes if b not in s.alive])
+                ms = timer.elapsed * 1e3
+                ok = plan is not None and all(
+                    e.expected_time <= e.best_identity_time * (1 + 1e-9)
+                    and sorted(e.perm) == list(e.group)
+                    for e in plan.entries.values())
+                events.append({
+                    "kind": ev.kind, "survivors": len(s.alive),
+                    "recovery_ms": round(ms, 2),
+                    "rungs": sorted(set(
+                        (plan.meta.get("rungs") or {}).values()))
+                    if plan is not None else [],
+                    "ok": ok,
+                })
+                print(f"bench_faults,{ev.kind},{ms * 1e3:.0f},"
+                      f"survivors={len(s.alive)}")
+        health = s.health
+    payload = {"bench": "session_faults", "smoke": bool(args.smoke),
+               "n": n, "seed": args.seed, "health": health,
+               "events": events}
+    print(json.dumps(payload, indent=1))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(payload, f, indent=1)
+        print(f"[bench] wrote {args.out}")
+    if not events or not all(e["ok"] for e in events):
+        print("[bench] FAIL: a churn recovery lost the plan or served "
+              "an order worse than identity")
+        return 1
+    return 0
+
+
+def run_obs_scenario(smoke: bool = True, seed: int = 0,
+                     window_s: float = 1.0) -> Dict[str, Any]:
+    """The obs benchmark scenario (CLI ``bench --scenario obs`` and
+    the reference's ``benchmarks/obs_trace.py`` share this).
+
+    Two measurements:
+
+    * **tracing overhead** — median wall time of the same
+      ``PlanCompiler.compile`` with the tracer disabled vs enabled
+      (the disabled path must be a no-op: ``span()`` returns the
+      shared null span); unlike the reference, after a warm-up compile,
+      the two modes are timed in turns with the cyclic GC off, 15 pairs
+      under ``smoke`` (27 otherwise; the reference times 5 / 9 calls a
+      mode), and the overhead is the median of the pairs' ratios
+      (``disabled_s`` and ``enabled_s`` stay each mode's median);
+    * **capture → replay** — price a synthetic bursty trace under the
+      single declared-mix plan (one operator-declared payload size, see
+      :func:`repro_torch.obs.declared_mix`) vs per-phase-window plans
+      compiled from :func:`repro_torch.obs.fold` output.  Phase-aware
+      planning must not lose to the stationary plan.
+    """
+    import gc
+    import statistics
+
+    from repro_torch.fabric import make_datacenter, probe_fabric, scramble
+    from repro_torch.obs import declared_mix, fold, replay, synthetic_bursty_trace
+    from repro_torch.plan import PlanCompiler, SolveBudget
+
+    n = 16 if smoke else 32
+    iters = 60 if smoke else 200
+    # three times the reference's 5 / 9: at 5 calls a mode a card's host
+    # read 10 % or more in 3 to 11 trials of 60, whichever way it was
+    # timed, and at 15 pairs in none (tools/obs_gate_spread.py)
+    reps = 15 if smoke else 27
+    fab, _ = scramble(make_datacenter(n, seed=seed), seed=seed + 1)
+    probe = probe_fabric(fab, seed=seed)
+    compiler = PlanCompiler(budget=SolveBudget(iters=iters, chains=2))
+
+    trace = synthetic_bursty_trace(n, seed=seed)
+    stationary_mix = declared_mix(trace)
+
+    tr = obs.tracer()
+    was_enabled = tr.enabled
+    samples: Dict[str, List[float]] = {"disabled": [], "enabled": []}
+    # after one untimed compile, the two modes in turns (each pair in the
+    # other order than the last), with the cyclic GC off as ``timeit``
+    # times, and the overhead read as the median of the pairs' ratios: a
+    # host's calls run fast or slow in stretches of several calls, and one
+    # such stretch (or a GC pass over a large heap) landing in one mode's
+    # block of the reference's block-by-block timing moves that mode's
+    # median past the gate; a pair's two calls share their stretch
+    # (tools/obs_gate_spread.py reads it each way)
+    modes = (("disabled", False), ("enabled", True))
+    gc_was_enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        tr.set_enabled(False)
+        compiler.compile(probe, stationary_mix)
+        for rep in range(reps):
+            for mode, enable in modes[::1 if rep % 2 == 0 else -1]:
+                tr.set_enabled(enable)
+                t = tr.timer("bench.obs.compile")   # measures even when off
+                with t:
+                    compiler.compile(probe, stationary_mix)
+                samples[mode].append(t.elapsed)
+    finally:
+        tr.set_enabled(was_enabled)
+        if gc_was_enabled:
+            gc.enable()
+    timings = {mode: statistics.median(v) for mode, v in samples.items()}
+    overhead_pct = (statistics.median(
+        on / max(off, 1e-12)
+        for on, off in zip(samples["enabled"], samples["disabled"]))
+        - 1.0) * 100.0
+
+    declared_plan = compiler.compile(probe, stationary_mix)
+    windows = fold(trace, window_s=window_s)
+    phased = [(w, compiler.compile(probe, w.mix)) for w in windows]
+    base = replay(trace, declared_plan, probe.lat, probe.bw)
+    ph = replay(trace, declared_plan, probe.lat, probe.bw, windows=phased)
+    return {
+        "bench": "obs",
+        "smoke": bool(smoke),
+        "n": n,
+        "seed": seed,
+        "compile": {
+            "disabled_s": round(timings["disabled"], 6),
+            "enabled_s": round(timings["enabled"], 6),
+            "overhead_pct": round(overhead_pct, 3),
+            "reps": reps,
+        },
+        "replay": {
+            "trace": trace.name,
+            "records": len(trace),
+            "windows": len(windows),
+            "declared_s": base["total_seconds"],
+            "phased_s": ph["total_seconds"],
+            "phased_beats_declared":
+                ph["total_seconds"] <= base["total_seconds"],
+            "unplanned": base["unplanned"] + ph["unplanned"],
+        },
+    }
+
+
+def cmd_bench_obs(args: argparse.Namespace) -> int:
+    """Observability scenario: tracing-overhead gate + capture→replay.
+
+    Fails (exit 1) if enabled-tracer overhead exceeds 10% (CI noise
+    headroom over the reference's 2% budget) or if the phase-windowed
+    plans lose to the single declared-mix plan."""
+    payload = run_obs_scenario(smoke=bool(args.smoke), seed=args.seed)
+    print(json.dumps(payload, indent=1))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(payload, f, indent=1)
+        print(f"[bench] wrote {args.out}")
+    if payload["compile"]["overhead_pct"] >= 10.0:
+        print("[bench] FAIL: enabled-tracer overhead "
+              f"{payload['compile']['overhead_pct']:.1f}% >= 10%")
+        return 1
+    if not payload["replay"]["phased_beats_declared"]:
+        print("[bench] FAIL: phase-windowed plans lost to the single "
+              "declared-mix plan on the bursty trace")
+        return 1
+    return 0
+
+
+def cmd_bench_overlap(args: argparse.Namespace) -> int:
+    """Overlap scenario: planned+bucketed vs planned-sequential step.
+
+    Runs :mod:`repro_torch.bench.overlap_step` (the modeled-fabric
+    pipeline gate + the 8-rank virtual-mesh step on ``--device``); fails
+    (exit 1) when the bucketed step models under the 1.15x floor, the
+    overlapped loss diverges from the baseline, or the certified
+    schedule's postcondition breaks.  Refuses to start without CUDA
+    unless ``--device cpu`` is given."""
+    from repro_torch import resolve_device
+    from repro_torch.bench import overlap_step
+
+    device = resolve_device(args.device)
+    try:
+        overlap_step.run(smoke=bool(args.smoke), out_path=args.out,
+                         seed=args.seed, device=device)
+    except RuntimeError as e:
+        print(f"[bench] FAIL: {e}")
+        return 1
+    return 0
+
+
+def cmd_bench(args: argparse.Namespace) -> int:
+    """Self-contained plan-pipeline benchmark (CI smoke + local sanity).
+
+    Times, per fabric size: cold compile, warm cache hit, and the plan's
+    expected speedup over the identity order — through the same Session
+    facade applications use.
+
+    ``--scenario faults`` switches to the churn/recovery scenario
+    (:func:`cmd_bench_faults`); ``--scenario obs`` to the observability
+    overhead + capture→replay scenario (:func:`cmd_bench_obs`);
+    ``--scenario overlap`` to the overlapped-train-step gate
+    (:func:`cmd_bench_overlap`).
+    """
+    from repro_torch.session import Session
+
+    if getattr(args, "scenario", "plan") == "faults":
+        return cmd_bench_faults(args)
+    if getattr(args, "scenario", "plan") == "obs":
+        return cmd_bench_obs(args)
+    if getattr(args, "scenario", "plan") == "overlap":
+        return cmd_bench_overlap(args)
+    sizes = [16] if args.smoke else [32, 64]
+    iters = 200 if args.smoke else 800
+    results: List[Dict[str, Any]] = []
+    for n in sizes:
+        cfg = session_config_from_args(args)
+        cfg = cfg.replace(
+            fabric={"kind": "datacenter", "nodes": n, "scramble_seed": 1},
+            mesh={"shape": ()},
+            cache={"dir": None},
+            solver={"budget": {"iters": iters, "chains": 4}})
+        with Session(cfg) as s:
+            cold = obs.tracer().timer("bench.cold_compile", n=n)
+            with cold:
+                plan = s.plan()
+            cold_s = cold.elapsed
+            warm = obs.tracer().timer("bench.warm_hit", n=n)
+            with warm:
+                s.service.request(s.probe, s.mix)    # warm: LRU probe
+            warm_s = warm.elapsed
+            speedups = [
+                e.best_identity_time / max(e.expected_time, 1e-30)
+                for e in plan.entries.values()
+            ]
+            row = {
+                "n": n,
+                "entries": len(plan.entries),
+                "cold_compile_s": round(cold_s, 4),
+                "warm_hit_s": round(warm_s, 6),
+                "warm_speedup_x": round(cold_s / max(warm_s, 1e-9), 1),
+                "mean_speedup_vs_identity":
+                    round(sum(speedups) / len(speedups), 3),
+                "cache_hits": s.service.stats["cache_hits"],
+            }
+        results.append(row)
+        print(f"bench,n={n},{row['cold_compile_s'] * 1e6:.0f},"
+              f"warm_x={row['warm_speedup_x']}")
+    payload = {"bench": "session_plan", "smoke": bool(args.smoke),
+               "results": results}
+    print(json.dumps(payload, indent=1))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(payload, f, indent=1)
+        print(f"[bench] wrote {args.out}")
+    for row in results:
+        if row["cache_hits"] < 1:
+            print("[bench] FAIL: warm request missed the plan cache")
+            return 1
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# status / trace
+# ---------------------------------------------------------------------------
+
+def cmd_status(args: argparse.Namespace) -> int:
+    """Print the process obs-metrics snapshot (JSON or Prometheus text).
+
+    By default a small dry-run session (attach + plan, no cache writes)
+    is driven first so the snapshot reflects a live pipeline; pass
+    ``--no-run`` to dump whatever the process has already recorded.
+    """
+    cfg = session_config_from_args(args)
+    if _maybe_dump(args, cfg):
+        return 0
+    if not args.no_run:
+        from repro_torch.session import Session
+
+        run_cfg = cfg.replace(
+            mesh={"shape": ()}, cache={"dir": None},
+            **({} if args.iters is not None
+               else {"solver": {"budget": {"iters": 60, "chains": 2}}}))
+        with Session(run_cfg) as s:
+            s.attach()
+            s.plan()
+    m = obs.metrics()
+    if args.format == "prom":
+        sys.stdout.write(m.to_prometheus())
+    else:
+        print(json.dumps(m.snapshot(), indent=1))
+    return 0
+
+
+def cmd_trace_export(args: argparse.Namespace) -> int:
+    """Run the planning pipeline under the tracer, export Chrome JSON.
+
+    The artifact loads in ``chrome://tracing`` and https://ui.perfetto.dev.
+    """
+    cfg = session_config_from_args(args)
+    if _maybe_dump(args, cfg):
+        return 0
+    from repro_torch.session import Session
+
+    tr = obs.tracer()
+    tr.set_enabled(True)
+    run_cfg = cfg.replace(
+        mesh={"shape": ()}, cache={"dir": None},
+        **({} if args.iters is not None
+           else {"solver": {"budget": {"iters": 60, "chains": 2}}}))
+    with Session(run_cfg) as s:
+        s.attach()
+        s.plan()
+    n_events = tr.export(args.out)
+    print(f"[trace] wrote {n_events} events to {args.out} "
+          f"(open in chrome://tracing or ui.perfetto.dev)")
+    return 0
+
+
+def cmd_trace_replay(args: argparse.Namespace) -> int:
+    """Replay a captured (or synthetic bursty) workload trace.
+
+    Compares the single declared-mix plan against per-phase-window
+    plans compiled from the folded trace; prints both totals.
+    """
+    from repro_torch.fabric import make_datacenter, probe_fabric, scramble
+    from repro_torch.obs import (WorkloadTrace, declared_mix, fold, replay,
+                           synthetic_bursty_trace)
+    from repro_torch.plan import PlanCompiler, SolveBudget
+
+    if args.trace:
+        trace = WorkloadTrace.load(args.trace)
+        n = int(trace.meta.get("n", args.nodes or 16))
+    else:
+        n = args.nodes or 16          # session-args --nodes, default 16
+        trace = synthetic_bursty_trace(n, seed=args.seed)
+    if not len(trace):
+        print("[trace] empty trace: nothing to replay")
+        return 1
+    fab, _ = scramble(make_datacenter(n, seed=args.seed),
+                      seed=args.seed + 1)
+    probe = probe_fabric(fab, seed=args.seed)
+    compiler = PlanCompiler(
+        budget=SolveBudget(iters=args.iters or 200, chains=2))
+    declared_plan = compiler.compile(probe, declared_mix(trace))
+    windows = fold(trace, window_s=args.window)
+    phased = [(w, compiler.compile(probe, w.mix)) for w in windows]
+    base = replay(trace, declared_plan, probe.lat, probe.bw)
+    ph = replay(trace, declared_plan, probe.lat, probe.bw, windows=phased)
+    print(f"[trace] replay {trace.name}: {len(trace)} records, "
+          f"{len(windows)} phase windows (window={args.window}s), n={n}")
+    print(f"  declared-mix plan : {base['total_seconds'] * 1e3:.3f}ms "
+          f"({base['unplanned']} unplanned)")
+    print(f"  phase-window plans: {ph['total_seconds'] * 1e3:.3f}ms "
+          f"({ph['unplanned']} unplanned)")
+    win = base["total_seconds"] / max(ph["total_seconds"], 1e-30)
+    print(f"  phased vs declared: {win:.4f}x")
+    if args.out:
+        payload = {"trace": trace.name, "n": n, "windows": len(windows),
+                   "declared": base, "phased": ph}
+        with open(args.out, "w") as f:
+            json.dump(payload, f, indent=1)
+        print(f"[trace] wrote {args.out}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# analyze
+# ---------------------------------------------------------------------------
+
+def _analyze_sweep(n_list, fabric_nodes, seed):
+    """Verify the full builder catalogue; returns (reports, n_bad)."""
+    import random
+
+    from repro_torch.collective import (
+        CollectiveOp, apply_permutation, chunk, compile_op, get_builder,
+        registered_builders)
+    from repro_torch.collective.builders import candidates
+    from repro_torch.analysis import verify_program
+
+    fab = None
+    if fabric_nodes:
+        from repro_torch.fabric import make_datacenter
+        fab = make_datacenter(fabric_nodes, seed=seed)
+    reports = []
+    n_bad = 0
+    for algo in sorted(registered_builders()):
+        b = get_builder(algo)
+        for kind in b.kinds:
+            for n in n_list:
+                # candidates() supplies the feasible kwarg sets (e.g.
+                # every valid bcube base at this n)
+                akws = [akw for a, akw in candidates(kind, n) if a == algo]
+                op = CollectiveOp(kind=kind, size_bytes=1 << 20,
+                                  group=tuple(range(n)))
+                for akw in akws:
+                    base = compile_op(op, algo, **dict(akw))
+                    rng = random.Random(seed + n)
+                    perm = list(range(n))
+                    rng.shuffle(perm)
+                    variants = (("identity", base),
+                                ("permuted", apply_permutation(base, perm)),
+                                ("chunked", chunk(base, 4)))
+                    for label, prog in variants:
+                        use_fab = fab if fab is not None and \
+                            fab.n == prog.n else None
+                        rep = verify_program(prog, fabric=use_fab)
+                        reports.append((label, rep))
+                        if not rep.clean:
+                            n_bad += 1
+    return reports, n_bad
+
+
+def _equiv_sweep(n_list, seed):
+    """Differential translation validation over the builder catalogue.
+
+    Every registered builder × kind × n is lowered and bisimulated at
+    each rewrite stage (base → apply_permutation → chunk →
+    fuse_rounds).  Returns (rows, n_bad) where each row is one
+    program's stage-by-stage verdict list.
+    """
+    import random
+
+    from repro_torch.collective import CollectiveOp, compile_op, get_builder, \
+        registered_builders
+    from repro_torch.collective.builders import candidates
+    from repro_torch.analysis import certify_stages
+
+    rows = []
+    n_bad = 0
+    for algo in sorted(registered_builders()):
+        b = get_builder(algo)
+        for kind in b.kinds:
+            for n in n_list:
+                akws = [akw for a, akw in candidates(kind, n) if a == algo]
+                op = CollectiveOp(kind=kind, size_bytes=1 << 20,
+                                  group=tuple(range(n)))
+                for akw in akws:
+                    prog = compile_op(op, algo, **dict(akw))
+                    rng = random.Random(seed + n)
+                    perm = list(range(n))
+                    rng.shuffle(perm)
+                    stages = certify_stages(prog, perm=perm, chunk_k=4)
+                    ok = all(s["ok"] for s in stages)
+                    if not ok:
+                        n_bad += 1
+                    rows.append({
+                        "algorithm": algo, "kind": kind, "n": n,
+                        "algo_kwargs": dict(akw), "ok": ok,
+                        "stages": stages,
+                    })
+    return rows, n_bad
+
+
+def cmd_analyze(args: argparse.Namespace) -> int:
+    """Static analysis: lint the repo, or verify collective Programs."""
+    if args.lint:
+        from repro_torch.analysis.lint import RULES, lint_repo
+
+        root = args.root or os.getcwd()
+        findings, n_files = lint_repo(root)
+        for f in findings:
+            print(f)
+        verdict = "clean" if not findings else f"{len(findings)} finding(s)"
+        print(f"[lint] {n_files} files, {len(RULES)} rules: {verdict}")
+        return 1 if findings else 0
+
+    if args.equiv:
+        n_list = [int(x) for x in args.n_list.split(",")]
+        rows, n_bad = _equiv_sweep(n_list, args.seed)
+        for row in rows:
+            if row["ok"]:
+                continue
+            for st in row["stages"]:
+                if st["ok"]:
+                    continue
+                print(f"  FAIL {row['algorithm']}/{row['kind']} "
+                      f"n={row['n']} stage={st['stage']} "
+                      f"codes={sorted(st['codes'])}")
+        by_algo: Dict[str, int] = {}
+        for row in rows:
+            by_algo.setdefault(row["algorithm"], 0)
+            if not row["ok"]:
+                by_algo[row["algorithm"]] += 1
+        for algo in sorted(by_algo):
+            total = sum(1 for r in rows if r["algorithm"] == algo)
+            state = "CERTIFIED" if not by_algo[algo] \
+                else f"{by_algo[algo]} FAILING"
+            print(f"  {algo:<22} {total:>3} programs  {state}")
+        print(f"[analyze] equiv: {len(rows)} programs x "
+              f"{len(rows[0]['stages']) if rows else 0} stages, "
+              f"{n_bad} failing")
+        if args.out:
+            payload = {"n_programs": len(rows), "n_bad": n_bad,
+                       "n_list": n_list, "rows": rows}
+            with open(args.out, "w") as f:
+                json.dump(payload, f, indent=1)
+            print(f"[analyze] wrote {args.out}")
+        return 1 if n_bad else 0
+
+    if args.program:
+        from repro_torch.collective import CollectiveOp, compile_op, get_builder
+        from repro_torch.analysis import verify_program
+
+        algo = args.program
+        b = get_builder(algo)
+        n = args.nodes or 16
+        if not b.feasible(n):
+            print(f"[analyze] {algo} is infeasible at n={n}")
+            return 1
+        fab = None
+        if args.fabric_nodes:
+            from repro_torch.fabric import make_datacenter
+            fab = make_datacenter(n, seed=args.seed)
+        bad = 0
+        for kind in b.kinds:
+            op = CollectiveOp(kind=kind, size_bytes=args.payload_bytes
+                              or (1 << 20), group=tuple(range(n)))
+            rep = verify_program(compile_op(op, algo), fabric=fab)
+            print(rep.describe())
+            bad += 0 if rep.ok else 1
+        return 1 if bad else 0
+
+    if args.plan:
+        from repro_torch.session import Session
+        from repro_torch.analysis import verify_program
+
+        cfg = session_config_from_args(args)
+        if _maybe_dump(args, cfg):
+            return 0
+        bad = 0
+        with Session(cfg) as s:
+            plan = s.plan()
+            fab = s._oracle_fabric
+            for (op, bucket, group), e in sorted(plan.entries.items()):
+                prog = e.program()
+                use_fab = fab if fab is not None and fab.n >= max(group) + 1 \
+                    else None
+                rep = verify_program(prog, fabric=use_fab)
+                print(f"  {op:<15} bucket=2^{bucket:<3} "
+                      f"group={len(group):>4} {rep.summary()}")
+                bad += 0 if rep.ok else 1
+        print(f"[analyze] plan: {bad} failing entr{'y' if bad == 1 else 'ies'}"
+              if bad else "[analyze] plan: all entries verified")
+        return 1 if bad else 0
+
+    # default: full-catalogue sweep
+    n_list = [int(x) for x in args.n_list.split(",")]
+    reports, n_bad = _analyze_sweep(n_list, args.fabric_nodes, args.seed)
+    by_algo: Dict[str, int] = {}
+    for label, rep in reports:
+        by_algo[rep.algorithm] = by_algo.get(rep.algorithm, 0)
+        if not rep.clean:
+            by_algo[rep.algorithm] += 1
+            print(rep.describe())
+    for algo in sorted(by_algo):
+        n_variants = sum(1 for _, r in reports if r.algorithm == algo)
+        state = "CLEAN" if not by_algo[algo] else f"{by_algo[algo]} DIRTY"
+        print(f"  {algo:<22} {n_variants:>3} variants  {state}")
+    print(f"[analyze] {len(reports)} programs verified, "
+          f"{n_bad} with errors/warnings")
+    if args.out:
+        payload = {
+            "n_programs": len(reports),
+            "n_bad": n_bad,
+            "n_list": n_list,
+            "reports": [dict(variant=label, **rep.to_dict())
+                        for label, rep in reports],
+        }
+        with open(args.out, "w") as f:
+            json.dump(payload, f, indent=1)
+        print(f"[analyze] wrote {args.out}")
+    return 1 if n_bad else 0
+
+
+# ---------------------------------------------------------------------------
+# parser
+# ---------------------------------------------------------------------------
+
 def build_parser() -> argparse.ArgumentParser:
+    from repro_torch import __version__
+
     ap = argparse.ArgumentParser(prog="python -m repro_torch",
                                  description="PyTorch/CUDA port of repro: "
-                                             "probe, plan, train, serve")
+                                             "probe, plan, train, serve, bench")
+    ap.add_argument("--version", action="version",
+                    version=f"repro_torch {__version__}")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("probe", help="probe a fabric, print/export the result")
@@ -578,12 +1208,85 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--seed", type=int, default=0, help="weight seed")
     p.set_defaults(fn=cmd_serve, mesh_default="1")
+
+    p = sub.add_parser("bench", help="session/plan pipeline benchmark")
+    _add_session_args(p)
+    p.add_argument("--smoke", action="store_true",
+                   help="one small fabric (CI)")
+    p.add_argument("--scenario", default="plan",
+                   choices=["plan", "faults", "obs", "overlap"],
+                   help="plan: compile/cache pipeline; faults: seeded "
+                        "churn with ladder recovery; obs: tracing "
+                        "overhead + capture/replay; overlap: bucketed "
+                        "overlapped train step vs sequential")
+    p.add_argument("--seed", type=int, default=0,
+                   help="scenario seed (faults schedule / obs trace)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where --scenario overlap runs its train steps (the "
+                        "other scenarios are host-only)")
+    p.add_argument("--out", default=None, help="write bench JSON here")
+    p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser("analyze",
+                       help="static analysis: verify Programs / lint repo")
+    _add_session_args(p)
+    p.add_argument("--lint", action="store_true",
+                   help="run the repo's AST lint gate instead of the "
+                        "program verifier")
+    p.add_argument("--root", default=None,
+                   help="repo root for --lint (default: cwd)")
+    p.add_argument("--program", default=None, metavar="ALGO",
+                   help="verify one registered builder's program")
+    p.add_argument("--plan", action="store_true",
+                   help="verify every entry of the session's plan")
+    p.add_argument("--equiv", action="store_true",
+                   help="differential translation validation: lower + "
+                        "bisimulate every builder at each rewrite stage")
+    p.add_argument("--n-list", default="4,8,16,64",
+                   help="sweep group sizes (default: 4,8,16,64)")
+    p.add_argument("--fabric-nodes", type=int, default=None,
+                   help="attach a synthetic datacenter fabric of this "
+                        "size for the contention pass")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", default=None,
+                   help="write the verification report JSON here")
+    p.set_defaults(fn=cmd_analyze)
+
+    p = sub.add_parser("status",
+                       help="obs metrics snapshot (json or prometheus)")
+    _add_session_args(p)
+    p.add_argument("--format", default="json", choices=["json", "prom"])
+    p.add_argument("--no-run", action="store_true",
+                   help="skip the dry-run pipeline; dump current metrics")
+    p.set_defaults(fn=cmd_status)
+
+    p = sub.add_parser("trace", help="export or replay obs traces")
+    tsub = p.add_subparsers(dest="trace_cmd", required=True)
+
+    t = tsub.add_parser("export",
+                        help="run the pipeline traced, write Chrome JSON")
+    _add_session_args(t)
+    t.add_argument("--out", default="trace.json",
+                   help="Chrome trace-event JSON path")
+    t.set_defaults(fn=cmd_trace_export)
+
+    t = tsub.add_parser("replay",
+                        help="replay a captured/synthetic workload trace")
+    _add_session_args(t)
+    t.add_argument("--trace", default=None,
+                   help="WorkloadTrace JSON (default: synthetic bursty)")
+    t.add_argument("--window", type=float, default=1.0,
+                   help="fold window seconds")
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--out", default=None, help="write comparison JSON here")
+    t.set_defaults(fn=cmd_trace_replay)
+
     return ap
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    # train builds a mesh: give --mesh a launcher default of one rank
+    # train/serve build meshes: give --mesh a launcher default of one rank
     if getattr(args, "mesh", None) is None and hasattr(args, "mesh_default"):
         args.mesh = args.mesh_default
     return args.fn(args)

@@ -9,6 +9,11 @@ call sites of the port:
 * :func:`metrics` — a :class:`MetricsRegistry` (enabled by default);
 * :func:`recorder` — a :class:`WorkloadRecorder` (disabled by default).
 
+A captured :class:`WorkloadTrace` folds into phase-windowed job mixes
+(:func:`fold`, against the stationary :func:`declared_mix`) and replays
+under compiled plans (:func:`replay`); :func:`synthetic_bursty_trace`
+is the seeded trace ``trace replay`` and ``bench --scenario obs`` use.
+
 Call sites fetch the accessor at call time (``obs.tracer().span``), so
 tests can swap instances with the ``set_*`` functions.
 """
@@ -17,7 +22,16 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
-from .capture import OpRecord, WorkloadRecorder, WorkloadTrace
+from .capture import (
+    OpRecord,
+    PhaseWindow,
+    WorkloadRecorder,
+    WorkloadTrace,
+    declared_mix,
+    fold,
+    replay,
+    synthetic_bursty_trace,
+)
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
 from .trace import NULL_SPAN, Span, Tracer
 
@@ -28,16 +42,21 @@ __all__ = [
     "MetricsRegistry",
     "NULL_SPAN",
     "OpRecord",
+    "PhaseWindow",
     "Span",
     "Tracer",
     "WorkloadRecorder",
     "WorkloadTrace",
     "configure",
+    "declared_mix",
+    "fold",
     "metrics",
     "recorder",
+    "replay",
     "set_metrics",
     "set_recorder",
     "set_tracer",
+    "synthetic_bursty_trace",
     "tracer",
 ]
 

@@ -274,8 +274,8 @@ class Session:
         (budgeted O(n·log n) probing + hierarchy recovery).
 
         Runs under the session retry policy: a transient probe failure
-        (a timed-out sweep) is retried with capped backoff before it
-        surfaces.
+        (an injected :class:`repro_torch.faults.ProbeTimeout`, a wedged
+        sweep) is retried with capped backoff before it surfaces.
         """
         p = self.config.probe
 

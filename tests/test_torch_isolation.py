@@ -35,7 +35,8 @@ def _imported_roots(path):
 def test_no_port_file_imports_jax_or_repro():
     bad = [(os.path.relpath(p, ROOT), m) for p in _port_files()
            for m in _imported_roots(p)
-           if m in ("jax", "jaxlib", "repro") or m.startswith("jax")]
+           if m in ("jax", "jaxlib", "repro", "benchmarks")
+           or m.startswith("jax")]
     assert bad == []
 
 
@@ -69,6 +70,8 @@ NEW_MODULES = [
     "repro_torch.session.session", "repro_torch.launch.mesh",
     "repro_torch.launch.train", "repro_torch.checkpoint.ckpt",
     "repro_torch.train.trainer", "repro_torch.kernels.rwkv6_scan",
+    "repro_torch.faults.inject", "repro_torch.obs.capture",
+    "repro_torch.analysis.lint", "repro_torch.bench.overlap_step",
 ]
 
 
@@ -161,6 +164,27 @@ def test_dense_family_gives_a_decoder_that_serves():
     assert all(0 <= t < model.cfg.vocab_size for row in out for t in row)
 
 
+def test_bench_overlap_refuses_the_cpu_unless_asked(monkeypatch):
+    """``bench --scenario overlap`` runs its train steps on CUDA: without
+    it, it refuses before planning anything, unless ``--device cpu``."""
+    from repro_torch.bench import overlap_step
+    from repro_torch.cli import build_parser, main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    planned = []
+    monkeypatch.setattr(overlap_step, "_plan_overlap",
+                        lambda seed=0: planned.append(seed))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["bench", "--scenario", "overlap", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        overlap_step.run(smoke=True)
+    assert planned == []
+    args = build_parser().parse_args(["bench", "--scenario", "overlap"])
+    assert args.device == "cuda" and args.out is None
+    # the host-only scenarios need no device
+    assert main(["analyze", "--program", "ring", "--nodes", "4"]) == 0
+
+
 def test_lazy_exports():
     import repro_torch
 
@@ -169,6 +193,11 @@ def test_lazy_exports():
     assert repro_torch.SessionConfig().payload_bytes == 4e6
     assert repro_torch.Trainer.__name__ == "Trainer"
     assert repro_torch.TrainerConfig().total_steps == 100
+    assert repro_torch.FaultSchedule.generate(4, ticks=2).horizon == 2
+    assert issubclass(repro_torch.ProbeTimeout, TimeoutError)
+    assert repro_torch.FaultyFabric.__module__ == "repro_torch.faults.inject"
+    assert repro_torch.FaultEvent("node_join", 1).duration == 1
+    assert repro_torch.__version__ == "0.3.0"
     assert repro_torch.default_device().type == "cuda"
     assert repro_torch.on_cuda() == torch.cuda.is_available()
     with pytest.raises(AttributeError):
