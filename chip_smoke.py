@@ -200,6 +200,22 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
     ``--plan``, ``--lint`` over this checkout), ``status``, ``trace
     export`` and ``trace replay``, each required to exit 0, each timed.
 
+18. tensor parallelism and ZeRO-1 through the user's entry point:
+    ``python -m repro_torch train --arch qwen2-0.5b --mesh 4x2 --reorder
+    simulate`` at published widths (24 blocks, vocab 151936, bf16, the
+    command's default 8 x 64 tokens) for 3 steps, then ``--mesh 8``, the
+    losses held to each other at every step (``TP_BF16_RTOL``); both at
+    depth 2 in f32 for one step (``TP_F32_RTOL``); ``--mesh 2x4`` (14
+    heads on a model axis of 4: attention whole, MLP and vocabulary
+    sharded) at depth 4 for 2 steps against ``--mesh 8`` at depth 4.
+    Every run counted: ``fused_add`` a reduce step of each model-axis
+    all-reduce (the reckoning of ``_tp_reckon``: forward, backward, the
+    checkpoint's recompute and the clip), ``peer_ring`` a bucket a step
+    over the data axis; the report's collectives per step held to the
+    same reckoning.  Then one step built as the command builds it, timed
+    with CUDA events, every model-axis collective timed with CUDA events
+    in a ``torch.profiler`` window: their count, ms a step and share.
+
 Phase 4 also holds the smoke ``recurrentgemma-9b`` (a group and a tail,
 at P > W and P == W) and ``whisper-small`` in f32 on the card: flash
 prefill == xla prefill, greedy tokens equal.
@@ -303,6 +319,17 @@ TRAIN_CLI = ["train", "--arch", TRAIN_ARCH, "--mesh", str(RANKS),
              "--batch", str(RANKS * ROWS_PER_RANK), "--seq", str(SEQ),
              "--steps", "12", "--reorder", "simulate",
              "--payload-bytes", str(PLAN_PAYLOAD), "--lr", str(LR)]
+# tensor parallelism through the user's entry point (phase 18): the train
+# command at its default batch and sequence (8 x 64 tokens), the model
+# axis's losses held to the data-parallel mesh's: bf16 at every step, f32
+# at depth 2 on step 0 (one rounding of a reordered sum)
+TP_CLI = ["train", "--arch", TRAIN_ARCH, "--reorder", "simulate"]
+TP_BF16_RTOL, TP_F32_RTOL = 1e-2, 2e-5
+# (label, mesh, steps, depth or None for published, dtype or None)
+TP_RUNS = [("4x2", "4x2", 3, None, None), ("8", "8", 3, None, None),
+           ("4x2 f32 depth 2", "4x2", 1, 2, "float32"),
+           ("8 f32 depth 2", "8", 1, 2, "float32"),
+           ("2x4 depth 4", "2x4", 2, 4, None), ("8 depth 4", "8", 2, 4, None)]
 # bf16 serving, flash wave against the xla model on the same prefix: a
 # generated token's logit may lie TOKEN_MARGIN below the top one, and the
 # two prefills' last-position logits LOGIT_BOUND apart (in bf16 a logit of
@@ -2805,6 +2832,234 @@ def train_cli_full_width(card: str, shapes, argv=TRAIN_CLI,
     return res
 
 
+def _tp_reckon(cfg, m: int, dp: int) -> dict:
+    """Model-axis schedule runs of one sharded step, from the rules: a
+    data-parallel rank's forward runs the embedding's all-reduce, each
+    block's attention and MLP all-reduce where they shard, the loss's
+    all-gather of logz and its gold all-reduce; its backward one
+    all-reduce a column-parallel input (the attention's query input, its
+    k and v too where the KV heads stay whole, the MLP's, the head's); the
+    block's checkpoint recomputes up to the last tensor the backward saved,
+    so the attention's all-reduce runs again and the MLP's, which ends the
+    block, does not; then the clip's one all-reduce a step."""
+    heads, kv = cfg.n_heads % m == 0, cfg.n_kv_heads % m == 0
+    mlp, vocab = cfg.d_ff % m == 0, cfg.vocab_size % m == 0
+    L = cfg.n_layers
+    fwd = vocab + L * (heads + mlp) + vocab
+    bwd = L * (heads * (1 + 2 * (not kv)) + mlp) + vocab
+    return {"model_allreduce": dp * (fwd + bwd + L * heads) + 1,
+            "model_allgather": dp * vocab, "data_allgather": int(dp > 1),
+            "data_allreduce": int(dp > 1)}
+
+
+def _cut_config(depth, dtype):
+    """``repro_torch.configs.get_config`` with the train arch cut to
+    ``depth`` blocks in ``dtype`` (None: as published), for the train
+    command, which reads it at call time."""
+    from repro_torch import configs
+
+    base = configs.get_config
+
+    def get(name):
+        cfg = base(name)
+        if name != TRAIN_ARCH:
+            return cfg
+        return dataclasses.replace(cfg, n_layers=depth or cfg.n_layers,
+                                   dtype=dtype or cfg.dtype)
+    return base, get
+
+
+def _tp_run(argv) -> dict:
+    """One train command in process, launch counts zeroed just before and
+    read just after, its checkpoint in a temporary directory."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import cli
+
+    counted = _counted()
+    ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_tp_")
+    buf = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            rc_main = cli.main(list(argv) + ["--ckpt-dir", ckpt_dir])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        if not line.startswith("[train] step"):
+            _say("cli | " + line[:600])
+    if rc_main != 0:
+        raise AssertionError(f"python -m repro_torch {' '.join(argv)} exited "
+                             f"{rc_main}")
+    report = json.loads(out.split("[train] report ")[1].splitlines()[0])
+    return {"report": report, "launches": launches, "peak_mem_gb": peak_gb,
+            "wall_s": wall}
+
+
+def _tp_profiled_step(card: str) -> dict:
+    """One sharded step of full-width qwen2-0.5b on the 4x2 mesh, built
+    as the train command builds it, after a warm-up step: the step timed
+    with CUDA events, each model-axis collective with CUDA events, all in
+    one ``torch.profiler`` window."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM, make_global_batch
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import tensor as tpm
+    from repro_torch.parallel.sharding import batch_spec
+    from repro_torch.train import OverlapGradReducer, certified_allreduce
+    from repro_torch.train.sharded_step import (
+        init_sharded_state, make_sharded_train_step)
+
+    cfg = get_config(TRAIN_ARCH)
+    model = get_model(cfg, device="cuda")
+    mesh = make_mesh((4, 2), ("data", "model"), device="cuda")
+    bb = 4 * 1024 * 1024
+    red = OverlapGradReducer(certified_allreduce(4, bb, "ring"), bb,
+                             "bucketed", transport="peer_ring")
+    step = make_sharded_train_step(model, AdamWConfig(lr=LR), mesh, red)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = init_sharded_state(model, gen, step.layout)
+    ds = SyntheticLM(cfg.vocab_size, 64, 8, seed=0)
+    state, _ = step(state, make_global_batch(ds, 0, mesh, batch_spec(mesh)))
+    batch = make_global_batch(ds, 1, mesh, batch_spec(mesh))
+    events = []
+    inner = {"all_reduce": tpm.TensorParallel.all_reduce,
+             "all_gather": tpm.TensorParallel.all_gather}
+
+    def timed(name):
+        def run(self, x):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner[name](self, x)
+            end.record()
+            events.append((name, start, end))
+            return out
+        return run
+
+    held = {}
+
+    def one():
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        held["state"], held["metrics"] = step(state, batch)
+        b.record()
+        held["step"] = (a, b)
+
+    for name in inner:
+        setattr(tpm.TensorParallel, name, timed(name))
+    try:
+        prof = profile_window("tp step 4x2", one)
+    finally:
+        for name, fn in inner.items():
+            setattr(tpm.TensorParallel, name, fn)
+    torch.cuda.synchronize()
+    step_ms = held["step"][0].elapsed_time(held["step"][1])
+    coll_ms = sum(s.elapsed_time(e) for _, s, e in events)
+    res = {"collectives": len(events),
+           "by_kind": {k: sum(1 for n, *_ in events if n == k) for k in inner},
+           "collective_ms": coll_ms, "step_ms_cuda_events": step_ms,
+           "collective_share": coll_ms / step_ms,
+           "loss": float(held["metrics"]["loss"]), "profile": prof,
+           "card": card}
+    del state, held
+    return res
+
+
+def train_tp_full_width(card: str) -> dict:
+    """Phase 18: the tensor-parallel ZeRO-1 step through ``python -m
+    repro_torch train`` at published widths, held to the data-parallel
+    mesh and counted."""
+    import math
+
+    from repro_torch import configs
+    from repro_torch.models import get_model
+    from repro_torch.train import partition_tree
+    from repro_torch.train.sharded_step import param_shapes
+
+    t_phase = time.monotonic()
+    runs = {}
+    for label, mesh, steps, depth, dtype in TP_RUNS:
+        base, cut = _cut_config(depth, dtype)
+        configs.get_config = cut
+        try:
+            run = _tp_run(TP_CLI + ["--mesh", mesh, "--steps", str(steps)])
+        finally:
+            configs.get_config = base
+        _free()
+        rep = run["report"]
+        cfg = cut(TRAIN_ARCH)
+        m, dp = rep["model"], rep["dp"]
+        buckets = len(partition_tree(param_shapes(get_model(cfg, "cuda")),
+                                     rep["bucket_bytes"]))
+        want = {"peer_ring": buckets * steps}
+        if m > 1:
+            per_step = _tp_reckon(cfg, m, dp)
+            if rep["tp_collectives"] != {k: float(v) for k, v in per_step.items()}:
+                raise AssertionError(f"{label}: collectives per step "
+                                     f"{rep['tp_collectives']}, reckoned "
+                                     f"{per_step}")
+            want["fused_add"] = per_step["model_allreduce"] * (m - 1) * steps
+        for k, v in want.items():
+            if run["launches"][k] != v:
+                raise AssertionError(f"{label}: {k} launched "
+                                     f"{run['launches'][k]} times, reckoned {v}")
+        if not all(math.isfinite(v) for v in rep["losses"]):
+            raise AssertionError(f"{label}: losses {rep['losses']}")
+        runs[label] = {"mesh": mesh, "depth": cfg.n_layers, "dtype": cfg.dtype,
+                       "losses": rep["losses"],
+                       "step_ms_host_clock": [v * 1e3 for v in rep["step_s"]],
+                       "peak_mem_gb": run["peak_mem_gb"], "wall_s": run["wall_s"],
+                       "launches": run["launches"], "reckoned": want,
+                       "tp_collectives": rep["tp_collectives"],
+                       "mesh_order": rep["mesh_order"],
+                       "buckets": buckets, "model": m, "dp": dp}
+    rel = {}
+    for a, b, rtol, n in (("4x2", "8", TP_BF16_RTOL, 3),
+                          ("2x4 depth 4", "8 depth 4", TP_BF16_RTOL, 2),
+                          ("4x2 f32 depth 2", "8 f32 depth 2", TP_F32_RTOL, 1)):
+        la, lb = runs[a]["losses"], runs[b]["losses"]
+        rel[f"{a} vs {b}"] = [abs(x - y) / abs(y) for x, y in zip(la, lb)]
+        if len(la) != n or max(rel[f"{a} vs {b}"]) > rtol:
+            raise AssertionError(f"{a} against {b}: losses {la} and {lb}, "
+                                 f"relative {rel[f'{a} vs {b}']} (limit {rtol})")
+    prof = _tp_profiled_step(card)
+    _free()
+    res = {"runs": runs, "relative_loss_diff": rel, "profiled_step": prof,
+           "phase_s": time.monotonic() - t_phase, "card": card}
+    _say(f"tp: 4x2 losses {[round(v, 5) for v in runs['4x2']['losses']]} vs 8 "
+         f"{[round(v, 5) for v in runs['8']['losses']]}; step ms (host clock) "
+         f"4x2 {[round(v, 1) for v in runs['4x2']['step_ms_host_clock']]}, 8 "
+         f"{[round(v, 1) for v in runs['8']['step_ms_host_clock']]}; fused_add "
+         f"{runs['4x2']['launches']['fused_add']}, peer_ring "
+         f"{runs['4x2']['launches']['peer_ring']}; model-axis collectives "
+         f"{prof['collectives']} a step, {prof['collective_ms']:.2f} ms of "
+         f"{prof['step_ms_cuda_events']:.2f} ms (CUDA events); "
+         f"{res['phase_s']:.1f} s [{card}]")
+    _say("tp " + json.dumps(res, default=float))
+    return res
+
+
 def time_flash_layer(label: str, shape, causal: bool, window: int,
                      seed: int) -> dict:
     """The flash kernel at one model's layer shape (bf16): held to its plain
@@ -4203,6 +4458,8 @@ def main(argv=None) -> int:
     bench_overlap = bench_overlap_full_width(args.seed, card, layout["shapes"])
     _free()
     host_cmds = host_commands(card)
+    trained_tp = train_tp_full_width(card)
+    _free()
     # each kernel's launches come from the path it carries; the peer ring's
     # from the user's entry point (the hand-wired planned run's beside it)
     paths = {"wkv_chunked": served, "wkv_scan": served, "fused_add": trained,
@@ -4218,6 +4475,10 @@ def main(argv=None) -> int:
             k["launches_compression"] = compressed["launches"]["fused_add"]
             k["launches_bench_overlap_runner"] = bench_overlap["runner"][
                 "counted"]["launches"]["fused_add"]
+        if k["name"] in ("fused_add", "peer_ring"):
+            k["launches_tp_train"] = {
+                label: run["launches"][k["name"]]
+                for label, run in trained_tp["runs"].items()}
         if k["name"] == "peer_ring":
             k["launches_ssm_train"] = trained_ssm["launches"]["peer_ring"]
             k["launches_bench_overlap"] = bench_overlap["launches"]["peer_ring"]
@@ -4243,7 +4504,8 @@ def main(argv=None) -> int:
         "pipeline_virtual": piped["phase_s"], "group_spawn": grouped["wall_s"],
         "compression": compressed["phase_s"], "solver_eval": solver["phase_s"],
         "bench_overlap": bench_overlap["phase_s"],
-        "host_commands": host_cmds["phase_s"]}))
+        "host_commands": host_cmds["phase_s"],
+        "tp_train": trained_tp["phase_s"]}))
     _say(f"the whole script: {time.monotonic() - t_start:.1f} s (host clock)")
 
     print(json.dumps({"kernels": kernels}))

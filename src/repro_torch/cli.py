@@ -316,19 +316,33 @@ def train_schedule(lr: float, steps: int):
 
 
 def cmd_train(args: argparse.Namespace) -> int:
+    """``train``: plan, then train over the mesh's virtual ranks.
+
+    A mesh without a model axis (``--mesh 8``) is data parallel: the
+    overlapped step over the planned all-reduce.  A ``(data, model)`` or
+    ``(pod, data, model)`` mesh with a model axis of 2 or more runs the
+    tensor-parallel, ZeRO-1 step (:mod:`repro_torch.train.sharded_step`):
+    every model-axis sum a certified ring over the model group's slots,
+    the gradients all-reduced over the data-parallel ranks.
+    """
     import numpy as np
     import torch
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticLM
+    from repro_torch.data import SyntheticLM, batches as mesh_batches
     from repro_torch.launch import (
         apply_planned, make_mesh, parse_mesh, planning_session)
     from repro_torch.models import get_model
     from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel.sharding import batch_spec
+    from repro_torch.parallel.tensor import (
+        data_groups, model_groups, require_tp_family)
     from repro_torch.train import (
         OverlapGradReducer, Trainer, TrainerConfig, certified_allreduce,
         init_state, make_overlap_train_step, make_train_step, partition_tree)
+    from repro_torch.train.sharded_step import (
+        init_sharded_state, make_sharded_train_step, param_shapes)
     from repro_torch.tree import tree_leaves
 
     cfg = session_config_from_args(args, workload="train")
@@ -336,16 +350,12 @@ def cmd_train(args: argparse.Namespace) -> int:
         return 0
     device = resolve_device(args.device)
     shape, axes = parse_mesh(args.mesh)
-    others = [a for a, s in zip(axes, shape) if a != "data" and s > 1]
-    if others:
-        raise NotImplementedError(
-            f"mesh axes {others} shard the model, which waits for the "
-            f"sharding port (ROADMAP.md §1 item 11); train over a "
-            f"data-parallel mesh such as --mesh {int(np.prod(shape))}")
     n = int(np.prod(shape))
-    if args.batch % n:
+    m = dict(zip(axes, shape)).get("model", 1)
+    dp = n // m
+    if args.batch % dp:
         raise ValueError(f"--batch {args.batch} does not split over the "
-                         f"{n} data-parallel ranks of --mesh {args.mesh}")
+                         f"{dp} data-parallel ranks of --mesh {args.mesh}")
 
     arch = get_config(args.arch)
     if arch.n_experts:
@@ -353,8 +363,8 @@ def cmd_train(args: argparse.Namespace) -> int:
         # full-width deepseek-v2 MoE layer that alone is 8 x 7.6 GB
         raise NotImplementedError(
             f"train does not take {arch.name} ({arch.family!r}) yet: MoE "
-            f"training on the card waits for the sharding specs, ROADMAP.md "
-            f"§1 item 18 (behind item 11); its loss and gradients are held "
+            f"training on the card waits for its experts sharded over the "
+            f"mesh, ROADMAP.md §1 item 18; its loss and gradients are held "
             f"to the reference's on the CPU")
     if arch.family == "encdec":
         # the reference's train builds batches of tokens and labels only
@@ -364,14 +374,13 @@ def cmd_train(args: argparse.Namespace) -> int:
             f"its loss needs the encoder's frontend_embeds, which the "
             f"synthetic data does not carry (the reference's train fails on "
             f"the same missing key)")
+    if m > 1:
+        require_tp_family(arch)
     if args.smoke:
         arch = dataclasses.replace(arch.smoke(), vocab_size=2048)
     model = get_model(arch, device=device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    state = init_state(model, gen)
     grad_bytes = float(sum(t.numel() * t.element_size()
-                           for t in tree_leaves(state.params)))
+                           for t in tree_leaves(param_shapes(model))))
     if not _payload_given(args):
         # plan the all-reduce this model's gradients actually need
         cfg = cfg.replace(payload_bytes=grad_bytes)
@@ -379,46 +388,89 @@ def cmd_train(args: argparse.Namespace) -> int:
     transport = "peer_ring" if device.type == "cuda" else "runner"
     mode = cfg.overlap.mode if cfg.overlap.mode != "off" else "bucketed"
     session = planning_session(args, session_config=cfg)
+    bucket_bytes = float(DEFAULT_BUCKET_BYTES)
     if session is None:
         mesh, plan, reducer = make_mesh(shape, axes, device), None, None
     else:
         with session:
             applied = apply_planned(session, device=device)
             mesh, plan = applied.mesh, applied.plan
-            reducer = session.overlap_step(total_bytes=grad_bytes, mode=mode,
-                                           transport=transport)
-    if reducer is None and n > 1:
+            reducer = None
+            if m == 1:
+                reducer = session.overlap_step(total_bytes=grad_bytes,
+                                               mode=mode, transport=transport)
+            else:
+                # the data axis's groups have no plan entry of their own:
+                # the planned bucket size, a ring over the dp slots
+                entry = plan.lookup("all-reduce", grad_bytes)
+                bucket_bytes = float(cfg.overlap.bucket_bytes or
+                                     entry.bucket_bytes or grad_bytes)
+    if m > 1 and dp > 1:
+        reducer = OverlapGradReducer(
+            certified_allreduce(dp, bucket_bytes, "ring"),
+            bucket_bytes=bucket_bytes, mode=mode,
+            use_kernel_add=cfg.overlap.use_kernel_add, transport=transport)
+    if reducer is None and m == 1 and n > 1:
         reducer = OverlapGradReducer(
             certified_allreduce(n, DEFAULT_BUCKET_BYTES, "ring"),
             bucket_bytes=DEFAULT_BUCKET_BYTES, mode=mode,
             use_kernel_add=cfg.overlap.use_kernel_add, transport=transport)
     opt = AdamWConfig(schedule=train_schedule(args.lr, args.steps))
-    if reducer is None:
-        step_fn = make_train_step(model, opt)    # one rank: no all-reduce
-        print(f"[train] {arch.name} on {device}: one rank, no all-reduce")
-    else:
-        if reducer.n != n:
-            raise ValueError(f"the plan's all-reduce spans {reducer.n} "
-                             f"ranks, the mesh {n}")
-        buckets = partition_tree(state.params, reducer.bucket_bytes)
-        print(f"[train] {arch.name} on {device}: {n} data-parallel ranks x "
-              f"{args.batch // n} x {args.seq} tokens; all-reduce "
-              f"{reducer.schedule.algorithm} order "
-              f"{list(reducer.schedule.order)}, {len(buckets)} buckets of "
-              f"{reducer.bucket_bytes:.0f} bytes, transport "
-              f"{reducer.transport}")
-        step_fn = make_overlap_train_step(model, opt, reducer)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
     ds = SyntheticLM(arch.vocab_size, args.seq, args.batch, seed=0)
-    rows = mesh.batch_rows(args.batch)   # data shard i on rank mesh.order[i]
+    tp_step = None
+    if m > 1:
+        if reducer is not None and reducer.n != dp:
+            raise ValueError(f"the data axis's all-reduce spans {reducer.n} "
+                             f"ranks, the mesh's data-parallel ranks {dp}")
+        tp_step = make_sharded_train_step(model, opt, mesh, reducer,
+                                          cfg.overlap.use_kernel_add)
+        step_fn = tp_step
+        state = init_sharded_state(model, gen, tp_step.layout)
+        leaves = tp_step.layout.counts()
+        buckets = partition_tree(state.params, bucket_bytes)
+        print(f"[train] {arch.name} on {device}: mesh {args.mesh} "
+              f"({', '.join(axes)}), {dp} data-parallel ranks x "
+              f"{args.batch // dp} x {args.seq} tokens, model axis {m}; "
+              f"model-axis groups {model_groups(mesh.order, m)} (a certified "
+              f"ring each, slot order); data-axis groups "
+              f"{data_groups(mesh.order, m)}; {leaves['sharded']} leaves "
+              f"sharded, {leaves['replicated']} replicated, "
+              f"{leaves['zero1_sliced']} with ZeRO-1 moments; data-axis "
+              + (f"all-reduce ring over {dp} ranks, {len(buckets)} buckets of "
+                 f"{bucket_bytes:.0f} bytes, transport {reducer.transport}"
+                 if reducer is not None else "none (one data-parallel rank)"))
+        batches = mesh_batches(ds, mesh, batch_spec(mesh))
+    else:
+        state = init_state(model, gen)
+        if reducer is None:
+            step_fn = make_train_step(model, opt)    # one rank: no all-reduce
+            print(f"[train] {arch.name} on {device}: one rank, no all-reduce")
+        else:
+            if reducer.n != n:
+                raise ValueError(f"the plan's all-reduce spans {reducer.n} "
+                                 f"ranks, the mesh {n}")
+            buckets = partition_tree(state.params, reducer.bucket_bytes)
+            print(f"[train] {arch.name} on {device}: {n} data-parallel ranks "
+                  f"x {args.batch // n} x {args.seq} tokens; all-reduce "
+                  f"{reducer.schedule.algorithm} order "
+                  f"{list(reducer.schedule.order)}, {len(buckets)} buckets of "
+                  f"{reducer.bucket_bytes:.0f} bytes, transport "
+                  f"{reducer.transport}")
+            step_fn = make_overlap_train_step(model, opt, reducer)
+        rows = mesh.batch_rows(args.batch)   # data shard i on rank mesh.order[i]
 
-    def batches():
-        i = 0
-        while True:
-            yield ds.batch_rows(i, rows)
-            i += 1
+        def host_batches():
+            i = 0
+            while True:
+                yield ds.batch_rows(i, rows)
+                i += 1
+
+        batches = host_batches()
 
     trainer = Trainer(
-        step_fn=step_fn, state=state, batches=batches(),
+        step_fn=step_fn, state=state, batches=batches,
         cfg=TrainerConfig(total_steps=args.steps, ckpt_every=50,
                           ckpt_dir=args.ckpt_dir, log_every=1,
                           bucket_bytes=reducer.bucket_bytes if reducer else 0.0))
@@ -430,6 +482,10 @@ def cmd_train(args: argparse.Namespace) -> int:
     for row in h:
         print(f"[train] step {row['step']} loss {row['loss']:.4f} "
               f"{row['sec'] * 1e3:.1f} ms")
+    tp_per_step = None
+    if tp_step is not None:
+        tp_per_step = {k: v / max(len(h), 1) for k, v in tp_step.counts.items()}
+        print(f"[train] collectives per step {json.dumps(tp_per_step)}")
     ck = report["checkpoint"]
     print(f"[train] arch={arch.name} steps={report['final_step']} "
           f"loss {h[0]['loss']:.3f} -> {h[-1]['loss']:.3f} in "
@@ -438,6 +494,7 @@ def cmd_train(args: argparse.Namespace) -> int:
           f"{ck['write_s']:.2f}s)")
     summary = {
         "arch": arch.name, "device": str(device), "ranks": n,
+        "model": m, "dp": dp, "tp_collectives": tp_per_step,
         "batch": args.batch, "seq": args.seq,
         "steps": report["final_step"],
         "losses": [row["loss"] for row in h],

@@ -1,3 +1,3 @@
 """Training data (counterpart of ``repro.data``): the synthetic LM stream."""
 
-from .synthetic import SyntheticLM, host_batch  # noqa: F401
+from .synthetic import SyntheticLM, batches, host_batch, make_global_batch  # noqa: F401

@@ -4,15 +4,20 @@ A hash-based token stream, numpy only: the same ``(seed, step, row)``
 gives the same tokens as the reference, so the port and the JAX package
 train on identical batches.  The stream has learnable structure (token
 t+1 depends on token t), so a few steps show a falling loss.
+
+:func:`make_global_batch` is the reference's sharded batch on the virtual
+mesh: each virtual rank materialises the block its mesh slot's index
+selects (rows over the batch axes, replicated over the rest), as each
+JAX device materialises its addressable shard.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
 
-__all__ = ["SyntheticLM", "host_batch"]
+__all__ = ["SyntheticLM", "batches", "host_batch", "make_global_batch"]
 
 
 def _hash2(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -56,3 +61,65 @@ class SyntheticLM:
 def host_batch(ds: SyntheticLM, step: int) -> Dict[str, np.ndarray]:
     """Full global batch on one host (single-process testing path)."""
     return ds.batch_rows(step, np.arange(ds.batch))
+
+
+def _block(axes, coords: Dict[str, int], sizes: Dict[str, int], n: int
+           ) -> slice:
+    """The slice of ``n`` rows (or columns) a slot's coordinates select
+    over ``axes`` (the first axis outermost), all of them for none."""
+    if not axes:
+        return slice(0, n)
+    k, idx = 1, 0
+    for a in axes:
+        idx, k = idx * sizes[a] + coords[a], k * sizes[a]
+    if n % k:
+        raise ValueError(f"{n} does not split over {k} slots of {axes}")
+    per = n // k
+    return slice(idx * per, (idx + 1) * per)
+
+
+def make_global_batch(ds: SyntheticLM, step: int, mesh, spec
+                      ) -> Dict[str, np.ndarray]:
+    """The global batch laid out on ``mesh`` by ``spec`` (a
+    :class:`~repro_torch.parallel.sharding.P` over ``(batch, seq)``):
+    ``{"tokens", "labels": [n_ranks, rows, cols]}``, row ``r`` the block
+    of virtual rank ``r``.
+
+    Mesh slot ``i`` is placed on rank ``mesh.order[i]``; its coordinates
+    along the axes ``spec`` names select its block, and along the other
+    axes (``model``) the block is replicated.
+    """
+    from repro_torch.parallel.sharding import mesh_axis_sizes, spec_axes
+
+    sizes = mesh_axis_sizes(mesh)
+    parts = list(spec) + [None] * (2 - len(spec))
+    shape = tuple(sizes[a] for a in mesh.axis_names)
+    out: Dict[str, list] = {"tokens": [None] * len(mesh.order),
+                            "labels": [None] * len(mesh.order)}
+    made: Dict[tuple, Dict[str, np.ndarray]] = {}
+    for slot, rank in enumerate(mesh.order):
+        coords = dict(zip(mesh.axis_names, np.unravel_index(slot, shape)))
+        rows = _block(spec_axes(parts[0]), coords, sizes, ds.batch)
+        cols = _block(spec_axes(parts[1]), coords, sizes, ds.seq)
+        key = (rows.start, rows.stop)
+        if key not in made:     # a block replicated over other axes: once
+            made[key] = ds.batch_rows(step, np.arange(ds.batch)[rows])
+        data = made[key]
+        for name in out:
+            out[name][rank] = data[name][:, cols]
+    return {k: np.stack(v) for k, v in out.items()}
+
+
+def batches(ds: SyntheticLM, mesh=None, spec=None, start_step: int = 0
+            ) -> Iterator[Dict[str, np.ndarray]]:
+    """Batches from ``start_step`` on: the host batch without a mesh,
+    else :func:`make_global_batch` (``spec`` replicated by default)."""
+    from repro_torch.parallel.sharding import P
+
+    step = start_step
+    while True:
+        if mesh is None:
+            yield host_batch(ds, step)
+        else:
+            yield make_global_batch(ds, step, mesh, spec or P())
+        step += 1

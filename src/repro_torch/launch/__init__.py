@@ -1,7 +1,9 @@
 """Launch helpers (counterpart of ``repro.launch``): the planned mesh,
-virtual or group-backed (:mod:`.mesh`), and ``build_mesh`` (:mod:`.train`).
+virtual or group-backed (:mod:`.mesh`), ``build_mesh`` (:mod:`.train`),
+and the cells' sharded stand-ins, ``configure_sp`` and ``input_specs``
+(:mod:`.specs`, imported on its own).
 
-The reference's production meshes, dry-run specs, HLO analysis and serve
+The reference's production meshes, dry-run, HLO analysis and serve
 launcher are not ported (ROADMAP.md §1 slice 6, item 15).
 """
 

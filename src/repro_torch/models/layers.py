@@ -29,18 +29,85 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.sharding import P
+from repro_torch.parallel.tensor import model_dim, tp_linear
 
 __all__ = [
-    "apply_rope", "attention", "attention_decode", "attention_spec", "dense_init",
-    "init_from_spec", "layer_norm", "make_rope", "map_spec", "mla_attention",
-    "mla_attention_decode", "mla_attention_decode_absorbed", "mla_spec", "mlp",
-    "mlp_spec", "moe_dense", "moe_layer", "moe_scatter", "moe_spec", "rms_norm",
+    "clear_sequence_parallel", "set_sequence_parallel", "sp_constrain",
+    "sp_gather_kv", "sp_head_constrain", "sp_shard_heads",
+    "apply_rope", "attention", "attention_decode", "attention_spec",
+    "attention_tp", "dense_init", "init_from_spec", "layer_norm", "make_rope",
+    "map_spec", "mla_attention", "mla_attention_decode",
+    "mla_attention_decode_absorbed", "mla_spec", "mlp", "mlp_spec", "mlp_tp",
+    "moe_dense", "moe_layer", "moe_scatter", "moe_spec", "rms_norm",
     "stack_spec", "unbind_layers",
 ]
 
 Params = Dict[str, Any]
 
 ZEROS, ONES = ("const", 0.0), ("const", 1.0)
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism (SP), layers.py:43-99
+# ---------------------------------------------------------------------------
+# The reference pins layouts with ``with_sharding_constraint``, which is
+# the identity in value; the launcher arms the mesh context
+# (``launch.specs.configure_sp``) and, unarmed, every call is a no-op.  The
+# port keeps the guards and the call sites, returns its input, and records
+# the layout each function asked for last (``_SP_STATE["asked"]``).  The
+# S-sharded form of SP (a reduce-scatter and an all-gather in place of the
+# model axis's all-reduce) is ROADMAP.md §1's performance work.
+
+_SP_STATE: Dict[str, Any] = {"dp": None, "tp": None, "tp_size": 1, "asked": {}}
+
+
+def set_sequence_parallel(dp_axes, tp_axis, tp_size) -> None:
+    _SP_STATE.update(dp=tuple(dp_axes) if dp_axes else None,
+                     tp=tp_axis, tp_size=tp_size)
+
+
+def clear_sequence_parallel() -> None:
+    _SP_STATE.update(dp=None, tp=None, tp_size=1, asked={})
+
+
+def _ask(fn: str, x: torch.Tensor, *parts) -> torch.Tensor:
+    _SP_STATE["asked"][fn] = P(*parts)
+    return x
+
+
+def sp_constrain(x: torch.Tensor) -> torch.Tensor:
+    """Ask for [B, S, D] activations on (dp, model, None)."""
+    tp = _SP_STATE["tp"]
+    if tp is None or x.dim() != 3 or x.shape[1] % max(_SP_STATE["tp_size"], 1):
+        return x
+    return _ask("sp_constrain", x, _SP_STATE["dp"] or (), tp, None)
+
+
+def sp_shard_heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """Ask for [B, H, S, d] tensors head-sharded over the model axis."""
+    tp = _SP_STATE["tp"]
+    if tp is None or t.dim() != 4 or n_heads % max(_SP_STATE["tp_size"], 1):
+        return t
+    return _ask("sp_shard_heads", t, _SP_STATE["dp"] or (), tp, None, None)
+
+
+def sp_head_constrain(head: torch.Tensor) -> torch.Tensor:
+    """Ask for the [D, V] unembedding vocab-sharded over the model axis."""
+    tp = _SP_STATE["tp"]
+    if tp is None or head.dim() != 2 or \
+            head.shape[1] % max(_SP_STATE["tp_size"], 1):
+        return head
+    return _ask("sp_head_constrain", head, None, tp)
+
+
+def sp_gather_kv(k: torch.Tensor, cfg) -> torch.Tensor:
+    """Ask for [B, KV, S, hd] K/V gathered over S, head-sharded."""
+    tp = _SP_STATE["tp"]
+    if tp is None or k.dim() != 4:
+        return k
+    heads = tp if k.shape[1] % max(_SP_STATE["tp_size"], 1) == 0 else None
+    return _ask("sp_gather_kv", k, _SP_STATE["dp"] or (), heads, None, None)
 
 
 def dense_init(generator: torch.Generator, shape: Sequence[int],
@@ -280,6 +347,9 @@ def attention(
     if cfg.attention_impl == "flash":
         out = _flash(q, k, v, causal=causal, window=window)
     else:
+        if cfg.attn_q_chunk and getattr(cfg, "hoist_kv_gather", True):
+            k = sp_gather_kv(k, cfg)
+            v = sp_gather_kv(v, cfg)
         out = _sdpa(q, k, v, causal=causal, window=window,
                     q_positions=positions, kv_positions=positions,
                     q_chunk=cfg.attn_q_chunk)
@@ -359,6 +429,75 @@ def mlp_spec(d: int, f: int) -> Params:
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the dense family's layers over a model axis
+# ---------------------------------------------------------------------------
+
+def mlp_tp(p: Params, spec: Params, x: torch.Tensor, tp) -> torch.Tensor:
+    """The gated MLP over ``tp``'s model axis: ``w1``/``w3``
+    column-parallel, ``w2`` row-parallel and all-reduced; whole on every
+    rank where the spec leaves ``w1`` replicated."""
+    if model_dim(spec["w1"]) is None:
+        return mlp(p, x)
+    xm = tp.scatter(x)
+    h = F.silu(tp_linear(xm, p["w1"])) * tp_linear(xm, p["w3"])
+    return tp.reduce(tp_linear(h, p["w2"]))
+
+
+def attention_tp(p: Params, spec: Params, x: torch.Tensor, cfg, tp, *,
+                 positions: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """Causal self-attention over ``tp``'s model axis: ``[B, S, D]`` in
+    and out.
+
+    ``wq``/``bq`` (and ``wk``/``wv``/``bk``/``bv`` where the KV heads
+    divide) are column-parallel: model rank ``j`` computes query heads
+    ``j*H/m .. (j+1)*H/m - 1``; ``wo`` is row-parallel and all-reduced.
+    Where the query heads divide and the KV heads do not, k and v are
+    computed whole, once, and each rank reads the KV head each of its
+    query heads maps to (``i // (H/KV)``).  Where the query heads do not
+    divide, the attention is whole on every rank, with no collective.
+    """
+    if model_dim(spec["wq"]) is None:
+        return attention(p, x, cfg, causal=True, positions=positions,
+                         window=window)[0]
+    B, S, _ = x.shape
+    m, hd, kv = tp.m, cfg.head_dim, cfg.n_kv_heads
+    hl = cfg.n_heads // m
+    cos, sin = make_rope(positions, hd, cfg.rope_theta)
+    xm = tp.scatter(x)
+
+    def heads(t, n):               # [m, B, S, n*hd] -> [m*B, n, S, hd]
+        return t.reshape(m * B, S, n, hd).transpose(1, 2)
+
+    def proj(name):
+        t = tp_linear(xm, p[name])
+        return t + p["b" + name[1]][:, None, None] if cfg.qkv_bias else t
+
+    q = apply_rope(heads(proj("wq"), hl), cos, sin)
+    if model_dim(spec["wk"]) is not None:
+        k = apply_rope(heads(proj("wk"), kv // m), cos, sin)
+        v = heads(proj("wv"), kv // m)
+    else:
+        k, v = (x @ p["wk"], x @ p["wv"])
+        if cfg.qkv_bias:
+            k, v = k + p["bk"], v + p["bv"]
+        k = apply_rope(k.reshape(B, S, kv, hd).transpose(1, 2), cos, sin)
+        v = v.reshape(B, S, kv, hd).transpose(1, 2)
+        dev = x.device
+        rank = torch.arange(m, device=dev)[:, None]
+        pick = (rank * hl + torch.arange(hl, device=dev)) // (cfg.n_heads // kv)
+        # [m, hl, B, S, hd]: rank j's copy, at the KV head of each query head
+        k = tp.scatter(k)[rank, :, pick].transpose(1, 2).reshape(m * B, hl, S, hd)
+        v = tp.scatter(v)[rank, :, pick].transpose(1, 2).reshape(m * B, hl, S, hd)
+    if cfg.attention_impl == "flash":
+        out = _flash(q, k, v, causal=True, window=window)
+    else:
+        out = _sdpa(q, k, v, causal=True, window=window, q_positions=positions,
+                    kv_positions=positions, q_chunk=cfg.attn_q_chunk)
+    out = out.transpose(1, 2).reshape(m, B, S, hl * hd)
+    return tp.reduce(tp_linear(out, p["wo"]))
 
 
 # ---------------------------------------------------------------------------
@@ -548,7 +687,10 @@ def _mla_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, cfg):
     q_nope, q_rope = _mla_q(p, x, cos, sin, cfg)
     ckv, k_rope = _mla_latent(p, x, cos, sin, cfg)
     kv = (ckv @ p["wkv_b"]).reshape(B, S, cfg.n_heads, qk + vh).transpose(1, 2)
-    return q_nope, q_rope, kv[..., :qk], k_rope, kv[..., qk:], ckv
+    h = cfg.n_heads
+    return (sp_shard_heads(q_nope, h), sp_shard_heads(q_rope, h),
+            sp_shard_heads(kv[..., :qk], h), k_rope,
+            sp_shard_heads(kv[..., qk:], h), ckv)
 
 
 def _mla_sdpa(q_nope, q_rope, k_nope, k_rope, v, *, q_positions,

@@ -249,6 +249,8 @@ class RecurrentGemmaLM:
         return x + L.mlp(p["mlp"], m), kv
 
     def _group_fwd(self, gp: Params, x: torch.Tensor, positions) -> torch.Tensor:
+        if self.cfg.sequence_parallel:
+            x = L.sp_constrain(x)
         for i, kind in enumerate(self.pattern):
             p = gp[f"{kind}{i}"]
             if kind == "R":

@@ -177,6 +177,8 @@ class Rwkv6LM:
 
     def _block(self, bp, x, att_sx=None, ffn_sx=None, wkv=None):
         eps = self.cfg.norm_eps
+        if self.cfg.sequence_parallel:
+            x = L.sp_constrain(x)
         h = L.rms_norm(x, bp["ln1"], eps)
         att, att_sx, wkv = self._time_mix(bp["time_mix"], h, att_sx, wkv)
         x = x + att

@@ -22,7 +22,10 @@ attention through the flash kernel, which is forward-only; training keeps
 flash width, so MLA keeps its two-term attention, as the reference does.
 The ``vlm`` family (llava-next-mistral-7b) is this decoder with the
 reference's anyres stub in front: ``frontend_embeds [B, n_img, D]``
-replace the first ``n_img`` token embeddings.
+replace the first ``n_img`` token embeddings.  Given a
+:class:`~repro_torch.parallel.tensor.TensorParallel`, ``loss`` runs the
+dense family and the VLM over a model axis from sharded storage
+(:func:`lm_loss_tp`, ``layers.attention_tp``/``mlp_tp``).
 """
 
 from __future__ import annotations
@@ -34,10 +37,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.tensor import (
+    model_dim, require_tp_family, tp_linear, unbind_blocks)
 
 from . import layers as L
 
-__all__ = ["DecoderLM", "lm_loss"]
+__all__ = ["DecoderLM", "lm_loss", "lm_loss_tp"]
 
 Params = Dict[str, Any]
 
@@ -106,6 +111,29 @@ class DecoderLM:
                 + [("scan", bp)
                    for bp in L.unbind_layers(params["blocks"], self.n_scan)])
 
+    # -- tensor parallelism ------------------------------------------------
+    def _tp_embed(self, table: torch.Tensor, tokens: torch.Tensor, tp
+                  ) -> torch.Tensor:
+        """Vocab-parallel lookup: rank ``j`` holds rows ``j*V/m ..`` of
+        ``table [m, V/m, D]`` and contributes them, zeros elsewhere; the
+        ranks' rows are all-reduced."""
+        m, vl = table.shape[0], table.shape[1]
+        rank = torch.arange(m, device=tokens.device)[:, None, None]
+        loc = tokens[None] - rank * vl
+        ok = (loc >= 0) & (loc < vl)
+        rows = table[rank, loc.clamp(0, vl - 1)]               # [m, B, S, D]
+        return tp.reduce(torch.where(ok[..., None], rows, rows.new_zeros(())))
+
+    def _tp_head(self, params: Params, tp) -> Tuple[torch.Tensor, bool]:
+        """The unembedding and whether it is vocab-sharded: ``[m, D, V/m]``
+        (tied: each rank's embedding rows, transposed) or ``[D, V]``."""
+        name = "embed" if self.cfg.tie_embeddings else "lm_head"
+        sharded = model_dim(tp.pspecs[name]) is not None
+        w = params[name]
+        if not self.cfg.tie_embeddings:
+            return w, sharded
+        return (w.transpose(1, 2) if sharded else w.T), sharded
+
     # -- blocks -----------------------------------------------------------
     def _ffn(self, p: Params, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if "moe" in p:
@@ -113,12 +141,25 @@ class DecoderLM:
         return L.mlp(p["mlp"], h), torch.zeros((), dtype=torch.float32,
                                                device=h.device)
 
-    def _block_fwd(self, p: Params, x: torch.Tensor, positions: torch.Tensor
+    def _block_fwd(self, p: Params, x: torch.Tensor, positions: torch.Tensor,
+                   tp=None, spec: Optional[Params] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
         """One block over the whole sequence: ``(x, aux, its cache
-        entries)`` — roped k/v, or MLA's latents."""
+        entries)`` — roped k/v, or MLA's latents.  With ``tp`` (a
+        :class:`~repro_torch.parallel.tensor.TensorParallel`) the block
+        runs over its model axis from model-axis storage, ``spec`` the
+        block's specs, and returns no cache entries."""
         cfg = self.cfg
+        if cfg.sequence_parallel:
+            x = L.sp_constrain(x)
         h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        if tp is not None:
+            x = x + L.attention_tp(p["attn"], spec["attn"], h, cfg, tp,
+                                   positions=positions, window=cfg.attn_window)
+            y = L.mlp_tp(p["mlp"], spec["mlp"],
+                         L.rms_norm(x, p["mlp_norm"], cfg.norm_eps), tp)
+            return x + y, torch.zeros((), dtype=torch.float32,
+                                      device=x.device), {}
         if cfg.use_mla:
             attn_out, kv = L.mla_attention(p["attn"], h, cfg, positions)
         else:
@@ -143,34 +184,42 @@ class DecoderLM:
         return x + y
 
     def _embed(self, params: Params, tokens: torch.Tensor,
-               frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+               frontend_embeds: Optional[torch.Tensor], tp=None) -> torch.Tensor:
         """Token embeddings; for the ``vlm`` family the anyres stub
         (``transformer.py:105-113``): the image embeddings replace the
         first ``n_img`` slots."""
-        x = params["embed"][tokens]
+        if tp is not None and model_dim(tp.pspecs["embed"]) is not None:
+            x = self._tp_embed(params["embed"], tokens, tp)
+        else:
+            x = params["embed"][tokens]
         if self.cfg.family == "vlm" and frontend_embeds is not None:
             n_img = frontend_embeds.shape[1]
             x = torch.cat([frontend_embeds.to(x.dtype), x[:, n_img:]], dim=1)
         return x
 
     def _features(self, params: Params, tokens: torch.Tensor,
-                  frontend_embeds: Optional[torch.Tensor] = None
+                  frontend_embeds: Optional[torch.Tensor] = None, tp=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Final-norm hidden states ``[B, S, D]`` and the summed aux loss.
 
         The head blocks run unchecked, the stacked ones under
         ``remat="block"`` checkpointed, as the reference's scan body."""
         cfg = self.cfg
-        x = self._embed(params, tokens, frontend_embeds)
+        x = self._embed(params, tokens, frontend_embeds, tp)
         positions = torch.arange(tokens.shape[1], device=x.device)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = cfg.remat == "block" and torch.is_grad_enabled()
-        for where, bp in self._layers(params):
+        if tp is None:
+            layers = [(w, bp, None) for w, bp in self._layers(params)]
+        else:
+            layers = [("scan", bp, spec) for bp, spec in unbind_blocks(
+                params["blocks"], tp.pspecs["blocks"], self.n_scan)]
+        for where, bp, spec in layers:
             if remat and where == "scan":
-                x, aux, _ = checkpoint(self._block_fwd, bp, x, positions,
-                                       use_reentrant=False)
+                x, aux, _ = checkpoint(self._block_fwd, bp, x, positions, tp,
+                                       spec, use_reentrant=False)
             else:
-                x, aux, _ = self._block_fwd(bp, x, positions)
+                x, aux, _ = self._block_fwd(bp, x, positions, tp, spec)
             aux_total = aux_total + aux
         return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
 
@@ -184,13 +233,32 @@ class DecoderLM:
             return x, aux
         return x @ self._head(params), aux
 
-    def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor],
+             tp=None) -> torch.Tensor:
         """Mean next-token cross entropy + 0.01 x the aux loss; never
-        builds the whole logits."""
+        builds the whole logits.
+
+        With ``tp`` (a :class:`~repro_torch.parallel.tensor.TensorParallel`)
+        ``params`` is its model-axis storage
+        (:func:`~repro_torch.parallel.tensor.shard_params`) and the loss
+        runs over the model axis: the vocab-parallel lookup and cross
+        entropy, column- and row-parallel blocks, whatever the specs
+        leave replicated computed whole.  The dense family and the VLM
+        only (:func:`~repro_torch.parallel.tensor.require_tp_family`).
+        """
+        if tp is not None:
+            require_tp_family(self.cfg)
         feats, aux = self._features(params, batch["tokens"],
-                                    batch.get("frontend_embeds"))
-        ce = lm_loss(feats, self._head(params), batch["labels"],
-                     self.cfg.loss_chunk_size)
+                                    batch.get("frontend_embeds"), tp)
+        chunk = self.cfg.loss_chunk_size
+        if tp is None:
+            return lm_loss(feats, self._head(params), batch["labels"],
+                           chunk) + 0.01 * aux
+        head, sharded = self._tp_head(params, tp)
+        if sharded:
+            ce = lm_loss_tp(feats, head, batch["labels"], chunk, tp)
+        else:
+            ce = lm_loss(feats, head, batch["labels"], chunk)
         return ce + 0.01 * aux
 
     # -- serving ----------------------------------------------------------
@@ -290,11 +358,56 @@ def lm_loss(features: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     inside a checkpoint, so the peak is ``[B, chunk, V]`` in f32 in the
     forward and the backward pass."""
     B, S, _ = features.shape
+    if head.dim() == 2:
+        head = L.sp_head_constrain(head)
     if chunk <= 0 or S <= chunk or S % chunk != 0:
         return _xent(features @ head, labels)
     total = torch.zeros((), dtype=torch.float32, device=features.device)
     for i in range(0, S, chunk):
         total = total + checkpoint(_chunk_loss, features[:, i:i + chunk],
                                    head, labels[:, i:i + chunk],
+                                   use_reentrant=False)
+    return total / (B * S)
+
+
+def _vocab_parallel_xent(x: torch.Tensor, head: torch.Tensor,
+                         labels: torch.Tensor, tp, upcast: bool) -> torch.Tensor:
+    """Per-token ``logz - gold`` ``[B, c]`` from ``x [B, c, D]`` and the
+    vocab-sharded ``head [m, D, V/m]``: each rank's logits over its slice
+    of the vocabulary; the ranks' ``logsumexp`` all-gathered and reduced
+    again over the ``m`` values; the gold logit, zero outside its rank's
+    slice, all-reduced.  ``upcast`` casts the operands to f32 (the chunked
+    path's), else the model-dtype logits are upcast (``_xent``'s)."""
+    m, vl = head.shape[0], head.shape[2]
+    if upcast:
+        logits = tp_linear(tp.scatter(x.float()), head.float())
+    else:
+        logits = tp_linear(tp.scatter(x), head).float()
+    logz = torch.logsumexp(tp.gather(torch.logsumexp(logits, dim=-1)), dim=0)
+    rank = torch.arange(m, device=x.device)[:, None, None]
+    loc = labels[None].long() - rank * vl
+    ok = (loc >= 0) & (loc < vl)
+    gold = torch.gather(logits, -1, loc.clamp(0, vl - 1)[..., None])[..., 0]
+    return logz - tp.reduce(torch.where(ok, gold, gold.new_zeros(())))
+
+
+def _chunk_loss_tp(xi: torch.Tensor, head: torch.Tensor, li: torch.Tensor,
+                   tp) -> torch.Tensor:
+    return torch.sum(_vocab_parallel_xent(xi, head, li, tp, upcast=True))
+
+
+def lm_loss_tp(features: torch.Tensor, head: torch.Tensor,
+               labels: torch.Tensor, chunk: int, tp) -> torch.Tensor:
+    """:func:`lm_loss` over the model axis of ``tp`` with a vocab-sharded
+    ``head [m, D, V/m]``, chunked and checkpointed as :func:`lm_loss`
+    (a chunk's recompute runs its gather and all-reduce again)."""
+    B, S, _ = features.shape
+    if chunk <= 0 or S <= chunk or S % chunk != 0:
+        return torch.mean(_vocab_parallel_xent(features, head, labels, tp,
+                                               upcast=False))
+    total = torch.zeros((), dtype=torch.float32, device=features.device)
+    for i in range(0, S, chunk):
+        total = total + checkpoint(_chunk_loss_tp, features[:, i:i + chunk],
+                                   head, labels[:, i:i + chunk], tp,
                                    use_reentrant=False)
     return total / (B * S)

@@ -140,6 +140,8 @@ class WhisperLM:
                    positions: torch.Tensor):
         cfg = self.cfg
         eps = cfg.norm_eps
+        if cfg.sequence_parallel:
+            x = L.sp_constrain(x)
         out, kv = L.attention(bp["self_attn"], _ln(x, bp["ln1"], eps), cfg,
                               causal=True, positions=positions, use_rope=False)
         x = x + out

@@ -17,8 +17,8 @@ import torch
 
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["AdamWConfig", "OptState", "init_opt", "apply_opt", "global_norm",
-           "cosine_schedule"]
+__all__ = ["AdamWConfig", "OptState", "init_opt", "apply_opt", "adamw_update",
+           "global_norm", "cosine_schedule"]
 
 
 class OptState(NamedTuple):
@@ -67,6 +67,21 @@ def global_norm(tree: Any) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+def adamw_update(cfg: AdamWConfig, p: torch.Tensor, g: torch.Tensor,
+                 m: torch.Tensor, v: torch.Tensor, scale, lr, b1c, b2c
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One tensor's AdamW step (``(p', m', v')``): the clip's ``scale``,
+    f32 moments, the step in f32 cast back to ``p``'s dtype.  Elementwise,
+    so a slice of a parameter (ZeRO-1's) updates as the whole would."""
+    g = g.float() * scale
+    m = cfg.b1 * m + (1 - cfg.b1) * g
+    v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
+    mh = m / b1c
+    vh = v / b2c
+    step = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
+    return (p.float() - lr * step).to(p.dtype), m, v
+
+
 @torch.no_grad()
 def apply_opt(
     cfg: AdamWConfig, params: Any, grads: Any, state: OptState
@@ -79,16 +94,8 @@ def apply_opt(
     b1c = 1.0 - cfg.b1 ** count.to(torch.float32)
     b2c = 1.0 - cfg.b2 ** count.to(torch.float32)
 
-    def upd(p, g, m, v):
-        g = g.float() * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
-        mh = m / b1c
-        vh = v / b2c
-        step = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
-        return (p.float() - lr * step).to(p.dtype), m, v
-
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
+    out = [adamw_update(cfg, p, g, m, v, scale, lr, b1c, b2c)
+           for p, g, m, v in zip(
         tree_leaves(params), tree_leaves(grads), tree_leaves(state.m),
         tree_leaves(state.v))]
     new_p = tree_unflatten(params, [o[0] for o in out])

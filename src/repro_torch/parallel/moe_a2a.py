@@ -255,8 +255,9 @@ def moe_a2a(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.T
     if others:
         raise NotImplementedError(
             f"the virtual mesh's EP all-to-all runs over one axis; {others} "
-            f"(sharded weights or a second batch axis) wait for the sharding "
-            f"specs, ROADMAP.md §1 item 11")
+            f"(the experts' weights sharded over the model axis, the "
+            f"reference's weight gather, or a second batch axis) wait for "
+            f"MoE training over the mesh, ROADMAP.md §1 item 18")
     if mesh.group is not None:
         return _moe_a2a_group(p, x, cfg, mesh, a2a_order)
     n_ep = sizes[ep_axis]

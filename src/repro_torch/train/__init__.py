@@ -1,8 +1,9 @@
 """Training (counterpart of ``repro.train``): the baseline step and the
 overlapped data-parallel step over a certified, rank-reordered all-reduce,
-built by hand or from a compiled plan (:func:`reducer_from_plan`), and the
-fault-tolerant :class:`Trainer` that runs a step with checkpoints, elastic
-restarts and re-ranking."""
+built by hand or from a compiled plan (:func:`reducer_from_plan`), the
+tensor-parallel ZeRO-1 step on a ``(data, model)`` mesh
+(:mod:`.sharded_step`), and the fault-tolerant :class:`Trainer` that runs
+a step with checkpoints, elastic restarts and re-ranking."""
 
 from .overlap_grads import (  # noqa: F401
     OVERLAP_MODES,

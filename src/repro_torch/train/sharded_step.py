@@ -1,0 +1,261 @@
+"""The tensor-parallel, ZeRO-1 train step on a ``(data, model)`` or
+``(pod, data, model)`` virtual mesh.
+
+What the reference's ``jit_train_step(..., overlap="off")`` runs under
+GSPMD from ``state_pspecs`` and ``batch_pspecs``, written out:
+
+1. each data-parallel rank (a Python loop, as
+   :func:`~repro_torch.train.overlap_grads.stacked_grads` loops) takes the
+   loss and its gradient on its rows through the tensor-parallel
+   :meth:`DecoderLM.loss <repro_torch.models.transformer.DecoderLM.loss>`,
+   its ``m`` model ranks the leading dimension of every sharded tensor,
+   every model-axis sum a certified schedule
+   (:class:`~repro_torch.parallel.tensor.TensorParallel`);
+2. the data-parallel ranks' gradients go through an
+   :class:`~repro_torch.train.overlap_grads.OverlapGradReducer` over the
+   ``d`` data-parallel ranks, all ``m`` model ranks' shards in one
+   payload (``peer_ring`` on the card for a ring, the runner otherwise);
+3. the global-norm clip: each model rank's squares of its shards, a
+   replicated leaf counted once, all-reduced over the model axis;
+4. ZeRO-1: each data-parallel rank holds its slice of the AdamW moments
+   (:func:`~repro_torch.parallel.sharding.zero1_spec`: the first
+   unsharded dimension the dp size divides) and updates that slice of
+   the parameters (``optim/adamw.py``'s arithmetic); the slices go back
+   together by a certified all-gather over the data axis.
+
+The state holds the parameters in model-axis storage
+(:func:`~repro_torch.parallel.tensor.shard_params`) and the moments as
+``[dp, ...]``, data-parallel rank ``k``'s slice in row ``k``; a leaf that
+no dimension of which the dp size divides keeps whole moments.  The batch
+is :func:`repro_torch.data.synthetic.make_global_batch`'s: one block of
+rows a virtual rank, the step reading data-parallel rank ``k``'s rows
+from the rank that holds mesh slot ``(k, 0)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.optim import OptState
+from repro_torch.optim.adamw import adamw_update
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.tensor import (
+    TensorParallel, all_gather_rows, certified_all_gather, model_dim,
+    require_tp_family, shard_params)
+from repro_torch.tree import tree_leaves, tree_unflatten
+
+from .train_step import TrainState, batch_on
+
+__all__ = ["ShardedLayout", "init_sharded_state", "make_sharded_train_step",
+           "param_shapes"]
+
+
+def param_shapes(model) -> Any:
+    """The model's parameter tree as meta tensors (shapes and dtypes,
+    nothing allocated)."""
+    from repro_torch.models.layers import map_spec
+
+    return map_spec(model.param_spec(), lambda e: torch.empty(
+        e[0], dtype=e[2] if len(e) > 2 else model.dtype, device="meta"))
+
+
+def _zslice(t: torch.Tensor, dim: int, dp: int) -> torch.Tensor:
+    """``[dp, ...]``: dimension ``dim`` cut into ``dp`` slices, rank first."""
+    return t.unflatten(dim, (dp, t.shape[dim] // dp)).movedim(dim, 0)
+
+
+def _unslice(s: torch.Tensor, dim: int) -> torch.Tensor:
+    return s.movedim(0, dim).flatten(dim, dim + 1)
+
+
+@dataclasses.dataclass
+class ShardedLayout:
+    """Where a model's parameters and moments live on a mesh."""
+
+    mesh: Any
+    pspecs: Any                    # param_pspecs
+    m: int                         # model-axis size
+    dp: int                        # data-parallel ranks (pod x data)
+    #: per leaf, the storage dim ZeRO-1 slices over dp, or None
+    zdims: List[Optional[int]]
+
+    @classmethod
+    def of(cls, model, mesh) -> "ShardedLayout":
+        shapes = param_shapes(model)
+        pspecs = shd.param_pspecs(shapes, model.cfg, mesh)
+        zspecs = tree_unflatten(pspecs, [
+            shd.zero1_spec(s, tuple(t.shape), mesh)
+            for s, t in zip(tree_leaves(pspecs), tree_leaves(shapes))])
+        sizes = shd.mesh_axis_sizes(mesh)
+        dp = int(np.prod([sizes[a] for a in shd.dp_axes(mesh)]))
+        zdims = []
+        for ps, zs in zip(tree_leaves(pspecs), tree_leaves(zspecs)):
+            moved = [i for i, (a, b) in enumerate(zip(ps, zs)) if a != b]
+            # storage: a model-sharded leaf carries the model axis first
+            zdims.append(moved[0] + (model_dim(ps) is not None)
+                         if moved else None)
+        return cls(mesh, pspecs, sizes.get("model", 1), dp, zdims)
+
+    def counts(self) -> Dict[str, int]:
+        """Leaves sharded over the model axis, replicated, and ZeRO-1
+        sliced."""
+        specs = tree_leaves(self.pspecs)
+        sharded = sum(model_dim(s) is not None for s in specs)
+        return {"sharded": sharded, "replicated": len(specs) - sharded,
+                "zero1_sliced": sum(z is not None for z in self.zdims)}
+
+
+def init_sharded_state(model, generator: torch.Generator,
+                       layout: ShardedLayout) -> TrainState:
+    """Parameters drawn from ``generator`` (the unsharded model's), held
+    in model-axis storage; zero moments, ZeRO-1 sliced; step 0."""
+    params = shard_params(model.init(generator), layout.pspecs, layout.m)
+
+    def zeros(p, zd):
+        shape = p.shape if zd is None else _zslice(
+            torch.empty(p.shape, device="meta"), zd, layout.dp).shape
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+    leaves = tree_leaves(params)
+    m_ = tree_unflatten(params, [zeros(p, z) for p, z in zip(leaves, layout.zdims)])
+    v_ = tree_unflatten(params, [zeros(p, z) for p, z in zip(leaves, layout.zdims)])
+    dev = generator.device
+    return TrainState(params, OptState(m_, v_, torch.zeros((), dtype=torch.int32,
+                                                           device=dev)),
+                      torch.zeros((), dtype=torch.int32, device=dev))
+
+
+class ShardedTrainStep:
+    """The step: ``step(state, batch) -> (state', metrics)``.
+
+    ``counts`` tallies the collectives run: ``model_allreduce`` and
+    ``model_allgather`` (the model axis: forward, backward, recompute and
+    the clip), ``data_allgather`` (ZeRO-1's), ``data_allreduce`` (the
+    reducer's calls).
+    """
+
+    def __init__(self, model, opt_cfg, mesh, reducer=None,
+                 use_kernel_add: bool = True):
+        require_tp_family(model.cfg)
+        self.model, self.opt_cfg, self.mesh = model, opt_cfg, mesh
+        self.layout = ShardedLayout.of(model, mesh)
+        self.tp = TensorParallel(mesh, self.layout.pspecs, use_kernel_add)
+        dp = self.layout.dp
+        if dp > 1 and reducer is None:
+            raise ValueError(f"{dp} data-parallel ranks need a reducer over "
+                             f"the data axis")
+        if reducer is not None and reducer.n != dp:
+            raise ValueError(f"the reducer spans {reducer.n} ranks, the "
+                             f"mesh's data axes {dp}")
+        self.reducer = reducer
+        self.gather_schedule = certified_all_gather(dp) if dp > 1 else None
+        self.counts = {"model_allreduce": 0, "model_allgather": 0,
+                       "data_allgather": 0, "data_allreduce": 0}
+
+    # -- gradients ---------------------------------------------------------
+    def dp_batches(self, batch: Dict[str, Any]) -> List[Dict[str, torch.Tensor]]:
+        """Data-parallel rank ``k``'s rows: those of the rank that holds
+        mesh slot ``(k, 0)`` (``make_global_batch``'s ``[n, rows, S]``)."""
+        m, order = self.layout.m, self.mesh.order
+        return [batch_on({k: v[order[i * m]] for k, v in batch.items()},
+                         self.model.device) for i in range(self.layout.dp)]
+
+    def value_and_grad(self, params: Any, batch: Dict[str, Any]
+                       ) -> Tuple[torch.Tensor, Any]:
+        """The loss (mean over the data-parallel ranks) and the mean
+        gradient in model-axis storage, after the data-axis all-reduce."""
+        shards = self.dp_batches(batch)
+        losses, stacked = [], None
+        for k, shard in enumerate(shards):
+            leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+            with torch.enable_grad():
+                loss = self.model.loss(tree_unflatten(params, leaves), shard,
+                                       tp=self.tp)
+            grads = torch.autograd.grad(loss, leaves)
+            losses.append(loss.detach())
+            if len(shards) == 1:
+                stacked = list(grads)
+                break
+            if stacked is None:
+                stacked = [g.new_empty((len(shards), *g.shape)) for g in grads]
+            for buf, g in zip(stacked, grads):
+                buf[k].copy_(g)
+            del grads
+        tree = tree_unflatten(params, stacked)
+        if len(shards) > 1:
+            tree, _ = self.reducer(tree)
+            self.counts["data_allreduce"] += 1
+        return torch.stack(losses).mean(), tree
+
+    # -- the update ----------------------------------------------------------
+    @torch.no_grad()
+    def apply(self, state: TrainState, grads: Any) -> Tuple[TrainState, dict]:
+        """Clip, ZeRO-1 AdamW on each data-parallel rank's slice, and the
+        slices all-gathered over the data axis."""
+        cfg, dp = self.opt_cfg, self.layout.dp
+        gnorm = self.tp.global_norm(grads)
+        scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+        count = state.opt.count + 1
+        lr = cfg.schedule(count) if cfg.schedule is not None else cfg.lr
+        b1c = 1.0 - cfg.b1 ** count.to(torch.float32)
+        b2c = 1.0 - cfg.b2 ** count.to(torch.float32)
+        params, new_p, new_m, new_v = tree_leaves(state.params), [], [], []
+        sliced: Dict[torch.dtype, List[int]] = {}
+        for i, (p, g, m_, v_, zd) in enumerate(zip(
+                params, tree_leaves(grads), tree_leaves(state.opt.m),
+                tree_leaves(state.opt.v), self.layout.zdims)):
+            if zd is not None:
+                p, g = _zslice(p, zd, dp), _zslice(g, zd, dp)
+                sliced.setdefault(p.dtype, []).append(i)
+            p, m_, v_ = adamw_update(cfg, p, g, m_, v_, scale, lr, b1c, b2c)
+            new_p.append(p)
+            new_m.append(m_)
+            new_v.append(v_)
+        for ids in sliced.values():
+            whole = self._gather([new_p[i] for i in ids])
+            for i, t in zip(ids, whole):
+                new_p[i] = _unslice(t, self.layout.zdims[i]).contiguous()
+        metrics = {"grad_norm": gnorm,
+                   "lr": torch.as_tensor(lr, dtype=torch.float32,
+                                         device=gnorm.device)}
+        opt = OptState(tree_unflatten(state.opt.m, new_m),
+                       tree_unflatten(state.opt.v, new_v), count)
+        return TrainState(tree_unflatten(state.params, new_p), opt,
+                          state.step + 1), metrics
+
+    def _gather(self, slices: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Every data-parallel rank's ``[dp, ...]`` slices, gathered by one
+        certified all-gather over the data axis (one payload a dtype)."""
+        if self.gather_schedule is None:
+            return slices
+        dp = self.layout.dp
+        flat = torch.cat([s.reshape(dp, -1) for s in slices], dim=1)
+        got = all_gather_rows(flat, self.gather_schedule)
+        self.counts["data_allgather"] += 1
+        out, off = [], 0
+        for s in slices:
+            w = s[0].numel()
+            out.append(got[:, off:off + w].reshape(s.shape))
+            off += w
+        return out
+
+    def __call__(self, state: TrainState, batch: Dict[str, Any]):
+        before = dict(self.tp.counts)
+        loss, grads = self.value_and_grad(state.params, batch)
+        new_state, metrics = self.apply(state, grads)
+        self.counts["model_allreduce"] += self.tp.counts["allreduce"] - before["allreduce"]
+        self.counts["model_allgather"] += self.tp.counts["allgather"] - before["allgather"]
+        return new_state, dict(metrics, loss=loss)
+
+
+def make_sharded_train_step(model, opt_cfg, mesh, reducer=None,
+                            use_kernel_add: bool = True) -> ShardedTrainStep:
+    """The tensor-parallel, ZeRO-1 step of ``model`` on ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.PlannedMesh` with a ``model`` axis of
+    2 or more); ``reducer`` the data axis's all-reduce when it has more
+    than one rank.  Its state comes from :func:`init_sharded_state`."""
+    return ShardedTrainStep(model, opt_cfg, mesh, reducer, use_kernel_add)

@@ -1,9 +1,14 @@
 """The baseline train step: loss -> grads -> AdamW (port of ``repro.train.train_step``).
 
-One card, no sharding: the step computes the loss and its gradient over
-the whole batch with ``torch.autograd`` and applies AdamW.  It is the
-yardstick the overlapped data-parallel step
-(:mod:`repro_torch.train.overlap_grads`) is held to.
+:func:`make_train_step` is one card, no sharding: the step computes the
+loss and its gradient over the whole batch with ``torch.autograd`` and
+applies AdamW.  It is the yardstick the overlapped data-parallel step
+(:mod:`repro_torch.train.overlap_grads`) and the sharded step are held
+to.  The sharding half: :func:`state_pspecs` (tensor-parallel parameters,
+ZeRO-1 moments), :func:`batch_pspecs`, and :func:`jit_train_step` with
+the reference's signature, which returns the tensor-parallel ZeRO-1 step
+(:mod:`repro_torch.train.sharded_step`) or, for an overlap mode, the
+overlapped data-parallel step.
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ import torch
 from repro_torch.optim import AdamWConfig, OptState, apply_opt, init_opt
 from repro_torch.tree import tree_leaves, tree_unflatten
 
-__all__ = ["TrainState", "init_state", "make_train_step", "value_and_grad"]
+__all__ = ["TrainState", "batch_pspecs", "init_state", "jit_train_step",
+           "make_train_step", "state_pspecs", "value_and_grad"]
 
 
 class TrainState(NamedTuple):
@@ -63,3 +69,64 @@ def make_train_step(
         return TrainState(new_params, new_opt, state.step + 1), metrics
 
     return train_step
+
+
+def state_pspecs(state_shapes: TrainState, cfg, mesh) -> TrainState:
+    """PartitionSpecs for a TrainState: TP params + ZeRO-1 moments."""
+    from repro_torch.parallel import sharding as shd
+
+    pspecs = shd.param_pspecs(state_shapes.params, cfg, mesh)
+    m_specs = tree_unflatten(pspecs, [
+        shd.zero1_spec(s, tuple(leaf.shape), mesh)
+        for s, leaf in zip(tree_leaves(pspecs),
+                           tree_leaves(state_shapes.params))])
+    return TrainState(params=pspecs,
+                      opt=OptState(m=m_specs, v=m_specs, count=shd.P()),
+                      step=shd.P())
+
+
+def batch_pspecs(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """Each batch leaf split over the dp axes on its first dimension."""
+    from repro_torch.parallel import sharding as shd
+
+    bs = shd.batch_spec(mesh)
+    return {k: shd.P(*bs, *([None] * (len(v.shape) - 1)))
+            for k, v in batch.items()}
+
+
+def jit_train_step(model, opt_cfg, cfg, mesh, state_shapes=None,
+                   batch_shapes=None, donate: bool = True,
+                   overlap: str = "off", reducer: Any = None,
+                   axis: str = "data"):
+    """The reference's ``jit_train_step`` signature.
+
+    ``overlap="off"``: the tensor-parallel, ZeRO-1 step on ``mesh``
+    (:func:`~repro_torch.train.sharded_step.make_sharded_train_step`;
+    ``reducer`` is the data axis's all-reduce when it has more than one
+    rank); ``state_shapes``, ``batch_shapes`` and ``donate`` have nothing
+    to do here (the step reads the specs from the model, and makes new
+    tensors).  ``"bucketed"``/``"fused"``: the overlapped data-parallel
+    step over ``reducer``, in that mode, as the reference delegates.
+    ``cfg`` and ``axis`` are the reference's; the model carries its
+    config, and the virtual mesh's data axis is the reducer's.
+    """
+    if overlap != "off":
+        from .overlap_grads import (
+            OVERLAP_MODES, OverlapGradReducer, make_overlap_train_step)
+
+        if overlap not in OVERLAP_MODES:
+            raise ValueError(f"overlap must be 'off' or one of "
+                             f"{OVERLAP_MODES}, got {overlap!r}")
+        if reducer is None:
+            raise ValueError("overlap != 'off' needs a reducer "
+                             "(Session.overlap_step or "
+                             "overlap_grads.reducer_from_plan)")
+        if reducer.mode != overlap:
+            reducer = OverlapGradReducer(
+                reducer.schedule, bucket_bytes=reducer.bucket_bytes,
+                mode=overlap, use_kernel_add=reducer.use_kernel_add,
+                transport=reducer.transport)
+        return make_overlap_train_step(model, opt_cfg, reducer)
+    from .sharded_step import make_sharded_train_step
+
+    return make_sharded_train_step(model, opt_cfg, mesh, reducer)

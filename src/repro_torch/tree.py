@@ -15,14 +15,16 @@ __all__ = ["tree_leaves", "tree_map", "tree_unflatten"]
 
 
 def _is_node(x: Any) -> bool:
-    return isinstance(x, (dict, list, tuple))
+    """Dicts, lists and tuples, except a tuple type that declares itself a
+    leaf (``tree_leaf = True``, as a partition spec does)."""
+    return isinstance(x, (dict, list, tuple)) and not getattr(x, "tree_leaf", False)
 
 
 def tree_leaves(tree: Any) -> List[Any]:
     """The leaves of ``tree`` in JAX's flatten order."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
+    if _is_node(tree):
         return [leaf for x in tree for leaf in tree_leaves(x)]
     return [tree]
 

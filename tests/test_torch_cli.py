@@ -1,5 +1,7 @@
 """``python -m repro_torch`` on the CPU: serve, probe, plan and train (smoke configs)."""
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -209,6 +211,8 @@ def test_train_warms_up_as_the_reference(monkeypatch, tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(tmp_path):
+    import numpy as np
+
     from repro_torch.cli import build_parser, main
 
     args = build_parser().parse_args(["train"])
@@ -218,9 +222,27 @@ def test_train_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="item 13"):
         main(["train", "--smoke", "--device", "cpu", "--mesh", "2",
               "--reorder", "probe", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        main(["train", "--smoke", "--device", "cpu", "--mesh", "2x2",
-              "--reorder", "none", "--ckpt-dir", str(tmp_path)])
+    # a model axis runs the tensor-parallel ZeRO-1 step: the same losses
+    # as the data-parallel step over as many ranks
+    losses = {}
+    for mesh in ("2x2", "4"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert main(["train", "--smoke", "--device", "cpu", "--mesh", mesh,
+                         "--reorder", "none", "--batch", "4", "--seq", "16",
+                         "--steps", "2", "--ckpt-dir",
+                         str(tmp_path / mesh)]) == 0
+        report = json.loads(out.getvalue().split("[train] report ")[1])
+        losses[mesh] = report["losses"]
+        assert (report["model"], report["dp"]) == \
+            ((2, 2) if mesh == "2x2" else (1, 4))
+    np.testing.assert_allclose(losses["2x2"], losses["4"], rtol=1e-5)
+    # rwkv6 and the hybrid on a model axis name their items
+    for arch, item in (("rwkv6-1.6b", "item 20"), ("recurrentgemma-9b", "item 21")):
+        with pytest.raises(NotImplementedError, match=item):
+            main(["train", "--arch", arch, "--smoke", "--device", "cpu",
+                  "--mesh", "1x2", "--reorder", "none",
+                  "--ckpt-dir", str(tmp_path)])
     # MoE training on the card waits for the sharding specs
     with pytest.raises(NotImplementedError, match="item 18"):
         main(["train", "--arch", "dbrx-132b", "--smoke", "--device", "cpu",

@@ -40,6 +40,29 @@ def test_no_port_file_imports_jax_or_repro():
     assert bad == []
 
 
+def _imported_modules(path):
+    """Full dotted names of what a file imports (``from a import b`` as
+    ``a.b`` too)."""
+    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+def test_no_port_file_imports_dtensor():
+    """The port's model axis runs certified schedules, never DTensor's
+    c10d collectives: no file imports ``torch.distributed.tensor``."""
+    bad = [(os.path.relpath(p, ROOT), m) for p in _port_files()
+           for m in _imported_modules(p)
+           if m == "torch.distributed.tensor"
+           or m.startswith("torch.distributed.tensor.")
+           or m.startswith("torch.distributed._tensor")]
+    assert bad == []
+
+
 def test_importing_every_module_loads_no_jax_or_repro():
     prog = (
         "import pkgutil, sys, importlib\n"
