@@ -126,7 +126,8 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    3 steps, counted (one ``peer_ring`` launch a bucket a step), timed and
    profiled;
 8. the user's entry point: ``python -m repro_torch train`` in process
-   (``repro_torch.cli.main``) at full width — ``qwen2-0.5b``, an 8-rank
+   (``repro_torch.cli.main``) at published widths cut to
+   ``TRAIN_CLI_DEPTH`` (12) of its 24 blocks — ``qwen2-0.5b``, an 8-rank
    mesh planned through a ``Session`` on a scrambled simulated fabric,
    16 x 1024 tokens a step, 12 steps (the reference's 10-step warm-up of
    the learning rate, so the loss is seen to fall), the peer-memory ring a
@@ -164,8 +165,9 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
     (``rwkv6-1.6b`` in f32, 2 x 16 tokens): for every parameter tensor,
     the loss's central difference along that tensor's gradient against
     the gradient's own prediction (``GRAD_RTOL``); then the user's entry
-    point, ``python -m repro_torch train --arch rwkv6-1.6b`` over the
-    planned 8-rank mesh (64 x 16 tokens a rank, 14 steps), checked and
+    point, ``python -m repro_torch train --arch rwkv6-1.6b`` cut to
+    ``SSM_TRAIN_DEPTH`` (8) of its 24 blocks over the planned 8-rank mesh
+    (64 x 16 tokens a rank, 14 steps), checked and
     measured as phase 8: an entry-point smoke at a short sequence, not a
     measure of training throughput.
 
@@ -191,7 +193,8 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
     ``qwen2-0.5b`` at published widths in f32 over 8 virtual ranks of one
     16-token row, the modeled section (the planned ring on the scrambled
     8-node fabric, the 1.15x gate) and the three overlap modes beside the
-    baseline step, comm-only and compute-only, each mode's loss held to the
+    baseline step, comm-only and compute-only (``BENCH_REPS`` timed calls
+    each, the reference's 5 cut to 3), each mode's loss held to the
     baseline's at ``rtol=2e-5``, the postcondition, ``peer_ring`` counted
     at one launch a bucket a reducer call; then ``bucketed`` over the
     runner transport, one ``fused_add`` a reduce step a bucket, counted;
@@ -203,7 +206,7 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
 18. tensor parallelism and ZeRO-1 through the user's entry point:
     ``python -m repro_torch train --arch qwen2-0.5b --mesh 4x2 --reorder
     simulate`` at published widths (24 blocks, vocab 151936, bf16, the
-    command's default 8 x 64 tokens) for 3 steps, then ``--mesh 8``, the
+    command's default 8 x 64 tokens) for 2 steps, then ``--mesh 8``, the
     losses held to each other at every step (``TP_BF16_RTOL``); both at
     depth 2 in f32 for one step (``TP_F32_RTOL``); ``--mesh 2x4`` (14
     heads on a model axis of 4: attention whole, MLP and vocabulary
@@ -215,6 +218,30 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
     same reckoning.  Then one step built as the command builds it, timed
     with CUDA events, every model-axis collective timed with CUDA events
     in a ``torch.profiler`` window: their count, ms a step and share.
+
+19. MoE training: (a) ``python -m repro_torch train --arch dbrx-132b
+    --mesh 4 --reorder simulate`` in process at published widths cut to 1
+    block (bf16, the command's default 8 x 64 tokens, the published
+    capacity factor 1.25, 3 steps), after the memory reckoning and the
+    host's free disk and memory against the checkpoint: the losses finite,
+    the plan's all-to-all order armed, the capacity drops, ``peer_ring``
+    launches equal to buckets x steps over the replicated leaves only, 2
+    all-to-all records a MoE layer a forward, peak memory beside the
+    reckoning, the steps on the host clock, the checkpoint deleted after;
+    (b) the step-0 loss of the EP path under ``no_grad`` against the dense
+    per-rank path at the capacity factor E/K (``TP_BF16_RTOL``, top-(K-1)
+    routing the control); (c) one dbrx MoE layer on a 4x2 mesh, its experts
+    gathered over the model axis, against the layer on (4,) at E/K on 8 x
+    256 tokens, forward and backward (``MOE_TP_BOUND``; the control drops
+    one model rank's share of the reduce-scatters), ``fused_add`` counted
+    against the reduce-scatters' and router all-reduces' reduce steps; (d)
+    deepseek-v2's MoE layer (160 experts top-6, 2 shared) over 8 EP ranks
+    at E/K, its gradients against the sum of ``moe_scatter``'s over the
+    ranks' shards (``MOE_MLA_BOUND``; the control leaves one shard out);
+    (e), in the group phase (3b), the EP layer's backward over the 8
+    processes, each process's input, router and expert gradients held to
+    the virtual mesh's (``EP_GROUP_GRAD_BOUND``; the controls: the next
+    rank's gradients, a router sum missing one process).
 
 Phase 4 also holds the smoke ``recurrentgemma-9b`` (a group and a tail,
 at P > W and P == W) and ``whisper-small`` in f32 on the card: flash
@@ -315,6 +342,13 @@ FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 1.6e-2)}
 WKV_CASES = [(2, 32, 2, 8, 8, 8), (1, 64, 4, 16, 16, 16), (2, 16, 1, 8, 16, 16),
              (1, 32, 2, 8, 8, 32), (1, 32, 2, 8, 8, 8)]
 # the train command of the user's entry point (phase 8)
+# the entry point's runs cut in depth to fit the script's time (PR 25 added
+# phase 19 and an archive run took 1123 s): phase 8's command at
+# TRAIN_CLI_DEPTH of qwen2-0.5b's 24 blocks, phase 12's at SSM_TRAIN_DEPTH
+# of rwkv6-1.6b's 24 (its step is the exact recurrence, a loop over tokens
+# a block); phase 16's scenario at BENCH_REPS timed calls a step (the
+# reference's 5), phase 18's published-depth runs at 2 steps
+TRAIN_CLI_DEPTH, SSM_TRAIN_DEPTH, BENCH_REPS = 12, 8, 3
 TRAIN_CLI = ["train", "--arch", TRAIN_ARCH, "--mesh", str(RANKS),
              "--batch", str(RANKS * ROWS_PER_RANK), "--seq", str(SEQ),
              "--steps", "12", "--reorder", "simulate",
@@ -326,7 +360,7 @@ TRAIN_CLI = ["train", "--arch", TRAIN_ARCH, "--mesh", str(RANKS),
 TP_CLI = ["train", "--arch", TRAIN_ARCH, "--reorder", "simulate"]
 TP_BF16_RTOL, TP_F32_RTOL = 1e-2, 2e-5
 # (label, mesh, steps, depth or None for published, dtype or None)
-TP_RUNS = [("4x2", "4x2", 3, None, None), ("8", "8", 3, None, None),
+TP_RUNS = [("4x2", "4x2", 2, None, None), ("8", "8", 2, None, None),
            ("4x2 f32 depth 2", "4x2", 1, 2, "float32"),
            ("8 f32 depth 2", "8", 1, 2, "float32"),
            ("2x4 depth 4", "2x4", 2, 4, None), ("8 depth 4", "8", 2, 4, None)]
@@ -403,6 +437,23 @@ PIPE_BF16_BOUND, PIPE_GRAD_BOUND = 0.05, 1e-3
 # the EP all-to-all over the group: one dbrx-132b MoE layer at published
 # widths (16 experts top-4, 2 a process), one 1024-token row a process
 EP_GROUP_SEQ = 1024
+# MoE training (phase 19): the train command on dbrx-132b at published
+# widths cut to MOE_TRAIN_DEPTH block over 4 virtual data ranks (EP, 4
+# experts a rank), the command's default 8 x 64 tokens, the published
+# capacity factor, MOE_TRAIN_STEPS steps; the step-0 loss of the EP path
+# against the dense per-rank path at the capacity factor E/K; one dbrx MoE
+# layer on a 4x2 (data, model) mesh against the same layer on (4,), on
+# MOE_TP_ROWS x MOE_TP_SEQ tokens; deepseek-v2's MoE layer over 8 EP
+# ranks (20 experts each) on 8 x MOE_MLA_SEQ tokens against moe_scatter's
+# gradient summed over the ranks' shards (at E/K the EP buffers hold
+# E/K times the tokens, so the tokens are few).  The bounds are relative
+# to the largest entry and lie between the sound readings and their
+# controls' (the readings are in PERF.md section 6)
+MOE_TRAIN_DEPTH, MOE_TRAIN_STEPS, MOE_TRAIN_RANKS = 1, 3, 4
+MOE_TRAIN_CLI = ["train", "--arch", MOE_ARCH, "--mesh", str(MOE_TRAIN_RANKS),
+                 "--reorder", "simulate", "--steps", str(MOE_TRAIN_STEPS)]
+MOE_TP_ROWS, MOE_TP_SEQ, MOE_MLA_SEQ = 8, 256, 32
+MOE_TP_BOUND, MOE_MLA_BOUND, EP_GROUP_GRAD_BOUND = 0.03, 0.03, 0.03
 # compression: error feedback over COMP_STEPS steps at one bucket's width
 COMP_STEPS = 50
 # the solver evaluator: a SOLVER_NODES-node datacenter's ring cost matrix at
@@ -1737,7 +1788,7 @@ def _group_worker(rank: int, store: str, plan, jobs: list, out_dir: str,
             del x
         res = {"jobs": out,
                "pipeline": _group_pipeline(rank, seed, plan, port["ref_dir"]),
-               "ep": _group_ep(rank, seed, port["ep_plan"])}
+               "ep": _group_ep(rank, seed, port["ep_plan"], out_dir)}
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
@@ -1894,13 +1945,30 @@ def _ep_input(cfg, seed: int):
                        device="cuda").to(getattr(torch, cfg.dtype))
 
 
-def _group_ep(rank: int, seed: int, ep_plan) -> dict:
+def _ep_cot(cfg, seed: int):
+    """``[RANKS, EP_GROUP_SEQ, D]`` f32 cotangents of the layer's output."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 9)
+    return torch.randn((RANKS, EP_GROUP_SEQ, cfg.d_model), generator=gen,
+                       device="cuda")
+
+
+EP_GRAD_LEAVES = ("w1", "w3", "w2")
+
+
+def _group_ep(rank: int, seed: int, ep_plan, out_dir: str) -> dict:
     """This process's EP rank of one dbrx-132b MoE layer at published
     widths, armed over the group from the plan: its row of tokens, its
     two experts; the layer once checked and twice timed.  Rank 0 gathers
     the rows in EP rank order and holds them, and the aux loss, bit for
     bit to ``moe_a2a`` on the virtual mesh (all sixteen experts, the same
-    plan's order), and reports its drops and time."""
+    plan's order), and reports its drops and time.  Then phase 19 (e):
+    the layer's backward over the group (each all-to-all's transpose),
+    every process's gradients of its input row, its router and its two
+    experts saved to ``out_dir``; rank 0 holds them to the virtual mesh's
+    backward on the same loss."""
     import torch
     import torch.distributed as dist
 
@@ -1929,10 +1997,26 @@ def _group_ep(rank: int, seed: int, ep_plan) -> dict:
                 y2, _ = L.moe_layer(p, x, cfg)
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
+        # (e) the backward: every process runs it, its all-to-alls'
+        # transposes being collectives
+        pg = {k: v.detach().requires_grad_() for k, v in p.items()}
+        xg = x.clone().requires_grad_()
+        cot = _ep_cot(cfg, seed)[r:r + 1]
+        dist.barrier()
+        t0 = time.perf_counter()
+        yb, ab = L.moe_layer(pg, xg, cfg)
+        ((yb.float() * cot).sum() + ab).backward()
+        torch.cuda.synchronize()
+        backward_ms = (time.perf_counter() - t0) * 1e3
+        torch.save({"input": xg.grad.cpu(), "router": pg["router"].grad.cpu(),
+                    **{k: pg[k].grad.cpu() for k in EP_GRAD_LEAVES}},
+                   os.path.join(out_dir, f"ep_grad{r}.pt"))
+        del pg, xg, yb, ab, cot
     finally:
         moe_a2a.clear_ep()
     res = {"rank": rank, "ep_rank": r, "order": list(order),
-           "wall_ms": walls, "repeat_equal": bool(torch.equal(y, y2))}
+           "wall_ms": walls, "repeat_equal": bool(torch.equal(y, y2)),
+           "forward_backward_ms": backward_ms}
     del p, y2
     got = [None] * RANKS if rank == 0 else None
     dist.gather_object((r, y.cpu(), aux.item()), got, dst=0)
@@ -1953,6 +2037,7 @@ def _group_ep(rank: int, seed: int, ep_plan) -> dict:
             dense = _dense_drops(p, x_all, cfg)
     finally:
         moe_a2a.clear_ep()
+    res["grad"] = _ep_grads_against_virtual(cfg, seed, plan, p, x_all, out_dir)
     y_g = torch.cat([blocks[i][0] for i in range(RANKS)]).to(y_v.device)
     aux_g = torch.tensor([blocks[i][1] for i in range(RANKS)],
                          dtype=torch.float32)
@@ -1964,6 +2049,67 @@ def _group_ep(rank: int, seed: int, ep_plan) -> dict:
                drops_destination=drops[1], dense_drops=dense,
                choices=RANKS * EP_GROUP_SEQ * cfg.moe_top_k)
     del p, x_all, y_v, y_g
+    _free()
+    return res
+
+
+def _ep_grads_against_virtual(cfg, seed: int, plan, p, x_all, out_dir: str
+                              ) -> dict:
+    """Phase 19 (e) at rank 0: the virtual mesh's backward of the group's
+    loss (all sixteen experts, the plan's order), and every process's
+    saved gradients against it, each relative to its largest entry: its
+    input row and its two experts one by one, the processes' own router
+    gradients summed.  The controls: each row's (or expert's) gradient
+    against the next EP rank's, the cotangents sent back to the wrong
+    rank; the router's sum with one process's left out."""
+    import torch
+
+    from repro_torch.launch import make_planned_mesh
+    from repro_torch.parallel import moe_a2a
+
+    E_loc = cfg.n_experts // RANKS
+    pv = {k: v.detach().requires_grad_() for k, v in p.items()}
+    xv = x_all.clone().requires_grad_()
+    moe_a2a.arm_ep(make_planned_mesh(plan, "cuda"), "data", None, plan=plan)
+    try:
+        yv, av = moe_a2a.moe_a2a(pv, xv, cfg)
+        ((yv.float() * _ep_cot(cfg, seed)).sum() + av).backward()
+    finally:
+        moe_a2a.clear_ep()
+    del yv, av
+    want = {k: pv[k].grad for k in ("router",) + EP_GRAD_LEAVES}
+    want["input"] = xv.grad
+    rel = {"input": [], "experts": [], "control_input": [],
+           "control_experts": []}
+    equal = {"input": True, "experts": True}
+    routers = []
+    for r in range(RANKS):
+        got = torch.load(os.path.join(out_dir, f"ep_grad{r}.pt"))
+        nxt = (r + 1) % RANKS
+        g = got["input"].cuda()
+        equal["input"] &= bool(torch.equal(g, want["input"][r:r + 1]))
+        rel["input"].append(_rel(g, want["input"][r:r + 1]))
+        rel["control_input"].append(_rel(g, want["input"][nxt:nxt + 1]))
+        for k in EP_GRAD_LEAVES:
+            g = got[k].cuda()
+            mine = want[k][r * E_loc:(r + 1) * E_loc]
+            theirs = want[k][nxt * E_loc:(nxt + 1) * E_loc]
+            equal["experts"] &= bool(torch.equal(g, mine))
+            rel["experts"].append(_rel(g, mine))
+            rel["control_experts"].append(_rel(g, theirs))
+        routers.append(got["router"].cuda())
+        del got, g
+    router = torch.stack(routers).sum(0)
+    res = {"bit_for_bit": equal,
+           "input": max(rel["input"]), "experts": max(rel["experts"]),
+           "router_sum": _rel(router, want["router"]),
+           "control_input": min(rel["control_input"]),
+           "control_experts": min(rel["control_experts"]),
+           "control_router": _rel(router - routers[-1], want["router"])}
+    res["worst"] = max(res["input"], res["experts"], res["router_sum"])
+    res["control"] = min(res["control_input"], res["control_experts"],
+                         res["control_router"])
+    del pv, xv, want, router, routers
     _free()
     return res
 
@@ -2002,6 +2148,20 @@ def _group_ep_report(per_rank: list, card: str) -> dict:
             and all(e["repeat_equal"] for e in rows)):
         raise AssertionError(f"the EP all-to-all over the group parts from "
                              f"the virtual mesh's: {head}")
+    grad = head["grad"]
+    res["backward"] = dict(grad, bound=EP_GROUP_GRAD_BOUND, forward_backward_ms=[
+        e["forward_backward_ms"] for e in rows])
+    _say(f"EP backward over {RANKS} gloo processes (phase 19 e): bit for bit "
+         f"{grad['bit_for_bit']}; relative to the virtual mesh's: input "
+         f"{grad['input']:.3g}, experts {grad['experts']:.3g}, the processes' "
+         f"router gradients summed {grad['router_sum']:.3g} (bound "
+         f"{EP_GROUP_GRAD_BOUND}; controls: the next rank's input "
+         f"{grad['control_input']:.3g}, experts {grad['control_experts']:.3g}, "
+         f"a router sum missing one process {grad['control_router']:.3g}); "
+         f"forward and backward {max(res['backward']['forward_backward_ms']):.1f} "
+         f"ms of wall time [{card}]")
+    _held_apart("EP backward over the group vs the virtual mesh", grad["worst"],
+                EP_GROUP_GRAD_BOUND, grad["control"])
     return res
 
 
@@ -2852,17 +3012,17 @@ def _tp_reckon(cfg, m: int, dp: int) -> dict:
             "data_allreduce": int(dp > 1)}
 
 
-def _cut_config(depth, dtype):
-    """``repro_torch.configs.get_config`` with the train arch cut to
-    ``depth`` blocks in ``dtype`` (None: as published), for the train
-    command, which reads it at call time."""
+def _cut_config(depth, dtype, arch=TRAIN_ARCH):
+    """``repro_torch.configs.get_config`` with ``arch`` cut to ``depth``
+    blocks in ``dtype`` (None: as published), for the train command, which
+    reads it at call time."""
     from repro_torch import configs
 
     base = configs.get_config
 
     def get(name):
         cfg = base(name)
-        if name != TRAIN_ARCH:
+        if name != arch:
             return cfg
         return dataclasses.replace(cfg, n_layers=depth or cfg.n_layers,
                                    dtype=dtype or cfg.dtype)
@@ -3035,7 +3195,7 @@ def train_tp_full_width(card: str) -> dict:
                        "mesh_order": rep["mesh_order"],
                        "buckets": buckets, "model": m, "dp": dp}
     rel = {}
-    for a, b, rtol, n in (("4x2", "8", TP_BF16_RTOL, 3),
+    for a, b, rtol, n in (("4x2", "8", TP_BF16_RTOL, 2),
                           ("2x4 depth 4", "8 depth 4", TP_BF16_RTOL, 2),
                           ("4x2 f32 depth 2", "8 f32 depth 2", TP_F32_RTOL, 1)):
         la, lb = runs[a]["losses"], runs[b]["losses"]
@@ -3057,6 +3217,450 @@ def train_tp_full_width(card: str) -> dict:
          f"{prof['step_ms_cuda_events']:.2f} ms (CUDA events); "
          f"{res['phase_s']:.1f} s [{card}]")
     _say("tp " + json.dumps(res, default=float))
+    return res
+
+
+def _moe_reckon(cfg, d: int) -> dict:
+    """The EP step's device memory from the config (nothing measured):
+    the weights, the f32 AdamW moments, the experts' gradient once, the
+    replicated leaves' gradient on each of the ``d`` data ranks and their
+    mean; the checkpoint holds the weights and the moments."""
+    from repro_torch.models import get_model
+    from repro_torch.train.sharded_step import expert_leaves, param_shapes
+    from repro_torch.tree import tree_leaves
+
+    shapes = param_shapes(get_model(cfg, device="cpu"))
+    leaves = list(zip(tree_leaves(shapes), expert_leaves(shapes)))
+    n = sum(t.numel() for t, _ in leaves)
+    w = sum(t.numel() * t.element_size() for t, _ in leaves)
+    ex = sum(t.numel() * t.element_size() for t, e in leaves if e)
+    rep = w - ex
+    res = {"params": n, "expert_params": sum(t.numel() for t, e in leaves if e),
+           "weights_gb": w / 1e9, "moments_gb": 8 * n / 1e9,
+           "expert_grad_gb": ex / 1e9, "replicated_grad_gb": d * rep / 1e9,
+           "mean_grad_gb": rep / 1e9, "checkpoint_gb": (w + 8 * n) / 1e9}
+    res["total_gb"] = (res["weights_gb"] + res["moments_gb"]
+                       + res["expert_grad_gb"] + res["replicated_grad_gb"])
+    return res
+
+
+def _host_room() -> dict:
+    """The temporary directory's free disk and the host's available
+    memory, in GB."""
+    import shutil
+    import tempfile
+
+    avail = None
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024 / 1e9
+    return {"tmp_free_gb": shutil.disk_usage(tempfile.gettempdir()).free / 1e9,
+            "host_available_gb": avail}
+
+
+def _token_losses(model, params, shards, ep: bool):
+    """Every token's cross entropy ``[ranks, rows, S]`` (f32) and each
+    rank's loss (its mean + 0.01 x the aux), under ``no_grad``: over the
+    EP all-to-all of the ranks (``DecoderLM._blocks_ranks``, what
+    ``loss_ranks`` runs), or each rank's shard alone (EP disarmed: the
+    dense dispatch, its aux over its own shard)."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    cfg = model.cfg
+    S = shards[0]["tokens"].shape[1]
+    positions = torch.arange(S, device="cuda")
+    xs = [model._embed(params, b["tokens"], None) for b in shards]
+    if ep:
+        aux = torch.zeros((), device="cuda")
+        for _, bp, _ in model._layer_list(params):
+            xs, a = model._blocks_ranks([bp] * len(xs), xs, positions)
+            aux = aux + a
+        auxes = [aux] * len(xs)
+    else:
+        feats = [model._features(params, b["tokens"]) for b in shards]
+        xs, auxes = [f[0] for f in feats], [f[1] for f in feats]
+    head = model._head(params)
+    per, losses = [], []
+    for x, a, b in zip(xs, auxes, shards):
+        if ep:
+            x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = (x @ head).float()
+        ce = torch.logsumexp(logits, -1) - torch.gather(
+            logits, -1, b["labels"][..., None])[..., 0]
+        per.append(ce)
+        losses.append(float(ce.mean() + 0.01 * a))
+    return torch.stack(per), losses
+
+
+def _moe_step0(seed: int) -> dict:
+    """Phase 19 (b): dbrx-132b cut to one block at the capacity factor
+    E/K, on step 0's rows of the train command: the EP loss under
+    ``no_grad`` (``loss_ranks``) against the dense per-rank path (EP
+    disarmed, each rank's shard alone, its aux over its own shard: the
+    reference's pmean of per-shard aux), and every token's loss, relative
+    to the largest, held within ``TP_BF16_RTOL``; the control routes
+    top-(K-1).  At random weights the mean loss moves little with the
+    routing (any features give a loss near ln V), so the power is in the
+    per-token losses."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM, make_global_batch
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.parallel import moe_a2a
+    from repro_torch.parallel.sharding import batch_spec
+
+    cfg = _no_drop(dataclasses.replace(get_config(MOE_ARCH),
+                                       n_layers=MOE_TRAIN_DEPTH))
+    model = get_model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = model.init(gen)
+    mesh = make_mesh((MOE_TRAIN_RANKS,), ("data",), device="cuda")
+    batch = make_global_batch(SyntheticLM(cfg.vocab_size, 64, 8, seed=0), 0,
+                              mesh, batch_spec(mesh))
+    shards = [{k: torch.as_tensor(v[r], device="cuda").long()
+               for k, v in batch.items()} for r in range(MOE_TRAIN_RANKS)]
+    with torch.no_grad():
+        moe_a2a.clear_ep()
+        dense_tok, dense = _token_losses(model, params, shards, ep=False)
+        moe_a2a.arm_ep(mesh, "data", None)
+        try:
+            ep = float(torch.stack(model.loss_ranks(
+                [params] * MOE_TRAIN_RANKS, shards)).mean())
+            ep_tok, ep_ranks = _token_losses(model, params, shards, ep=True)
+            ctl = get_model(dataclasses.replace(cfg, moe_top_k=cfg.moe_top_k - 1),
+                            device="cuda")
+            ctl_tok, ctl_ranks = _token_losses(ctl, params, shards, ep=True)
+        finally:
+            moe_a2a.clear_ep()
+    d = sum(dense) / len(dense)
+    res = {"dense": d, "ep": ep, "ep_by_ranks": sum(ep_ranks) / len(ep_ranks),
+           "relative": abs(ep - d) / abs(d),
+           "control_top_k_minus_1": sum(ctl_ranks) / len(ctl_ranks),
+           "token_relative": _rel(ep_tok, dense_tok),
+           "control_token_relative": _rel(ctl_tok, dense_tok),
+           "bound": TP_BF16_RTOL, "capacity_factor": cfg.capacity_factor}
+    res["control_relative"] = abs(res["control_top_k_minus_1"] - d) / abs(d)
+    del params, model
+    return res
+
+
+def _moe_tp_layer(seed: int, card: str) -> dict:
+    """Phase 19 (c): one dbrx-132b MoE layer at published widths on a 4x2
+    (data, model) mesh, its experts in model-axis storage and gathered
+    over the model axis, against the same layer on (4,), at E/K, forward
+    and backward; the outputs and the gradients of the experts, the router
+    and the input, each relative to its largest entry; ``fused_add``
+    counted against the reckoning of the reduce-scatters' and the router
+    all-reduces' reduce steps; the control drops one model rank's share
+    from the reduce-scatters' sums."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ring_collective as rc
+    from repro_torch.launch import make_mesh
+    from repro_torch.parallel import moe_a2a
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor as tpm
+
+    cfg = _no_drop(get_config(MOE_ARCH))
+    d, m = 4, 2
+    p = _ep_layer(cfg, seed, range(cfg.n_experts))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 11)
+    dtype = getattr(torch, cfg.dtype)
+    x = torch.randn((MOE_TP_ROWS, MOE_TP_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(dtype)
+    cot = torch.randn(x.shape, generator=gen, device="cuda")
+
+    def run(params, tp):
+        xg = x.clone().requires_grad_()
+        y, _ = moe_a2a.moe_a2a(params, xg, cfg, tp) if tp is not None else \
+            moe_a2a.moe_a2a(params, xg, cfg)
+        (y.float() * cot).sum().backward()
+        return y.detach(), xg.grad
+
+    names = ("w1", "w3", "w2", "router")
+    moe_a2a.arm_ep(make_mesh((d,), ("data",), device="cuda"), "data", None)
+    try:
+        for t in p.values():
+            t.requires_grad_()
+        t0 = time.monotonic()
+        y4, gx4 = run(p, None)
+        torch.cuda.synchronize()
+        one_axis_s = time.monotonic() - t0
+        want = {k: p[k].grad for k in names}
+        mesh = make_mesh((d, m), ("data", "model"), device="cuda")
+        moe_a2a.arm_ep(mesh)
+        pspecs = shd.param_pspecs({"moe": p}, cfg, mesh)["moe"]
+        storage = {k: v.detach().requires_grad_() for k, v in tpm.shard_params(
+            {k: v.detach() for k, v in p.items()}, pspecs, m).items()}
+        del p
+        _free()
+        tp = tpm.TensorParallel(mesh, pspecs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rc.fused_add.launches = 0
+        t0 = time.monotonic()
+        y2, gx2 = run(storage, tp)
+        torch.cuda.synchronize()
+        two_axis_s = time.monotonic() - t0
+        launches = rc.fused_add.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        got = tpm.unshard_params({k: storage[k].grad for k in names},
+                                 {k: pspecs[k] for k in names})
+        rel = {"output": _rel(y2, y4), "input_grad": _rel(gx2, gx4)}
+        rel.update({f"{k}_grad": _rel(got[k], want[k]) for k in names})
+        counts = dict(tp.counts)
+        # the control: the reduce-scatters lose model rank 1's share
+        real = tpm.TensorParallel.reduce_scatter
+
+        def lossy(self, parts):
+            parts = parts.clone()
+            parts[1] = 0
+            return real(self, parts)
+
+        for t in storage.values():
+            t.grad = None
+        tpm.TensorParallel.reduce_scatter = lossy
+        try:
+            run(storage, tp)
+        finally:
+            tpm.TensorParallel.reduce_scatter = real
+        bad = tpm.unshard_params({k: storage[k].grad for k in ("w1", "w3", "w2")},
+                                 {k: pspecs[k] for k in ("w1", "w3", "w2")})
+        control = max(_rel(bad[k], want[k]) for k in bad)
+    finally:
+        moe_a2a.clear_ep()
+    # each data rank: one reduce-scatter a gathered expert leaf and one
+    # all-reduce of the router's gradient, each m - 1 reduce steps
+    reckoned = d * (3 + 1) * (m - 1)
+    res = {"mesh": "4x2 against 4", "tokens": [MOE_TP_ROWS, MOE_TP_SEQ],
+           "relative": rel, "worst": max(rel.values()),
+           "control_experts_grad": control, "bound": MOE_TP_BOUND,
+           "fused_add": launches, "fused_add_reckoned": reckoned,
+           "collective_runs": counts, "peak_mem_gb": peak_gb,
+           "layer_s_host_clock": {"4": one_axis_s, "4x2": two_axis_s},
+           "card": card}
+    del storage, want, got, bad, y4, y2, gx4, gx2
+    _free()
+    return res
+
+
+def _moe_mla_layer(seed: int, card: str) -> dict:
+    """Phase 19 (d): deepseek-v2-236b's MoE layer at published widths (160
+    experts top-6, 2 shared) over 8 virtual EP ranks (20 experts each) at
+    E/K, forward and backward, against the sum over the ranks of
+    ``moe_scatter``'s gradient on each rank's shard (phase 13 holds
+    ``moe_scatter`` to ``moe_dense`` at E/K), each leaf relative to its
+    largest entry; the control is that sum with one rank's shard left
+    out."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import moe_a2a
+
+    cfg = _no_drop(get_config(MLA_ARCH))
+    n = RANKS
+    p = _ep_layer(cfg, seed, range(cfg.n_experts))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 13)
+    x = torch.randn((n, MOE_MLA_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(getattr(torch, cfg.dtype))
+    cot = torch.randn(x.shape, generator=gen, device="cuda")
+    for _, parent, key, t in list(_named_leaves(p)):
+        parent[key] = t.requires_grad_()
+    xg = x.clone().requires_grad_()
+    moe_a2a.arm_ep(make_mesh((n,), ("data",), device="cuda"), "data", None)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        y, aux = moe_a2a.moe_a2a(p, xg, cfg)
+        ((y.float() * cot).sum() + aux).backward()
+    finally:
+        moe_a2a.clear_ep()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {name: t.grad for name, _, _, t in _named_leaves(p)}
+    want["input"] = xg.grad
+    for _, parent, key, t in list(_named_leaves(p)):
+        parent[key] = t.detach().requires_grad_()
+    xs = x.clone().requires_grad_()
+
+    def reading():
+        got = {name: t.grad for name, _, _, t in _named_leaves(p)}
+        got["input"] = xs.grad
+        return {k: _rel(got[k], want[k]) for k in want}
+
+    control = None
+    for r in range(n):
+        yr, ar = L.moe_scatter(p, xs[r:r + 1], cfg)
+        ((yr.float() * cot[r:r + 1]).sum() + ar / n).backward()
+        if r == n - 2:
+            control = reading()
+    sound = reading()
+    res = {"ep_ranks": n, "experts_per_rank": cfg.n_experts // n,
+           "tokens": [n, MOE_MLA_SEQ], "relative": sound,
+           "worst": max(sound.values()),
+           "control_one_shard_left_out": control,
+           "control_worst": max(v for k, v in control.items() if k != "input"),
+           "bound": MOE_MLA_BOUND, "peak_mem_gb": peak_gb, "card": card}
+    del p, want, x, xs, xg, y
+    _free()
+    return res
+
+
+def train_moe_full_width(seed: int, card: str) -> dict:
+    """Phase 19: MoE training.  (a) ``python -m repro_torch train --arch
+    dbrx-132b --mesh 4`` in process at published widths cut to one block,
+    bf16, its memory reckoned first; (b) the step-0 loss of the EP path
+    against the dense per-rank path at E/K; (c) the model axis at full
+    width; (d) deepseek-v2's MoE layer's gradient over 8 EP ranks.  (e),
+    the group's backward, runs in the group phase."""
+    import math
+
+    import torch
+
+    from repro_torch import configs, obs
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.train import partition_tree
+    from repro_torch.train.sharded_step import expert_leaves, param_shapes
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_DEPTH)
+    reckon = _moe_reckon(cfg, MOE_TRAIN_RANKS)
+    room = _host_room()
+    _say(f"moe train: {MOE_ARCH} cut to {MOE_TRAIN_DEPTH} block, "
+         f"{reckon['params']} parameters ({reckon['expert_params']} in the "
+         f"experts): weights {reckon['weights_gb']:.2f} GB, AdamW moments "
+         f"{reckon['moments_gb']:.2f} GB, the experts' gradient "
+         f"{reckon['expert_grad_gb']:.2f} GB, the replicated gradients "
+         f"{reckon['replicated_grad_gb']:.2f} GB over {MOE_TRAIN_RANKS} ranks: "
+         f"{reckon['total_gb']:.2f} GB reckoned before AdamW's temporaries; "
+         f"the checkpoint {reckon['checkpoint_gb']:.2f} GB against "
+         f"{room['tmp_free_gb']:.1f} GB of free disk and "
+         f"{room['host_available_gb']:.1f} GB of available host memory "
+         f"[{card}]")
+    if room["tmp_free_gb"] < 1.1 * reckon["checkpoint_gb"] or \
+            room["host_available_gb"] < 1.1 * reckon["checkpoint_gb"]:
+        raise AssertionError(f"the host cannot take the "
+                             f"{reckon['checkpoint_gb']:.1f} GB checkpoint: "
+                             f"{room}")
+    # (a) the entry point, the all-to-all records counted
+    rec = obs.recorder()
+    was, before = rec.enabled, rec.captured
+    rec.enabled = True
+    base, cut = _cut_config(MOE_TRAIN_DEPTH, None, MOE_ARCH)
+    configs.get_config = cut
+    try:
+        run = _tp_run(MOE_TRAIN_CLI)
+        records = rec.trace().records
+        ops = [r.op for r in records[len(records) - (rec.captured - before):]]
+    finally:
+        configs.get_config = base
+        rec.enabled = was
+    _free()
+    rep = run["report"]
+    shapes = param_shapes(get_model(cfg, device="cpu"))
+    replicated = [t for t, e in zip(tree_leaves(shapes), expert_leaves(shapes))
+                  if not e]
+    buckets = len(partition_tree(replicated, rep["bucket_bytes"]))
+    want_ring = buckets * MOE_TRAIN_STEPS
+    a2a = ops.count("all-to-all")
+    want_a2a = 2 * MOE_TRAIN_DEPTH * MOE_TRAIN_STEPS
+    ep = rep["ep"]
+    a = {"losses": rep["losses"],
+         "step_ms_host_clock": [v * 1e3 for v in rep["step_s"]],
+         "wall_s": run["wall_s"], "peak_mem_gb": run["peak_mem_gb"],
+         "reckoned_gb": reckon["total_gb"], "launches": run["launches"],
+         "peer_ring_reckoned": want_ring, "buckets": buckets,
+         "bucket_bytes": rep["bucket_bytes"], "a2a_records": a2a,
+         "a2a_records_reckoned": want_a2a, "a2a_order": ep["order"],
+         "plan_entry_order": ep["plan_entry_order"],
+         "choices": ep["choices"], "source_drops": ep["source_drops"],
+         "destination_drops": ep["destination_drops"],
+         "replicated_bytes": ep["replicated_bytes"],
+         "checkpoint_bytes": rep["checkpoint"]["bytes"],
+         "checkpoint_write_s": rep["checkpoint"]["write_s"],
+         "checkpoint_snapshot_s": rep["checkpoint"]["snapshot_s"],
+         "plan_digest": rep["plan_digest"], "mesh_order": rep["mesh_order"]}
+    if not all(math.isfinite(v) for v in rep["losses"]) or \
+            len(rep["losses"]) != MOE_TRAIN_STEPS:
+        raise AssertionError(f"moe train: losses {rep['losses']}")
+    if run["launches"]["peer_ring"] != want_ring:
+        raise AssertionError(f"moe train: peer_ring launched "
+                             f"{run['launches']['peer_ring']} times, reckoned "
+                             f"{buckets} buckets x {MOE_TRAIN_STEPS} steps")
+    if a2a != want_a2a:
+        raise AssertionError(f"moe train: {a2a} all-to-all records, reckoned "
+                             f"{want_a2a}")
+    if ep["order"] is None or sorted(ep["order"]) != list(range(MOE_TRAIN_RANKS)) \
+            or ep["plan_entry_order"] is None:
+        raise AssertionError(f"moe train: no planned all-to-all order: {ep}")
+    if ep["choices"] != MOE_TRAIN_STEPS * MOE_TRAIN_DEPTH * 8 * 64 * cfg.moe_top_k:
+        raise AssertionError(f"moe train: {ep['choices']} choices routed")
+    if run["peak_mem_gb"] < reckon["weights_gb"] + reckon["moments_gb"]:
+        raise AssertionError(f"moe train: peak {run['peak_mem_gb']:.2f} GB "
+                             f"below the state's reckoning")
+    _say(f"moe train (a): losses {[round(v, 4) for v in rep['losses']]}, step "
+         f"ms (host clock) {[round(v, 1) for v in a['step_ms_host_clock']]}; "
+         f"all-to-all order {ep['order']} (the plan's entry "
+         f"{ep['plan_entry_order']}); drops at the source "
+         f"{ep['source_drops']}, at the destination {ep['destination_drops']} "
+         f"of {ep['choices']} choices at capacity factor {cfg.capacity_factor}; "
+         f"peer_ring {run['launches']['peer_ring']} = {buckets} buckets x "
+         f"{MOE_TRAIN_STEPS} steps over the replicated leaves "
+         f"({ep['replicated_bytes']} bytes); fused_add "
+         f"{run['launches']['fused_add']}; {a2a} all-to-all records; peak "
+         f"{run['peak_mem_gb']:.2f} GB against {reckon['total_gb']:.2f} GB "
+         f"reckoned; checkpoint {a['checkpoint_bytes']} bytes written in "
+         f"{a['checkpoint_write_s']:.1f} s [{card}]")
+    # (b) the step-0 loss at E/K
+    b = _moe_step0(seed)
+    _free()
+    _say(f"moe train (b): step-0 loss at E/K, EP {b['ep']:.5f} vs the dense "
+         f"per-rank path {b['dense']:.5f}: relative {b['relative']:.3g} (bound "
+         f"{b['bound']}; the top-(K-1) control {b['control_relative']:.3g}); "
+         f"every token's loss relative to the largest {b['token_relative']:.3g} "
+         f"(control {b['control_token_relative']:.3g})")
+    if b["relative"] > b["bound"] or abs(b["ep_by_ranks"] - b["ep"]) > \
+            b["bound"] * abs(b["ep"]):
+        raise AssertionError(f"moe step-0 loss: {b}")
+    _held_apart("moe step-0 token losses EP vs dense", b["token_relative"],
+                b["bound"], b["control_token_relative"])
+    # (c) the model axis at full width
+    c = _moe_tp_layer(seed, card)
+    _say(f"moe train (c): dbrx layer 4x2 vs 4 on {MOE_TP_ROWS} x {MOE_TP_SEQ} "
+         f"tokens, relative {json.dumps({k: float(f'{v:.3g}') for k, v in c['relative'].items()})} "
+         f"(bound {c['bound']}; control {c['control_experts_grad']:.3g}); "
+         f"fused_add {c['fused_add']} (reckoned {c['fused_add_reckoned']}); "
+         f"runs {c['collective_runs']}; peak {c['peak_mem_gb']:.2f} GB")
+    _held_apart("moe 4x2 layer vs 4", c["worst"], c["bound"],
+                c["control_experts_grad"])
+    if c["fused_add"] != c["fused_add_reckoned"]:
+        raise AssertionError(f"moe 4x2 layer: fused_add {c['fused_add']}, "
+                             f"reckoned {c['fused_add_reckoned']}")
+    # (d) deepseek-v2's MoE layer over 8 EP ranks
+    dd = _moe_mla_layer(seed, card)
+    _say(f"moe train (d): {MLA_ARCH} layer over {RANKS} EP ranks vs the sum of "
+         f"moe_scatter's gradients, relative "
+         f"{json.dumps({k: float(f'{v:.3g}') for k, v in dd['relative'].items()})} "
+         f"(bound {dd['bound']}; control {dd['control_worst']:.3g}); peak "
+         f"{dd['peak_mem_gb']:.2f} GB")
+    _held_apart("deepseek EP layer gradient vs moe_scatter", dd["worst"],
+                dd["bound"], dd["control_worst"])
+    res = {"train": a, "step0": b, "tp_layer": c, "mla_layer": dd,
+           "reckon": reckon, "host": room,
+           "phase_s": time.monotonic() - t_phase, "card": card}
+    _say("moe train " + json.dumps(res, default=float))
     return res
 
 
@@ -4033,7 +4637,7 @@ def bench_overlap_full_width(seed: int, card: str, shapes) -> dict:
         t0 = time.monotonic()
         with contextlib.redirect_stdout(buf):
             res = overlap_step.run(smoke=False, seed=seed, device="cuda",
-                                   out_path=path)
+                                   out_path=path, reps=BENCH_REPS)
         torch.cuda.synchronize()
         scenario_s = time.monotonic() - t0
         launches = {name: fn.launches for name, fn in counted.items()}
@@ -4220,17 +4824,21 @@ def host_commands(card: str) -> dict:
     return res
 
 
-def ssm_shapes():
-    """rwkv6-1.6b's parameters on the meta device (its gradient buckets)."""
-    import torch
+def _cut_cli(arch: str, depth: int, card: str, argv) -> dict:
+    """:func:`train_cli_full_width` on ``arch`` cut to ``depth`` blocks at
+    published widths (``get_config`` patched as phase 18 patches it), its
+    buckets from the cut model's parameters on the meta device."""
+    from repro_torch import configs
+    from repro_torch.models import get_model
+    from repro_torch.train.sharded_step import param_shapes
 
-    from repro_torch.configs import get_config
-    from repro_torch.models import layers as L
-    from repro_torch.models.rwkv6 import Rwkv6LM
-
-    model = Rwkv6LM(get_config(SSM_ARCH), device="cuda")
-    return L.map_spec(model.param_spec(), lambda e: torch.empty(
-        e[0], dtype=model.dtype, device="meta"))
+    base, cut = _cut_config(depth, None, arch)
+    configs.get_config = cut
+    try:
+        shapes = param_shapes(get_model(cut(arch), device="cuda"))
+        return train_cli_full_width(card, shapes, argv, arch)
+    finally:
+        configs.get_config = base
 
 
 def _kind(kernel_name: str) -> str:
@@ -4411,7 +5019,7 @@ def main(argv=None) -> int:
          "plan_fingerprint": plan.fingerprint.digest,
          "buckets": len(planned["buckets"]), "bucket_bytes": red.bucket_bytes})
     _free()
-    trained_cli = train_cli_full_width(card, layout["shapes"])
+    trained_cli = _cut_cli(TRAIN_ARCH, TRAIN_CLI_DEPTH, card, TRAIN_CLI)
     _free()
     hybrid = serve_two_ways(HYBRID_ARCH, args.seed, card, HYBRID_BATCH,
                             HYBRID_PROMPT, HYBRID_NEW, "flash_fwd_mma")
@@ -4440,8 +5048,7 @@ def main(argv=None) -> int:
                    vcfg.head_dim), True, 0, args.seed)
     check_ssm_gradient(args.seed, card)
     _free()
-    trained_ssm = train_cli_full_width(card, ssm_shapes(), TRAIN_SSM_CLI,
-                                       SSM_ARCH)
+    trained_ssm = _cut_cli(SSM_ARCH, SSM_TRAIN_DEPTH, card, TRAIN_SSM_CLI)
     _free()
     mla = serve_mla_full_width(args.seed, card)
     _free()
@@ -4460,6 +5067,8 @@ def main(argv=None) -> int:
     host_cmds = host_commands(card)
     trained_tp = train_tp_full_width(card)
     _free()
+    trained_moe = train_moe_full_width(args.seed, card)
+    _free()
     # each kernel's launches come from the path it carries; the peer ring's
     # from the user's entry point (the hand-wired planned run's beside it)
     paths = {"wkv_chunked": served, "wkv_scan": served, "fused_add": trained,
@@ -4475,6 +5084,10 @@ def main(argv=None) -> int:
             k["launches_compression"] = compressed["launches"]["fused_add"]
             k["launches_bench_overlap_runner"] = bench_overlap["runner"][
                 "counted"]["launches"]["fused_add"]
+        if k["name"] == "peer_ring":
+            k["launches_moe_train"] = trained_moe["train"]["launches"]["peer_ring"]
+        if k["name"] == "fused_add":
+            k["launches_moe_tp_layer"] = trained_moe["tp_layer"]["fused_add"]
         if k["name"] in ("fused_add", "peer_ring"):
             k["launches_tp_train"] = {
                 label: run["launches"][k["name"]]
@@ -4505,7 +5118,8 @@ def main(argv=None) -> int:
         "compression": compressed["phase_s"], "solver_eval": solver["phase_s"],
         "bench_overlap": bench_overlap["phase_s"],
         "host_commands": host_cmds["phase_s"],
-        "tp_train": trained_tp["phase_s"]}))
+        "tp_train": trained_tp["phase_s"],
+        "moe_train": trained_moe["phase_s"]}))
     _say(f"the whole script: {time.monotonic() - t_start:.1f} s (host clock)")
 
     print(json.dumps({"kernels": kernels}))

@@ -323,26 +323,29 @@ def cmd_train(args: argparse.Namespace) -> int:
     ``(pod, data, model)`` mesh with a model axis of 2 or more runs the
     tensor-parallel, ZeRO-1 step (:mod:`repro_torch.train.sharded_step`):
     every model-axis sum a certified ring over the model group's slots,
-    the gradients all-reduced over the data-parallel ranks.
+    the gradients all-reduced over the data-parallel ranks.  An MoE arch
+    on 2 or more data ranks runs the EP step
+    (:class:`~repro_torch.train.sharded_step.EPTrainStep`) on ``(data,)``
+    or ``(data, model)``: the plan's all-to-all order armed by
+    ``configure_sp``, the experts ``E/d`` a data rank, the all-reduce
+    planned on and run over the replicated leaves only.
     """
     import numpy as np
     import torch
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticLM, batches as mesh_batches
+    from repro_torch.data import SyntheticLM
     from repro_torch.launch import (
         apply_planned, make_mesh, parse_mesh, planning_session)
+    from repro_torch.launch.specs import configure_sp
     from repro_torch.models import get_model
+    from repro_torch.models.layers import clear_sequence_parallel
     from repro_torch.optim import AdamWConfig
-    from repro_torch.parallel.sharding import batch_spec
-    from repro_torch.parallel.tensor import (
-        data_groups, model_groups, require_tp_family)
-    from repro_torch.train import (
-        OverlapGradReducer, Trainer, TrainerConfig, certified_allreduce,
-        init_state, make_overlap_train_step, make_train_step, partition_tree)
-    from repro_torch.train.sharded_step import (
-        init_sharded_state, make_sharded_train_step, param_shapes)
+    from repro_torch.parallel import moe_a2a
+    from repro_torch.parallel.tensor import require_tp_family
+    from repro_torch.train import OverlapGradReducer, certified_allreduce
+    from repro_torch.train.sharded_step import expert_leaves, param_shapes
     from repro_torch.tree import tree_leaves
 
     cfg = session_config_from_args(args, workload="train")
@@ -358,14 +361,19 @@ def cmd_train(args: argparse.Namespace) -> int:
                          f"{dp} data-parallel ranks of --mesh {args.mesh}")
 
     arch = get_config(args.arch)
-    if arch.n_experts:
-        # the virtual-mesh trainer stacks every rank's gradients: for one
-        # full-width deepseek-v2 MoE layer that alone is 8 x 7.6 GB
+    ep = bool(arch.n_experts) and dp > 1
+    if arch.n_experts and "pod" in axes and dict(zip(axes, shape))["pod"] > 1:
         raise NotImplementedError(
-            f"train does not take {arch.name} ({arch.family!r}) yet: MoE "
-            f"training on the card waits for its experts sharded over the "
-            f"mesh, ROADMAP.md §1 item 18; its loss and gradients are held "
-            f"to the reference's on the CPU")
+            f"train {arch.name} ({arch.family!r}) on a pod axis: the experts "
+            f"are replicated over pods, so their gradients need a pod-axis "
+            f"all-reduce of their own, ROADMAP.md §1 item 24")
+    if ep and arch.n_experts % dp:
+        # the dense per-rank step would stack d copies of the experts'
+        # gradients; EP cannot arm
+        raise ValueError(
+            f"{arch.name}'s {arch.n_experts} experts do not split over the "
+            f"{dp} data-parallel ranks of --mesh {args.mesh}: expert "
+            f"parallelism needs a data axis that divides them")
     if arch.family == "encdec":
         # the reference's train builds batches of tokens and labels only
         # (host_batch), and WhisperLM.loss reads batch["frontend_embeds"]
@@ -379,15 +387,21 @@ def cmd_train(args: argparse.Namespace) -> int:
     if args.smoke:
         arch = dataclasses.replace(arch.smoke(), vocab_size=2048)
     model = get_model(arch, device=device)
-    grad_bytes = float(sum(t.numel() * t.element_size()
-                           for t in tree_leaves(param_shapes(model))))
+    shapes = param_shapes(model)
+    # the bytes the data axis reduces: under EP the replicated leaves, the
+    # experts' gradients being whole on their ranks
+    grad_bytes = float(sum(
+        t.numel() * t.element_size()
+        for t, e in zip(tree_leaves(shapes), expert_leaves(shapes))
+        if not (ep and e)))
     if not _payload_given(args):
         # plan the all-reduce this model's gradients actually need
         cfg = cfg.replace(payload_bytes=grad_bytes)
 
     transport = "peer_ring" if device.type == "cuda" else "runner"
     mode = cfg.overlap.mode if cfg.overlap.mode != "off" else "bucketed"
-    session = planning_session(args, session_config=cfg)
+    session = planning_session(args, moe=bool(arch.n_experts),
+                               session_config=cfg)
     bucket_bytes = float(DEFAULT_BUCKET_BYTES)
     if session is None:
         mesh, plan, reducer = make_mesh(shape, axes, device), None, None
@@ -405,7 +419,7 @@ def cmd_train(args: argparse.Namespace) -> int:
                 entry = plan.lookup("all-reduce", grad_bytes)
                 bucket_bytes = float(cfg.overlap.bucket_bytes or
                                      entry.bucket_bytes or grad_bytes)
-    if m > 1 and dp > 1:
+    if (m > 1 or ep) and dp > 1 and reducer is None:
         reducer = OverlapGradReducer(
             certified_allreduce(dp, bucket_bytes, "ring"),
             bucket_bytes=bucket_bytes, mode=mode,
@@ -419,13 +433,79 @@ def cmd_train(args: argparse.Namespace) -> int:
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     ds = SyntheticLM(arch.vocab_size, args.seq, args.batch, seed=0)
+    # the reference's SP/EP contexts and the plan's all-to-all ring
+    configure_sp(arch, mesh, plan=plan)
+    try:
+        return _train_run(args, arch, model, mesh, plan, reducer, opt, gen, ds,
+                          bucket_bytes, (m, dp, n, axes, ep),
+                          cfg.overlap.use_kernel_add)
+    finally:
+        moe_a2a.clear_ep()
+        clear_sequence_parallel()
+
+
+def _train_run(args, arch, model, mesh, plan, reducer, opt, gen, ds,
+               bucket_bytes, layout, use_kernel_add: bool) -> int:
+    """``train`` past its plan: build the step for the mesh (``layout``:
+    the model-axis size, the data-parallel ranks, all ranks, the axis
+    names and whether EP runs) and the arch, run the trainer, print its
+    report."""
+    from repro_torch.data import batches as mesh_batches
+    from repro_torch.parallel import moe_a2a
+    from repro_torch.parallel.sharding import batch_spec
+    from repro_torch.parallel.tensor import data_groups, model_groups
+    from repro_torch.train import (
+        Trainer, TrainerConfig, init_state, make_overlap_train_step,
+        make_train_step, partition_tree)
+    from repro_torch.train.sharded_step import (
+        init_sharded_state, make_ep_train_step, make_sharded_train_step)
+
+    m, dp, n, axes, ep = layout
+    device = model.device
     tp_step = None
-    if m > 1:
+    if ep:
+        if reducer is None or reducer.n != dp:
+            raise ValueError(f"the data axis's all-reduce spans "
+                             f"{getattr(reducer, 'n', None)} ranks, the "
+                             f"mesh's data-parallel ranks {dp}")
+        tp_step = make_ep_train_step(model, opt, mesh, reducer,
+                                     use_kernel_add)
+        step_fn = tp_step
+        state = init_sharded_state(model, gen, tp_step.layout)
+        rep = tp_step.replicated(state.params)
+        rep_bytes = sum(t.numel() * t.element_size() for t in rep)
+        buckets = partition_tree(rep, reducer.bucket_bytes)
+        entry = None
+        if plan is not None:
+            cands = [e for (op, _b, grp), e in plan.entries.items()
+                     if op == "all-to-all" and len(grp) == dp]
+            entry = max(cands, key=lambda e: e.size_bytes) if cands else None
+        order = moe_a2a._EP_STATE["a2a_order"]
+        print(f"[train] {arch.name} on {device}: mesh {args.mesh} "
+              f"({', '.join(axes)}), EP over {dp} data-parallel ranks x "
+              f"{args.batch // dp} x {args.seq} tokens, "
+              f"{arch.n_experts // dp} experts a rank"
+              + (f", model axis {m} (experts gathered over it, model-axis "
+                 f"groups {model_groups(mesh.order, m)})" if m > 1 else "")
+              + f"; EP all-to-all shift order "
+              f"{list(order) if order is not None else list(range(dp))}"
+              + (f" (the plan's all-to-all entry over {len(entry.group)} "
+                 f"nodes, order {list(entry.perm)})" if entry is not None
+                 else " (identity: no plan entry maps onto the data axis)")
+              + f"; data-axis all-reduce over the replicated leaves: "
+              f"{rep_bytes} bytes ({len(rep)} leaves, the experts' "
+              f"{sum(tp_step.expert)} not), ring over {dp} ranks "
+              f"{list(reducer.schedule.order)}, {len(buckets)} buckets of "
+              f"{reducer.bucket_bytes:.0f} bytes, transport "
+              f"{reducer.transport}")
+        batches = mesh_batches(ds, mesh, batch_spec(mesh))
+        moe_a2a.reset_ep_stats()
+    elif m > 1:
         if reducer is not None and reducer.n != dp:
             raise ValueError(f"the data axis's all-reduce spans {reducer.n} "
                              f"ranks, the mesh's data-parallel ranks {dp}")
         tp_step = make_sharded_train_step(model, opt, mesh, reducer,
-                                          cfg.overlap.use_kernel_add)
+                                          use_kernel_add)
         step_fn = tp_step
         state = init_sharded_state(model, gen, tp_step.layout)
         leaves = tp_step.layout.counts()
@@ -502,6 +582,12 @@ def cmd_train(args: argparse.Namespace) -> int:
         "plan_digest": plan.fingerprint.digest if plan is not None else None,
         "mesh_order": list(mesh.order), "checkpoint": ck,
     }
+    if ep:
+        summary["ep"] = {
+            "order": list(order) if order is not None else None,
+            "plan_entry_order": list(entry.perm) if entry is not None else None,
+            "experts_per_rank": arch.n_experts // dp,
+            "replicated_bytes": rep_bytes, **moe_a2a.ep_stats()}
     if reducer is not None:
         summary.update(algorithm=reducer.schedule.algorithm,
                        order=list(reducer.schedule.order),

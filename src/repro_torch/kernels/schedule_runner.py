@@ -109,13 +109,16 @@ def device_tables(schedule: LoweredSchedule, device: torch.device
     Cached per (schedule, device), so a step's index tensors are copied to
     the card once, not once per bucket.  When every position receives,
     the links are listed in destination order, so the gather of the
-    payloads is already the received tensor.
+    payloads is already the received tensor.  The tensors are made
+    outside inference mode, so a run under grad may use tables a run
+    under ``torch.inference_mode`` cached.
     """
     tables, ops = schedule_tables(schedule)
     n = schedule.n
 
     def t(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+        with torch.inference_mode(False):
+            return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
 
     out = []
     for rnd_tables, rnd_ops in zip(tables, ops):

@@ -621,18 +621,23 @@ def moe_scatter(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Te
     return y, aux
 
 
-def moe_layer(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_layer(p: Params, x: torch.Tensor, cfg, tp=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's dispatch rules (``layers.py:461-474``): ``a2a`` on a
     prompt runs :func:`~repro_torch.parallel.moe_a2a.moe_a2a` under an
-    armed EP mesh and ``moe_dense`` without one; a decode step (S == 1)
-    takes ``moe_scatter`` under ``moe_impl="scatter"``, else ``moe_dense``
-    (one token a sequence keeps the experts' weights resident)."""
-    if cfg.moe_impl == "a2a" and x.shape[1] > 1:
-        from repro_torch.parallel.moe_a2a import ep_armed, moe_a2a
+    armed EP mesh, with grad enabled too, and ``moe_dense`` without one; a
+    decode step (S == 1) takes ``moe_scatter`` under ``moe_impl="scatter"``,
+    else ``moe_dense`` (one token a sequence keeps the experts' weights
+    resident).  Given ``tp`` (a
+    :class:`~repro_torch.parallel.tensor.TensorParallel`), ``p`` is the
+    layer's model-axis storage: the EP path gathers the experts over the
+    model axis, the dense dispatch takes them gathered whole."""
+    from repro_torch.parallel.moe_a2a import ep_armed, moe_a2a, whole_weights
 
-        if ep_armed(cfg):
-            return moe_a2a(p, x, cfg)
-        return moe_dense(p, x, cfg)
+    if cfg.moe_impl == "a2a" and x.shape[1] > 1 and ep_armed(cfg):
+        return moe_a2a(p, x, cfg) if tp is None else moe_a2a(p, x, cfg, tp)
+    if tp is not None:
+        p = whole_weights(p, tp)
     if cfg.moe_impl == "scatter":
         return moe_scatter(p, x, cfg)
     return moe_dense(p, x, cfg)

@@ -24,8 +24,11 @@ The ``vlm`` family (llava-next-mistral-7b) is this decoder with the
 reference's anyres stub in front: ``frontend_embeds [B, n_img, D]``
 replace the first ``n_img`` token embeddings.  Given a
 :class:`~repro_torch.parallel.tensor.TensorParallel`, ``loss`` runs the
-dense family and the VLM over a model axis from sharded storage
-(:func:`lm_loss_tp`, ``layers.attention_tp``/``mlp_tp``).
+dense family, the VLM and MoE with GQA over a model axis from sharded
+storage (:func:`lm_loss_tp`, ``layers.attention_tp``/``mlp_tp``, the
+experts gathered by ``layers.moe_layer``); ``loss_ranks`` runs every data
+rank of an armed EP mesh in one graph, each on its own view of the
+parameters (the EP train step's).
 """
 
 from __future__ import annotations
@@ -141,6 +144,27 @@ class DecoderLM:
         return L.mlp(p["mlp"], h), torch.zeros((), dtype=torch.float32,
                                                device=h.device)
 
+    def _attend(self, p: Params, x: torch.Tensor, positions: torch.Tensor,
+                tp=None, spec: Optional[Params] = None
+                ) -> Tuple[torch.Tensor, Params]:
+        """The block's first half: ``x`` plus its attention, and the cache
+        entries (none under ``tp``)."""
+        cfg = self.cfg
+        if cfg.sequence_parallel:
+            x = L.sp_constrain(x)
+        h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        if tp is not None:
+            return x + L.attention_tp(p["attn"], spec["attn"], h, cfg, tp,
+                                      positions=positions,
+                                      window=cfg.attn_window), {}
+        if cfg.use_mla:
+            attn_out, kv = L.mla_attention(p["attn"], h, cfg, positions)
+        else:
+            attn_out, kv = L.attention(p["attn"], h, cfg, causal=True,
+                                       positions=positions,
+                                       window=cfg.attn_window)
+        return x + attn_out, kv
+
     def _block_fwd(self, p: Params, x: torch.Tensor, positions: torch.Tensor,
                    tp=None, spec: Optional[Params] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
@@ -150,25 +174,41 @@ class DecoderLM:
         runs over its model axis from model-axis storage, ``spec`` the
         block's specs, and returns no cache entries."""
         cfg = self.cfg
-        if cfg.sequence_parallel:
-            x = L.sp_constrain(x)
-        h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        if tp is not None:
-            x = x + L.attention_tp(p["attn"], spec["attn"], h, cfg, tp,
-                                   positions=positions, window=cfg.attn_window)
-            y = L.mlp_tp(p["mlp"], spec["mlp"],
-                         L.rms_norm(x, p["mlp_norm"], cfg.norm_eps), tp)
-            return x + y, torch.zeros((), dtype=torch.float32,
-                                      device=x.device), {}
-        if cfg.use_mla:
-            attn_out, kv = L.mla_attention(p["attn"], h, cfg, positions)
+        x, kv = self._attend(p, x, positions, tp, spec)
+        h = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+        if tp is None:
+            y, aux = self._ffn(p, h)
+        elif "moe" in p:
+            y, aux = L.moe_layer(p["moe"], h, cfg, tp=tp)
         else:
-            attn_out, kv = L.attention(p["attn"], h, cfg, causal=True,
-                                       positions=positions,
-                                       window=cfg.attn_window)
-        x = x + attn_out
-        y, aux = self._ffn(p, L.rms_norm(x, p["mlp_norm"], cfg.norm_eps))
+            y, aux = L.mlp_tp(p["mlp"], spec["mlp"], h, tp), torch.zeros(
+                (), dtype=torch.float32, device=x.device)
         return x + y, aux, kv
+
+    def _blocks_ranks(self, ps: List[Params], xs: List[torch.Tensor],
+                      positions: torch.Tensor, tp=None,
+                      spec: Optional[Params] = None
+                      ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """One block on every data rank's rows, rank ``r`` reading its own
+        view ``ps[r]`` of the block's parameters; an MoE block's layer is
+        the EP all-to-all over the ranks
+        (:func:`~repro_torch.parallel.moe_a2a.moe_ranks`), the rest rank
+        by rank."""
+        from repro_torch.parallel.moe_a2a import moe_ranks
+
+        cfg = self.cfg
+        xs = [self._attend(p, x, positions, tp, spec)[0]
+              for p, x in zip(ps, xs)]
+        hs = [L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+              for p, x in zip(ps, xs)]
+        if "moe" in ps[0]:
+            ys, aux = moe_ranks([p["moe"] for p in ps], hs, cfg, tp)
+        else:
+            ys = [L.mlp(p["mlp"], h) if tp is None else
+                  L.mlp_tp(p["mlp"], spec["mlp"], h, tp)
+                  for p, h in zip(ps, hs)]
+            aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+        return [x + y for x, y in zip(xs, ys)], aux
 
     def _block_decode(self, p: Params, x: torch.Tensor, layer_cache: Params,
                       pos: torch.Tensor) -> torch.Tensor:
@@ -197,6 +237,18 @@ class DecoderLM:
             x = torch.cat([frontend_embeds.to(x.dtype), x[:, n_img:]], dim=1)
         return x
 
+    def _layer_list(self, params: Params, tp=None
+                    ) -> List[Tuple[str, Params, Optional[Params]]]:
+        """``(where, block, spec)`` of every layer in order: the head
+        blocks, then the stacked ones (from model-axis storage under
+        ``tp``)."""
+        if tp is None:
+            return [(w, bp, None) for w, bp in self._layers(params)]
+        if self.n_head:
+            raise NotImplementedError("head blocks on a model axis")
+        return [("scan", bp, spec) for bp, spec in unbind_blocks(
+            params["blocks"], tp.pspecs["blocks"], self.n_scan)]
+
     def _features(self, params: Params, tokens: torch.Tensor,
                   frontend_embeds: Optional[torch.Tensor] = None, tp=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -209,12 +261,7 @@ class DecoderLM:
         positions = torch.arange(tokens.shape[1], device=x.device)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = cfg.remat == "block" and torch.is_grad_enabled()
-        if tp is None:
-            layers = [(w, bp, None) for w, bp in self._layers(params)]
-        else:
-            layers = [("scan", bp, spec) for bp, spec in unbind_blocks(
-                params["blocks"], tp.pspecs["blocks"], self.n_scan)]
-        for where, bp, spec in layers:
+        for where, bp, spec in self._layer_list(params, tp):
             if remat and where == "scan":
                 x, aux, _ = checkpoint(self._block_fwd, bp, x, positions, tp,
                                        spec, use_reentrant=False)
@@ -233,6 +280,16 @@ class DecoderLM:
             return x, aux
         return x @ self._head(params), aux
 
+    def _ce(self, params: Params, feats: torch.Tensor, labels: torch.Tensor,
+            tp=None) -> torch.Tensor:
+        chunk = self.cfg.loss_chunk_size
+        if tp is None:
+            return lm_loss(feats, self._head(params), labels, chunk)
+        head, sharded = self._tp_head(params, tp)
+        if sharded:
+            return lm_loss_tp(feats, head, labels, chunk, tp)
+        return lm_loss(feats, head, labels, chunk)
+
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
              tp=None) -> torch.Tensor:
         """Mean next-token cross entropy + 0.01 x the aux loss; never
@@ -242,24 +299,48 @@ class DecoderLM:
         ``params`` is its model-axis storage
         (:func:`~repro_torch.parallel.tensor.shard_params`) and the loss
         runs over the model axis: the vocab-parallel lookup and cross
-        entropy, column- and row-parallel blocks, whatever the specs
-        leave replicated computed whole.  The dense family and the VLM
-        only (:func:`~repro_torch.parallel.tensor.require_tp_family`).
+        entropy, column- and row-parallel blocks, MoE layers with their
+        experts gathered over the model axis, whatever the specs leave
+        replicated computed whole.  The dense family, the VLM and MoE with
+        GQA attention (:func:`~repro_torch.parallel.tensor.require_tp_family`).
         """
         if tp is not None:
             require_tp_family(self.cfg)
         feats, aux = self._features(params, batch["tokens"],
                                     batch.get("frontend_embeds"), tp)
-        chunk = self.cfg.loss_chunk_size
-        if tp is None:
-            return lm_loss(feats, self._head(params), batch["labels"],
-                           chunk) + 0.01 * aux
-        head, sharded = self._tp_head(params, tp)
-        if sharded:
-            ce = lm_loss_tp(feats, head, batch["labels"], chunk, tp)
-        else:
-            ce = lm_loss(feats, head, batch["labels"], chunk)
-        return ce + 0.01 * aux
+        return self._ce(params, feats, batch["labels"], tp) + 0.01 * aux
+
+    def loss_ranks(self, rank_params: List[Params],
+                   batches: List[Dict[str, torch.Tensor]], tp=None
+                   ) -> List[torch.Tensor]:
+        """Each data rank's :meth:`loss` on its rows, in one autograd graph
+        over all of them: rank ``r`` reads its own view ``rank_params[r]``
+        of the parameters (model-axis storage under ``tp``), and the MoE
+        layers run the armed EP all-to-all across the ranks, so the aux
+        term every rank adds is the mean over all of them (the
+        reference's ``pmean``).  Each stacked block is checkpointed over
+        all ranks at once (``remat="block"``)."""
+        cfg = self.cfg
+        if tp is not None:
+            require_tp_family(cfg)
+        xs = [self._embed(p, b["tokens"], b.get("frontend_embeds"), tp)
+              for p, b in zip(rank_params, batches)]
+        positions = torch.arange(batches[0]["tokens"].shape[1],
+                                 device=xs[0].device)
+        aux_total = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+        remat = cfg.remat == "block" and torch.is_grad_enabled()
+        layers = [self._layer_list(p, tp) for p in rank_params]
+        for i, (where, _, spec) in enumerate(layers[0]):
+            bps = [rank[i][1] for rank in layers]
+            if remat and where == "scan":
+                xs, aux = checkpoint(self._blocks_ranks, bps, xs, positions,
+                                     tp, spec, use_reentrant=False)
+            else:
+                xs, aux = self._blocks_ranks(bps, xs, positions, tp, spec)
+            aux_total = aux_total + aux
+        return [self._ce(p, L.rms_norm(x, p["final_norm"], cfg.norm_eps),
+                         b["labels"], tp) + 0.01 * aux_total
+                for p, x, b in zip(rank_params, xs, batches)]
 
     # -- serving ----------------------------------------------------------
     def _cache_leaves(self, n: int, batch: int, s_max: int, dtype) -> Params:

@@ -38,6 +38,16 @@ vocab-parallel loss's gather):
 * :meth:`TensorParallel.gather` — an all-gather of one value a rank into
   the replicated ``[m, ...]``; backward, each rank keeps its own row of
   the replicated gradient.
+* :meth:`TensorParallel.split` — each rank takes its slice of a
+  replicated value (the MoE layer's rows, split along S); backward, the
+  ranks' slices of the gradient are all-gathered into the replicated
+  gradient.
+* :meth:`TensorParallel.gather_each` — a sharded weight all-gathered to
+  its full shape on every rank (the reference's weight gather of the
+  experts); each rank then uses its copy on its own tokens, so backward
+  the ranks' gradients ``[m, *full]`` are reduce-scattered, each rank
+  keeping the sum of its own shard (a certified ring reduce-scatter,
+  ``fused_add`` its reduce).
 
 Nothing sums over the rank dimension outside the runner.
 """
@@ -55,21 +65,23 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 
 from .sharding import P, mesh_axis_sizes
 
-__all__ = ["TensorParallel", "certified_all_gather", "model_dim",
+__all__ = ["TensorParallel", "certified_all_gather",
+           "certified_reduce_scatter", "model_dim",
            "shard_params", "unshard_params", "unbind_blocks", "tp_linear",
            "model_groups", "data_groups", "TP_FAMILIES", "require_tp_family"]
 
-#: model families whose forward runs tensor-parallel
-TP_FAMILIES = ("dense", "vlm")
+#: model families whose forward runs tensor-parallel (MoE with GQA
+#: attention: its experts gathered over the model axis)
+TP_FAMILIES = ("dense", "vlm", "moe")
 
 
 def require_tp_family(cfg) -> None:
     """Raise for a model a model axis cannot shard yet (ROADMAP.md §1)."""
-    if cfg.n_experts:
+    if cfg.use_mla:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family!r}) on a model axis: MoE's experts over "
-            f"the model axis (the reference's weight gather) wait for MoE "
-            f"training, ROADMAP.md §1 item 18")
+            f"{cfg.name} ({cfg.family!r}, MLA) on a model axis: the "
+            f"reference shards wq_a/wq_b/wkv_a/wkv_b/wk_rope, whose "
+            f"tensor-parallel attention waits for ROADMAP.md §1 item 23")
     items = {"ssm": "item 20", "hybrid": "item 21"}
     if cfg.family in items:
         raise NotImplementedError(
@@ -169,6 +181,23 @@ def certified_all_gather(n: int) -> LoweredSchedule:
 
 
 @functools.lru_cache(maxsize=32)
+def certified_reduce_scatter(n: int) -> LoweredSchedule:
+    """A certified ring ``reduce_scatter`` over ``n`` local ranks in slot
+    order (rank ``k`` ends with the sum of chunk ``k``), proved before it
+    is returned."""
+    from repro_torch.analysis import require_certified
+    from repro_torch.collective import (
+        CollectiveOp, ScheduleLowering, compile_op)
+
+    op = CollectiveOp(kind="reduce_scatter", size_bytes=float(n),
+                      group=tuple(range(n)))
+    prog = compile_op(op, "ring_all_gather")
+    sched = ScheduleLowering().lower_schedule(prog)
+    require_certified(prog, sched)
+    return sched
+
+
+@functools.lru_cache(maxsize=32)
 def _certified_allreduce(n: int) -> LoweredSchedule:
     from repro_torch.train.overlap_grads import certified_allreduce
 
@@ -195,6 +224,17 @@ def all_gather_rows(x: torch.Tensor, sched: LoweredSchedule) -> torch.Tensor:
     n = sched.n
     out = run_schedule(x.reshape(n, -1), sched, False)
     return out[0].reshape(x.shape)
+
+
+def reduce_scatter_rows(x: torch.Tensor, sched: LoweredSchedule,
+                        use_kernel_add: bool = True) -> torch.Tensor:
+    """``x [n, n, ...]`` (rank ``j``'s contribution to every rank's
+    chunk) reduce-scattered by ``sched``: ``[n, ...]``, row ``k`` the sum
+    over ``j`` of ``x[j, k]``."""
+    n = sched.n
+    out = run_schedule(x.reshape(n, -1), sched, use_kernel_add)
+    pick = torch.arange(n, device=x.device)
+    return out[pick, pick].reshape(x.shape[1:])
 
 
 class _Reduce(torch.autograd.Function):
@@ -229,12 +269,43 @@ class _Gather(torch.autograd.Function):
         return g, None
 
 
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return x.unflatten(dim, (tp.m, x.shape[dim] // tp.m)).movedim(dim, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = ctx.tp.all_gather(g.contiguous())
+        return whole.movedim(0, ctx.dim).flatten(ctx.dim, ctx.dim + 1), \
+            None, None
+
+
+class _GatherEach(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        full = torch.cat(list(tp.all_gather(x).unbind(0)), dim=dim)
+        return full.unsqueeze(0).expand(tp.m, *full.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        m, dim = ctx.tp.m, ctx.dim
+        # [ranks, *full] -> [ranks, shards, *local]: rank j's gradient of
+        # every shard, shard k at chunk k
+        parts = g.unflatten(dim + 1, (m, g.shape[dim + 1] // m)).movedim(
+            dim + 1, 1)
+        return ctx.tp.reduce_scatter(parts.contiguous()), None, None
+
+
 class TensorParallel:
     """The model axis of a mesh: its size, the parameters' specs and the
     certified schedules its collectives run.
 
     ``counts`` tallies the schedule runs by kind (``allreduce``,
-    ``allgather``), forward, backward and recompute alike.
+    ``allgather``, and ``reducescatter`` once one has run), forward,
+    backward and recompute alike.
     """
 
     def __init__(self, mesh, pspecs: Any, use_kernel_add: bool = True):
@@ -246,6 +317,7 @@ class TensorParallel:
         self.use_kernel_add = use_kernel_add
         self.allreduce_schedule = _certified_allreduce(self.m)
         self.allgather_schedule = certified_all_gather(self.m)
+        self.reducescatter_schedule = certified_reduce_scatter(self.m)
         self.counts: Dict[str, int] = {"allreduce": 0, "allgather": 0}
 
     # -- the schedule runs --------------------------------------------------
@@ -259,6 +331,13 @@ class TensorParallel:
         self.counts["allgather"] += 1
         return all_gather_rows(x, self.allgather_schedule)
 
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """``[m, m, ...]`` every rank's share of every chunk -> ``[m, ...]``,
+        rank ``k`` holding the sum of chunk ``k``."""
+        self.counts["reducescatter"] = self.counts.get("reducescatter", 0) + 1
+        return reduce_scatter_rows(x, self.reducescatter_schedule,
+                                   self.use_kernel_add)
+
     # -- differentiable -----------------------------------------------------
     def reduce(self, partial: torch.Tensor) -> torch.Tensor:
         """Row-parallel output: the ranks' partials summed, replicated."""
@@ -271,6 +350,17 @@ class TensorParallel:
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's row of ``x [m, ...]``, replicated."""
         return _Gather.apply(x, self)
+
+    def split(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Rank ``j``'s slice ``j`` of the replicated ``x`` along ``dim``:
+        ``[m, ...]`` with ``dim`` cut by ``m``."""
+        return _Split.apply(x, self, dim)
+
+    def gather_each(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Storage ``[m, *local]`` sharded on local dimension ``dim``,
+        all-gathered: ``[m, *full]``, every rank's copy of the whole
+        (held once; the gradients of the copies are reduce-scattered)."""
+        return _GatherEach.apply(x, self, dim)
 
     # -- the clip's global norm ---------------------------------------------
     def global_norm(self, grads: Any) -> torch.Tensor:

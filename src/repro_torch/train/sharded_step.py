@@ -30,6 +30,24 @@ no dimension of which the dp size divides keeps whole moments.  The batch
 is :func:`repro_torch.data.synthetic.make_global_batch`'s: one block of
 rows a virtual rank, the step reading data-parallel rank ``k``'s rows
 from the rank that holds mesh slot ``(k, 0)``.
+
+:class:`EPTrainStep` is the MoE step on a ``(data,)`` or ``(data,
+model)`` mesh with expert parallelism armed over ``data``.  The EP
+all-to-all couples the data ranks, so one autograd graph covers all of
+them (:meth:`DecoderLM.loss_ranks
+<repro_torch.models.transformer.DecoderLM.loss_ranks>`): each rank reads
+its own leaf views of the replicated parameters (the same storage, no
+copy), autograd writes each rank's gradient into row ``k`` of the stacked
+buffers the data axis's reducer takes, and each rank reads its ``E/d``
+experts of an expert leaf as a leaf of its own on the same storage,
+whose gradient lands in its slice of one buffer: the experts' gradient
+comes whole from the graph and never goes through the reducer.  The
+graph's loss is the sum of the ranks' losses, so that each view's
+gradient is its rank's; the experts' gradient is then ``d`` times the
+mean loss's and is divided by ``d``.  The update runs in place, a large
+leaf in slices of ``UPDATE_ELEMS`` elements (the same elementwise
+arithmetic), and the ZeRO-1 all-gather runs leaf by leaf in pieces, so
+that the step holds one copy of the state.
 """
 
 from __future__ import annotations
@@ -50,8 +68,11 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 
 from .train_step import TrainState, batch_on
 
-__all__ = ["ShardedLayout", "init_sharded_state", "make_sharded_train_step",
-           "param_shapes"]
+__all__ = ["EPTrainStep", "ShardedLayout", "expert_leaves", "init_sharded_state",
+           "make_ep_train_step", "make_sharded_train_step", "param_shapes"]
+
+#: the in-place update's slice of a large leaf (f32 temporaries of 256 MB)
+UPDATE_ELEMS = 1 << 26
 
 
 def param_shapes(model) -> Any:
@@ -86,18 +107,19 @@ class ShardedLayout:
     @classmethod
     def of(cls, model, mesh) -> "ShardedLayout":
         shapes = param_shapes(model)
+        sizes = shd.mesh_axis_sizes(mesh)
         pspecs = shd.param_pspecs(shapes, model.cfg, mesh)
         zspecs = tree_unflatten(pspecs, [
             shd.zero1_spec(s, tuple(t.shape), mesh)
             for s, t in zip(tree_leaves(pspecs), tree_leaves(shapes))])
-        sizes = shd.mesh_axis_sizes(mesh)
         dp = int(np.prod([sizes[a] for a in shd.dp_axes(mesh)]))
         zdims = []
         for ps, zs in zip(tree_leaves(pspecs), tree_leaves(zspecs)):
             moved = [i for i, (a, b) in enumerate(zip(ps, zs)) if a != b]
             # storage: a model-sharded leaf carries the model axis first
-            zdims.append(moved[0] + (model_dim(ps) is not None)
-                         if moved else None)
+            # (a mesh without one keeps every leaf whole)
+            lead = model_dim(ps) is not None and sizes.get("model", 1) > 1
+            zdims.append(moved[0] + lead if moved else None)
         return cls(mesh, pspecs, sizes.get("model", 1), dp, zdims)
 
     def counts(self) -> Dict[str, int]:
@@ -259,3 +281,203 @@ def make_sharded_train_step(model, opt_cfg, mesh, reducer=None,
     2 or more); ``reducer`` the data axis's all-reduce when it has more
     than one rank.  Its state comes from :func:`init_sharded_state`."""
     return ShardedTrainStep(model, opt_cfg, mesh, reducer, use_kernel_add)
+
+
+def expert_leaves(params: Any) -> List[bool]:
+    """Per leaf (flatten order): one of the routed experts' ``w1``/``w3``/
+    ``w2`` (the shared experts' are not)."""
+    flags = shd.map_with_path(
+        lambda keys, _: "moe" in keys and "shared" not in keys
+        and keys[-1] in ("w1", "w3", "w2"), params)
+    return [bool(f) for f in tree_leaves(flags)]
+
+
+def _pieces(t: torch.Tensor, limit: int) -> List[torch.Tensor]:
+    """Views of ``t`` of at most ``limit`` elements (slices of leading
+    dimensions; a tensor of the same shape gives the same slices)."""
+    if t.numel() <= limit or t.dim() == 0:
+        return [t]
+    if t.shape[0] == 1:
+        return _pieces(t[0], limit)
+    rows = max(1, limit // (t.numel() // t.shape[0]))
+    return [q for s in range(0, t.shape[0], rows)
+            for q in _pieces(t[s:s + rows], limit)]
+
+
+class EPTrainStep(ShardedTrainStep):
+    """The MoE step with the EP all-to-all armed over the data axis of a
+    ``(data,)`` or ``(data, model)`` mesh: ``step(state, batch) ->
+    (state', metrics)``, the state :func:`init_sharded_state`'s.
+
+    ``counts`` tallies the collectives as :class:`ShardedTrainStep`'s, and
+    ``model_reducescatter`` (the experts' gradients over the model axis).
+    """
+
+    def __init__(self, model, opt_cfg, mesh, reducer=None,
+                 use_kernel_add: bool = True):
+        from repro_torch.parallel import moe_a2a
+
+        cfg = model.cfg
+        if not cfg.n_experts:
+            raise ValueError(f"{cfg.name} has no experts: the EP step "
+                             f"trains MoE models")
+        moe_a2a._check_axes(mesh, "data")
+        sizes = shd.mesh_axis_sizes(mesh)
+        d, m = sizes.get("data", 1), sizes.get("model", 1)
+        if m > 1:
+            require_tp_family(cfg)
+        if d < 2 or cfg.n_experts % d:
+            raise ValueError(f"EP over {d} data-parallel ranks cannot split "
+                             f"{cfg.name}'s {cfg.n_experts} experts")
+        state = moe_a2a._EP_STATE
+        if state["mesh"] is not mesh or state["ep"] != "data":
+            raise ValueError("arm EP over this mesh's data axis first "
+                             "(launch.specs.configure_sp)")
+        self.model, self.opt_cfg, self.mesh = model, opt_cfg, mesh
+        self.layout = ShardedLayout.of(model, mesh)
+        self.tp = (TensorParallel(mesh, self.layout.pspecs, use_kernel_add)
+                   if m > 1 else None)
+        self.expert = expert_leaves(param_shapes(model))
+        if reducer is None or reducer.n != d:
+            raise ValueError(f"the EP step needs a reducer over the {d} "
+                             f"data-parallel ranks")
+        self.reducer = reducer
+        self.gather_schedule = certified_all_gather(d)
+        self.counts = {"model_allreduce": 0, "model_allgather": 0,
+                       "model_reducescatter": 0, "data_allgather": 0,
+                       "data_allreduce": 0}
+
+    def replicated(self, tree: Any) -> List[Any]:
+        """The leaves the data axis's all-reduce carries: all but the
+        experts'."""
+        return [t for t, e in zip(tree_leaves(tree), self.expert) if not e]
+
+    def value_and_grad(self, params: Any, batch: Dict[str, Any]
+                       ) -> Tuple[torch.Tensor, Any]:
+        """The loss (mean over the data-parallel ranks) and its gradient:
+        the replicated leaves' through the data axis's reducer, the
+        experts' from the one graph, divided by ``d``."""
+        shards = self.dp_batches(batch)
+        d = len(shards)
+        leaves = tree_leaves(params)
+        # gradient buffers: [d, ...] for a replicated leaf, the expert
+        # leaf's own shape (each rank's slice its own experts')
+        bufs = {i: torch.zeros((*(() if e else (d,)), *p.shape), dtype=p.dtype,
+                               device=p.device)
+                for i, (p, e) in enumerate(zip(leaves, self.expert))}
+        views = []
+        for r in range(d):
+            lv = []
+            for i, p in enumerate(leaves):
+                if self.expert[i]:
+                    # rank r reads its E/d experts: a leaf of its own on
+                    # the same storage, its gradient a slice of the buffer
+                    v = self._experts_of(p.detach(), r, d).requires_grad_()
+                    v.grad = self._experts_of(bufs[i], r, d)
+                else:
+                    v = p.detach().requires_grad_()
+                    v.grad = bufs[i][r]
+                lv.append(v)       # backward accumulates in place
+            views.append(tree_unflatten(params, lv))
+        with torch.enable_grad():
+            losses = self.model.loss_ranks(views, shards, tp=self.tp)
+            torch.stack(losses).sum().backward()
+        del views
+        mean, _ = self.reducer([bufs[i] for i, e in enumerate(self.expert)
+                                if not e])
+        self.counts["data_allreduce"] += 1
+        it = iter(mean)
+        grads = [bufs[i].div_(d) if e else next(it)
+                 for i, e in enumerate(self.expert)]
+        del bufs
+        return torch.stack(losses).detach().mean(), tree_unflatten(params, grads)
+
+    def _experts_of(self, t: torch.Tensor, r: int, d: int) -> torch.Tensor:
+        """Data rank ``r``'s ``E/d`` experts of an expert leaf (stacked
+        ``[L, E, ...]``, or ``[m, L, E, ...]`` in model-axis storage)."""
+        dim = 1 + (self.tp is not None)
+        e_loc = t.shape[dim] // d
+        return t.narrow(dim, r * e_loc, e_loc)
+
+    def _norm(self, grads: Any) -> torch.Tensor:
+        """The clip's global norm, each leaf once, summed in slices of
+        ``UPDATE_ELEMS`` (no f32 copy of a whole expert leaf)."""
+        if self.tp is not None:
+            return self.tp.global_norm(grads)
+        total = None
+        for g in tree_leaves(grads):
+            for piece in _pieces(g, UPDATE_ELEMS):
+                sq = torch.sum(torch.square(piece.float()))
+                total = sq if total is None else total + sq
+        return torch.sqrt(total)
+
+    @torch.no_grad()
+    def apply(self, state: TrainState, grads: Any) -> Tuple[TrainState, dict]:
+        """Clip (the experts counted once), the ZeRO-1 AdamW on each
+        data-parallel rank's slice, in place, and the slices all-gathered
+        over the data axis, leaf by leaf."""
+        cfg, dp = self.opt_cfg, self.layout.dp
+        gnorm = self._norm(grads)
+        scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+        count = state.opt.count + 1
+        lr = cfg.schedule(count) if cfg.schedule is not None else cfg.lr
+        b1c = 1.0 - cfg.b1 ** count.to(torch.float32)
+        b2c = 1.0 - cfg.b2 ** count.to(torch.float32)
+        params, sliced = tree_leaves(state.params), {}
+        for i, (p, g, m_, v_, zd) in enumerate(zip(
+                params, tree_leaves(grads), tree_leaves(state.opt.m),
+                tree_leaves(state.opt.v), self.layout.zdims)):
+            if zd is not None:
+                zp, zg = _zslice(p, zd, dp), _zslice(g, zd, dp)
+                parts = [(zp[k], zg[k], m_[k], v_[k]) for k in range(dp)]
+                sliced.setdefault(p.dtype, []).append(i)
+            else:
+                parts = [(p, g, m_, v_)]
+            for part in parts:
+                for a, b, c, e in zip(*(_pieces(t, UPDATE_ELEMS) for t in part)):
+                    new = adamw_update(cfg, a, b, c, e, scale, lr, b1c, b2c)
+                    for dst, src in zip((a, c, e), new):
+                        dst.copy_(src)
+        zd = self.layout.zdims
+        for i in (i for ids in sliced.values() for i in ids):
+            params[i].copy_(_unslice(self._gather_leaf(
+                _zslice(params[i], zd[i], dp)), zd[i]))
+        metrics = {"grad_norm": gnorm,
+                   "lr": torch.as_tensor(lr, dtype=torch.float32,
+                                         device=gnorm.device)}
+        opt = OptState(state.opt.m, state.opt.v, count)
+        return TrainState(state.params, opt, state.step + 1), metrics
+
+    def _gather_leaf(self, s: torch.Tensor) -> torch.Tensor:
+        """One leaf's ``[dp, ...]`` updated slices, gathered over the data
+        axis by the certified all-gather in pieces of at most
+        ``UPDATE_ELEMS`` elements a rank (the runner holds ``n + 1`` rows
+        of a piece a rank)."""
+        dp = self.layout.dp
+        flat = s.reshape(dp, -1)
+        got = torch.empty_like(flat)
+        for c in range(0, flat.shape[1], UPDATE_ELEMS):
+            cols = slice(c, c + UPDATE_ELEMS)
+            got[:, cols] = all_gather_rows(flat[:, cols].contiguous(),
+                                           self.gather_schedule)
+            self.counts["data_allgather"] += 1
+        return got.reshape(s.shape)
+
+    def __call__(self, state: TrainState, batch: Dict[str, Any]):
+        before = dict(self.tp.counts) if self.tp is not None else {}
+        loss, grads = self.value_and_grad(state.params, batch)
+        new_state, metrics = self.apply(state, grads)
+        if self.tp is not None:
+            for kind in ("allreduce", "allgather", "reducescatter"):
+                self.counts[f"model_{kind}"] += (self.tp.counts.get(kind, 0)
+                                                 - before.get(kind, 0))
+        return new_state, dict(metrics, loss=loss)
+
+
+def make_ep_train_step(model, opt_cfg, mesh, reducer,
+                       use_kernel_add: bool = True) -> EPTrainStep:
+    """The MoE model's EP step on ``mesh`` (EP armed over its data axis,
+    :func:`repro_torch.launch.specs.configure_sp`), ``reducer`` the data
+    axis's all-reduce of the replicated leaves.  Its state comes from
+    :func:`init_sharded_state` and is updated in place."""
+    return EPTrainStep(model, opt_cfg, mesh, reducer, use_kernel_add)

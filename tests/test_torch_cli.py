@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -179,6 +180,44 @@ def test_serve_moe_over_a_mesh_arms_the_ep_all_to_all(capsys, monkeypatch):
     assert moe_a2a._EP_STATE["mesh"] is None
 
 
+@pytest.mark.parametrize("mesh", ["4", "2x2"])
+def test_train_moe_over_the_ep_all_to_all(capsys, tmp_path, mesh):
+    """``train --arch dbrx-132b`` on 4 data ranks, and on 2 data ranks x a
+    model axis of 2: the plan's all-to-all entry printed beside the armed
+    shift order, the all-reduce over the replicated leaves only, the loss
+    finite and falling over 16 steps (the smoke experts, at the
+    reference's ``1/sqrt(E)`` init, add outputs a thousand times the
+    embeddings' scale, so the loss falls slower than the dense model's;
+    at lr 1e-2 it wanders), nothing left armed."""
+    from repro_torch.cli import main
+    from repro_torch.parallel import moe_a2a
+
+    assert main(["train", "--arch", "dbrx-132b", "--smoke", "--device", "cpu",
+                 "--mesh", mesh, "--batch", "8", "--seq", "16", "--steps",
+                 "16", "--lr", "3e-3", "--reorder", "simulate",
+                 "--ckpt-dir", str(tmp_path)]) == 0
+    text = capsys.readouterr().out
+    report = json.loads(text.split("[train] report ")[1].splitlines()[0])
+    d = 4 if mesh == "4" else 2
+    assert (report["dp"], report["model"]) == (d, 4 // d)
+    assert "EP all-to-all shift order" in text
+    ep = report["ep"]
+    # 16 steps x 2 MoE layers x 8 x 16 tokens x top-2, routed once a
+    # forward (the checkpoint's recompute in the backward counts nothing)
+    assert ep["experts_per_rank"] == 4 // d and ep["choices"] == 16 * 2 * 8 * 16 * 2
+    if mesh == "4":
+        # the plan's entry over the data axis's 4 nodes orders the ring
+        assert sorted(ep["order"]) == [0, 1, 2, 3]
+        assert sorted(ep["plan_entry_order"]) == [0, 1, 2, 3]
+    else:
+        assert report["tp_collectives"]["model_reducescatter"] > 0
+    assert ep["replicated_bytes"] < report["checkpoint"]["bytes"]
+    losses = report["losses"]
+    assert all(np.isfinite(losses))
+    assert sum(losses[-3:]) / 3 < sum(losses[:3]) / 3 - 0.03, losses
+    assert moe_a2a._EP_STATE["mesh"] is None
+
+
 def test_train_warms_up_as_the_reference(monkeypatch, tmp_path):
     """``train`` builds its optimizer from the reference's schedule,
     ``cosine_schedule(lr, 10, steps)`` (``repro/cli.py:287``): at lr 1e-3
@@ -243,10 +282,17 @@ def test_train_refuses_what_is_not_ported(tmp_path):
             main(["train", "--arch", arch, "--smoke", "--device", "cpu",
                   "--mesh", "1x2", "--reorder", "none",
                   "--ckpt-dir", str(tmp_path)])
-    # MoE training on the card waits for the sharding specs
-    with pytest.raises(NotImplementedError, match="item 18"):
-        main(["train", "--arch", "dbrx-132b", "--smoke", "--device", "cpu",
-              "--reorder", "none", "--ckpt-dir", str(tmp_path)])
+    # MoE trains (test_train_moe_over_the_ep_all_to_all); MLA on a model
+    # axis and an MoE arch on a pod axis name their items, and experts a
+    # data axis does not divide are refused in words, never stacked
+    for arch, mesh, err, match in (
+            ("deepseek-v2-236b", "2x2", NotImplementedError, "item 23"),
+            ("dbrx-132b", "2x2x2", NotImplementedError, "item 24"),
+            ("dbrx-132b", "3", ValueError, "do not split over the 3")):
+        with pytest.raises(err, match=match):
+            main(["train", "--arch", arch, "--smoke", "--device", "cpu",
+                  "--mesh", mesh, "--batch", "6" if mesh == "3" else "8",
+                  "--reorder", "none", "--ckpt-dir", str(tmp_path)])
     # Whisper's loss needs audio the synthetic batches do not carry
     with pytest.raises(NotImplementedError, match="frontend_embeds"):
         main(["train", "--arch", "whisper-small", "--smoke", "--device", "cpu",

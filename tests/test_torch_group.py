@@ -17,7 +17,10 @@ backpropagating its own loss, those of all but stage 0's process scaled
 by 7, and the stages' gradients the virtual pipeline's, not 8 or 7 times
 them; the EP all-to-all on the smoke ``dbrx-132b`` with 8 experts (one a
 process, half of the processes holding only theirs) in the shift order
-of a plan of ``serve_mix(moe=True)``, bit for bit with its aux loss; and
+of a plan of ``serve_mix(moe=True)``, bit for bit with its aux loss, and
+its backward (each all-to-all's transpose over the group): each process's
+input and expert gradients bit for bit, no other expert's, and the ranks'
+own router gradients summing to the virtual mesh's; and
 ``compressed_psum``, bit for bit.  The bf16 inputs lie on a grid of 1/4 in [-2, 2], so every partial
 sum of 8 of them is exact in bf16 and the same atol holds.
 
@@ -128,7 +131,7 @@ def _port_cases(plan, extra):
     mine = {"pipeline": (mesh.slot, w.grad[mesh.slot].clone(),
                          bool(others.any()), loss.detach())}
 
-    cfg, p, x, ep_plan = extra["ep"]
+    cfg, p, x, ep_plan, cot = extra["ep"]
     ep_mesh = make_planned_mesh(ep_plan, "cpu", group=dist.group.WORLD)
     moe_a2a.arm_ep(ep_mesh, "data", None, plan=ep_plan)
     try:
@@ -138,6 +141,18 @@ def _port_cases(plan, extra):
         with torch.no_grad():
             y, aux = L.moe_layer(p, x[r:r + 1], cfg)
         mine["ep"] = (r, y, aux, moe_a2a._EP_STATE["a2a_order"])
+        # the backward: every process runs it (its all-to-alls' transposes
+        # are collectives); each keeps its own rank's gradients
+        pg = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xg = x[r:r + 1].clone().requires_grad_()
+        yg, auxg = L.moe_layer(pg, xg, cfg)
+        ((yg * cot[r:r + 1]).sum() + auxg).backward()
+        own = slice(None) if r % 2 else slice(r, r + 1)
+        mine["ep_grad"] = (r, xg.grad, pg["router"].grad,
+                           {k: pg[k].grad[own] for k in ("w1", "w3", "w2")},
+                           {k: bool(pg[k].grad.count_nonzero()
+                                    > pg[k].grad[own].count_nonzero())
+                            for k in ("w1", "w3", "w2")})
     finally:
         moe_a2a.clear_ep()
     xc = torch.tensor(extra["compression"])
@@ -281,12 +296,17 @@ def _port_inputs(rng):
     ep_plan = PlanCompiler(fabric=fab, seed=0, device="cpu").compile(
         probe_fabric(fab, seed=0), serve_mix(1e6, moe=True), mesh_shape=(N,),
         axis_names=("data",))
+    cot = torch.randn(x.shape, generator=gen)
     moe_a2a.arm_ep(make_planned_mesh(ep_plan, "cpu"), "data", None,
                    plan=ep_plan)
     try:
         with torch.no_grad():
             y, aux = moe_a2a.moe_a2a(p, x, cfg)
         order = moe_a2a._EP_STATE["a2a_order"]
+        pg = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xg = x.clone().requires_grad_()
+        yg, auxg = moe_a2a.moe_a2a(pg, xg, cfg)
+        ((yg * cot).sum() + auxg).backward()
     finally:
         moe_a2a.clear_ep()
     assert order is not None and list(order) != list(range(N))
@@ -294,9 +314,10 @@ def _port_inputs(rng):
     xc = (rng.standard_normal((N, 100)) * np.logspace(-3, 0, N)[:, None]
           ).astype(np.float32)
     mesh = make_mesh((N,), ("data",), device="cpu")
-    extra = {"pipeline": (ws, xs), "ep": (cfg, p, x, ep_plan),
+    extra = {"pipeline": (ws, xs), "ep": (cfg, p, x, ep_plan, cot),
              "compression": xc}
     virtual = {"pipeline": (w.grad, loss.detach()), "ep": (y, aux, order),
+               "ep_grad": (xg.grad, {k: t.grad for k, t in pg.items()}),
                "compression": compressed_psum(torch.tensor(xc), mesh)}
     return extra, virtual
 
@@ -316,6 +337,20 @@ def _check_port_cases(got, virtual):
     assert all(r[3] == a2a_order for r in ranks)
     assert torch.equal(torch.cat([r[1] for r in ranks]), y)
     assert all(torch.equal(r[2], aux) for r in ranks)
+    # the backward over the group: each process's input rows and experts'
+    # gradients are the virtual mesh's bit for bit, and it holds no other
+    # expert's; the router's, each rank's own, sum to the virtual mesh's
+    # (one graph summing them in its own order: within f32 rounding)
+    gx, gp = virtual["ep_grad"]
+    ranks = sorted(got["ep_grad"], key=lambda g: g[0])
+    assert [r[0] for r in ranks] == list(range(N))
+    assert torch.equal(torch.cat([r[1] for r in ranks]), gx)
+    for k in ("w1", "w3", "w2"):
+        assert torch.equal(torch.cat([r[3][k] for r in ranks]), gp[k]), k
+        assert not any(r[4][k] for r in ranks), k
+    router = torch.stack([r[2] for r in ranks]).sum(0)
+    torch.testing.assert_close(router, gp["router"], rtol=1e-5, atol=1e-7)
+    assert not torch.equal(router, N * gp["router"])
     rows = sorted(got["compression"], key=lambda g: g[0])
     assert all(torch.equal(row, virtual["compression"][slot])
                for slot, row in rows)

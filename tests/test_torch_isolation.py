@@ -136,7 +136,8 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b"])
 def test_non_ssm_families_name_their_roadmap_item(arch):
     """MoE, the last family to be ported, gives the port's decoder; what
-    it still cannot do, ``train``, names its ROADMAP item."""
+    it still cannot do, ``train`` its MLA on a model axis, names its
+    ROADMAP item."""
     from repro_torch.cli import main
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
@@ -144,9 +145,9 @@ def test_non_ssm_families_name_their_roadmap_item(arch):
 
     model = get_model(get_config(arch).smoke(), device="cpu")
     assert type(model) is DecoderLM and model.cfg.use_mla and model.n_head == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 18"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 23"):
         main(["train", "--arch", arch, "--smoke", "--device", "cpu",
-              "--reorder", "none"])
+              "--mesh", "2x2", "--reorder", "none"])
 
 
 @pytest.mark.parametrize("arch,cls", [

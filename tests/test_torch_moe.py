@@ -371,20 +371,33 @@ def test_moe_a2a_matches_dense_on_the_virtual_mesh():
 
 
 def test_ep_refuses_a_group_backed_mesh_and_a_second_axis():
-    """A group-backed mesh arms (the EP all-to-all over processes runs in
-    ``tests/test_torch_group.py``'s spawn), and its path refuses a layer
-    under grad before any exchange (item 18); a second axis is refused."""
+    """A group-backed mesh arms (its path runs forward and backward in
+    ``tests/test_torch_group.py``'s spawn).  Of the second axes, a model
+    axis is taken: the layer on a ``(2, 2)`` mesh, its weights whole on
+    every model rank, gives ``moe_dense``'s output at the capacity factor
+    E/K (``tests/test_torch_moe_train.py`` holds the sharded layer and its
+    gradients).  A pod axis is refused naming item 24 (the experts'
+    gradients need a pod-axis all-reduce), any other axis in words."""
+    from repro_torch.parallel.tensor import TensorParallel
+
     group_mesh = PlannedMesh(order=tuple(range(8)), shape=(8,), axis_names=("data",),
                              device=torch.device("cpu"), group=object())
     moe_a2a.arm_ep(group_mesh)
     gcfg = dataclasses.replace(get_config("dbrx-132b").smoke(), n_experts=8)
     assert moe_a2a.ep_armed(gcfg) and moe_a2a._EP_STATE["mesh"] is group_mesh
-    gp = L.init_from_spec(torch.Generator(), L.moe_spec(gcfg), torch.float32)
-    gx = torch.zeros(1, 4, gcfg.d_model, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        L.moe_layer(gp, gx, gcfg)
-    cfg = dataclasses.replace(get_config("dbrx-132b").smoke(), n_experts=4)
-    moe_a2a.arm_ep(make_mesh((2, 2), ("data", "model"), device="cpu"))
-    p = L.init_from_spec(torch.Generator(), L.moe_spec(cfg), torch.float32)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        L.moe_layer(p, torch.zeros(2, 4, cfg.d_model), cfg)
+    cfg = dataclasses.replace(get_config("dbrx-132b").smoke(), n_experts=4,
+                              capacity_factor=2.0)
+    p = L.init_from_spec(torch.Generator().manual_seed(0), L.moe_spec(cfg),
+                         torch.float32)
+    x = torch.randn(2, 4, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    for shape, axes, match in (((2, 2, 1), ("pod", "data", "model"), "item 24"),
+                               ((2, 2), ("data", "stage"), "a model axis only")):
+        moe_a2a.arm_ep(make_mesh(shape, axes, device="cpu"))
+        with pytest.raises(NotImplementedError, match=match):
+            L.moe_layer(p, x, cfg)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    moe_a2a.arm_ep(mesh)
+    assert moe_a2a._EP_STATE["tp"] == "model"
+    y, _ = L.moe_layer(p, x, cfg, tp=TensorParallel(mesh, None))
+    torch.testing.assert_close(y, L.moe_dense(p, x, cfg)[0], atol=1e-5,
+                               rtol=1e-5)

@@ -297,7 +297,7 @@ def test_jit_train_step_takes_the_references_signature(qwen):
 
 @pytest.mark.parametrize("arch,item", [("rwkv6-1.6b", "item 20"),
                                        ("recurrentgemma-9b", "item 21"),
-                                       ("dbrx-132b", "item 18")])
+                                       ("deepseek-v2-236b", "item 23")])
 def test_families_without_a_tp_forward_name_their_item(arch, item):
     model = get_model(get_config(arch).smoke(), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
