@@ -242,6 +242,32 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
     processes, each process's input, router and expert gradients held to
     the virtual mesh's (``EP_GROUP_GRAD_BOUND``; the controls: the next
     rank's gradients, a router sum missing one process).
+20. MoE training where the data axis does not divide the experts, and a
+    wrapped session: (a) ``train --arch dbrx-132b --smoke --mesh 8`` (4
+    smoke experts: EP cannot arm, the data-parallel step on
+    ``moe_dense``), each step's loss printed, ``peer_ring`` launches held
+    to buckets x steps over every leaf, no ``fused_add`` launch and no
+    all-to-all record; then the published dbrx-132b cut to one block on
+    ``--mesh 3``, whose memory the command reckons first: where the
+    reckoning fits the card it runs ``MOE_DP_STEPS`` steps (peak memory
+    beside the reckoning), else it refuses, and the phase holds the
+    outcome to the reckoning; the same command with
+    ``MOE_DP_MID_EXPERTS`` experts, which fits, holds the reckoning where
+    the step runs: its peak lies between the state (weights, moments, the
+    ranks' gradient buffers) and the reckoned total plus
+    ``MOE_DP_ACT_BYTES`` of activations; (c) one published dbrx MoE layer
+    on 3 data ranks of 3 x 256 tokens, ``moe_dense_ranks`` forward and
+    backward against ``moe_dense`` on the global batch: outputs, the
+    input's and the summed ranks' gradients within ``MOE_DP_LAYER_BOUND``
+    of their largest entry, the aux within ``MOE_DP_AUX_BOUND`` (the
+    controls, which must fail: the mean of the ranks' own aux terms, the
+    gradients with one rank left out); (b) inside ``Session.wrap()`` of a session
+    planned with ``moe=True`` for 4 ranks, ``arm_ep`` with no plan arms the
+    plan's all-to-all order (its entry's ``local_perm``), and one
+    full-width dbrx MoE layer on 8 x 256 tokens armed so is bit for bit
+    the layer armed with ``plan=``; inside the wrap of a session planned at
+    ``(16, 16)``, ``make_production_mesh()`` is the plan's order and
+    allocates nothing on the card.
 
 Phase 4 also holds the smoke ``recurrentgemma-9b`` (a group and a tail,
 at P > W and P == W) and ``whisper-small`` in f32 on the card: flash
@@ -454,6 +480,38 @@ MOE_TRAIN_CLI = ["train", "--arch", MOE_ARCH, "--mesh", str(MOE_TRAIN_RANKS),
                  "--reorder", "simulate", "--steps", str(MOE_TRAIN_STEPS)]
 MOE_TP_ROWS, MOE_TP_SEQ, MOE_MLA_SEQ = 8, 256, 32
 MOE_TP_BOUND, MOE_MLA_BOUND, EP_GROUP_GRAD_BOUND = 0.03, 0.03, 0.03
+# MoE training where the data axis does not divide the experts (phase 20):
+# the smoke dbrx (4 experts) on 8 data ranks for MOE_DP_SMOKE_STEPS steps;
+# the published dbrx cut to MOE_TRAIN_DEPTH block on MOE_DP_RANKS data ranks,
+# one 64-token row a rank, MOE_DP_STEPS steps where its reckoning fits
+MOE_DP_SMOKE_STEPS, MOE_DP_RANKS, MOE_DP_STEPS = 4, 3, 2
+MOE_DP_SMOKE_CLI = ["train", "--arch", MOE_ARCH, "--smoke", "--mesh", "8",
+                    "--batch", "8", "--seq", "64", "--lr", "3e-3",
+                    "--reorder", "simulate",
+                    "--steps", str(MOE_DP_SMOKE_STEPS)]
+MOE_DP_CLI = ["train", "--arch", MOE_ARCH, "--mesh", str(MOE_DP_RANKS),
+              "--batch", str(MOE_DP_RANKS), "--seq", "64",
+              "--reorder", "simulate", "--steps", str(MOE_DP_STEPS)]
+# the reckoning held where the fallback runs: the published dbrx widths at
+# MOE_TRAIN_DEPTH block with MOE_DP_MID_EXPERTS experts (which 3 does not
+# divide either), MOE_DP_CLI's run; its peak must lie between the state the
+# step holds (weights, moments, the ranks' gradient buffers) and the
+# reckoned total plus MOE_DP_ACT_BYTES of activations (192 tokens: the f32
+# logits over 100,352 and their gradient 0.15 GB, one block's activations
+# under 0.1 GB; the allocator's rounding)
+MOE_DP_MID_EXPERTS, MOE_DP_ACT_BYTES = 8, 2e9
+# (c) the fallback's layer at full width: one published dbrx MoE layer on
+# MOE_DP_RANKS data ranks of MOE_DP_LAYER_ROWS // MOE_DP_RANKS rows x
+# MOE_TP_SEQ tokens at the published capacity factor, moe_dense_ranks
+# forward and backward against moe_dense on the global batch; outputs and
+# gradients relative to their largest entry, the aux relative to itself.
+# The bounds lie between the sound readings and their controls' (PERF.md
+# section 6): a mean of the ranks' own aux terms, and the gradients summed
+# over every rank but the last
+MOE_DP_LAYER_ROWS = 9
+MOE_DP_LAYER_BOUND, MOE_DP_AUX_BOUND = 0.02, 1e-5
+# the wrapped session's EP ranks (a 4-node datacenter, planned with moe=True)
+WRAP_EP_RANKS = 4
 # compression: error feedback over COMP_STEPS steps at one bucket's width
 COMP_STEPS = 50
 # the solver evaluator: a SOLVER_NODES-node datacenter's ring cost matrix at
@@ -3029,9 +3087,11 @@ def _cut_config(depth, dtype, arch=TRAIN_ARCH):
     return base, get
 
 
-def _tp_run(argv) -> dict:
+def _tp_run(argv, refusal: str = "") -> dict:
     """One train command in process, launch counts zeroed just before and
-    read just after, its checkpoint in a temporary directory."""
+    read just after, its checkpoint in a temporary directory.  Given
+    ``refusal``, a ``ValueError`` whose words hold it is the command's
+    outcome (its ``refusal``, no report) rather than a failure."""
     import contextlib
     import io
     import shutil
@@ -3044,6 +3104,7 @@ def _tp_run(argv) -> dict:
     counted = _counted()
     ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_tp_")
     buf = io.StringIO()
+    refused, rc_main = None, None
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3051,7 +3112,12 @@ def _tp_run(argv) -> dict:
             fn.launches = 0
         t0 = time.monotonic()
         with contextlib.redirect_stdout(buf):
-            rc_main = cli.main(list(argv) + ["--ckpt-dir", ckpt_dir])
+            try:
+                rc_main = cli.main(list(argv) + ["--ckpt-dir", ckpt_dir])
+            except ValueError as e:
+                if not refusal or refusal not in str(e):
+                    raise
+                refused = str(e)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = {name: fn.launches for name, fn in counted.items()}
@@ -3062,12 +3128,15 @@ def _tp_run(argv) -> dict:
     for line in out.splitlines():
         if not line.startswith("[train] step"):
             _say("cli | " + line[:600])
-    if rc_main != 0:
-        raise AssertionError(f"python -m repro_torch {' '.join(argv)} exited "
-                             f"{rc_main}")
-    report = json.loads(out.split("[train] report ")[1].splitlines()[0])
-    return {"report": report, "launches": launches, "peak_mem_gb": peak_gb,
-            "wall_s": wall}
+    res = {"report": None, "refusal": refused, "launches": launches,
+           "peak_mem_gb": peak_gb, "wall_s": wall, "stdout": out}
+    if refused is None:
+        if rc_main != 0:
+            raise AssertionError(f"python -m repro_torch {' '.join(argv)} "
+                                 f"exited {rc_main}")
+        res["report"] = json.loads(
+            out.split("[train] report ")[1].splitlines()[0])
+    return res
 
 
 def _tp_profiled_step(card: str) -> dict:
@@ -3661,6 +3730,408 @@ def train_moe_full_width(seed: int, card: str) -> dict:
            "reckon": reckon, "host": room,
            "phase_s": time.monotonic() - t_phase, "card": card}
     _say("moe train " + json.dumps(res, default=float))
+    return res
+
+
+def _wrapped_ep_layer(seed: int, card: str) -> dict:
+    """Phase 20 (b), the EP half: a session planned with ``moe=True`` for
+    ``WRAP_EP_RANKS`` ranks (no mesh shape, so the order is the entry's
+    ``local_perm``, as the reference's wrap test reads it); inside its
+    ``wrap()`` an unmodified ``arm_ep`` call arms that order, and one
+    full-width dbrx MoE layer run so is bit for bit the layer armed with
+    ``plan=``."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import moe_a2a
+    from repro_torch.session import Session, SessionConfig
+
+    cfg = get_config(MOE_ARCH)
+    scfg = SessionConfig.from_dict({
+        "fabric": {"kind": "datacenter", "nodes": WRAP_EP_RANKS,
+                   "scramble_seed": 1},
+        "solver": {"budget": {"iters": 80, "chains": 2}},
+        "payload_bytes": EP_PAYLOAD, "moe": True})
+    p = _ep_layer(cfg, seed, range(cfg.n_experts))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 20)
+    x = torch.randn((MOE_TP_ROWS, MOE_TP_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(getattr(torch, cfg.dtype))
+    mesh = make_mesh((WRAP_EP_RANKS,), ("data",), device="cuda")
+    rec = obs.recorder()
+    was, before = rec.enabled, rec.captured
+    rec.enabled = True
+    try:
+        with Session(scfg) as s:
+            plan = s.plan()
+            entry = max((e for (op, _b, grp), e in plan.entries.items()
+                         if op == "all-to-all" and len(grp) == WRAP_EP_RANKS),
+                        key=lambda e: e.size_bytes)
+            with s.wrap(), torch.no_grad():
+                moe_a2a.arm_ep(mesh, "data", None)      # no plan passed
+                wrapped = moe_a2a._EP_STATE["a2a_order"]
+                y_w, aux_w = L.moe_layer(p, x, cfg)
+            moe_a2a.clear_ep()
+            with torch.no_grad():
+                moe_a2a.arm_ep(mesh, "data", None, plan=plan)
+                explicit = moe_a2a._EP_STATE["a2a_order"]
+                y_e, aux_e = L.moe_layer(p, x, cfg)
+            torch.cuda.synchronize()
+        records = rec.trace().records
+        ops = [r.op for r in records[len(records) - (rec.captured - before):]]
+    finally:
+        moe_a2a.clear_ep()
+        rec.enabled = was
+    local = tuple(int(i) for i in entry.local_perm)
+    res = {"wrapped_order": list(wrapped), "explicit_order": list(explicit),
+           "entry_local_perm": list(local), "entry_perm": list(entry.perm),
+           "bit_equal": bool(torch.equal(y_w, y_e)
+                             and torch.equal(aux_w, aux_e)),
+           "a2a_records": ops.count("all-to-all"),
+           "output_max_abs": float(y_e.float().abs().max()), "card": card}
+    if wrapped != local or explicit != local:
+        raise AssertionError(f"wrapped arm_ep: {res}")
+    if not res["bit_equal"] or res["a2a_records"] != 4:
+        raise AssertionError(f"wrapped EP layer: {res}")
+    return res
+
+
+def _wrapped_production_mesh(card: str) -> dict:
+    """Phase 20 (b), the mesh half: a session planned at the production
+    shape ``(16, 16)`` on the simulated fleet (one small request: the mesh
+    assignment is what this reads); inside ``wrap()``,
+    ``make_production_mesh()`` is the plan's order on the card, and the
+    card's allocated bytes do not move."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.plan import CollectiveRequest, JobMix
+    from repro_torch.session import Session, SessionConfig
+
+    scfg = SessionConfig.from_dict({
+        "fabric": {"kind": "tpu-fleet", "n_pods": 1, "pod_shape": [16, 16],
+                   "scramble_seed": 0},
+        "mesh": {"shape": [16, 16], "axis_names": ["data", "model"]},
+        "probe": {"n_probes": 4},
+        "solver": {"budget": {"iters": 20, "chains": 1}},
+        "payload_bytes": 1e6})
+    with Session(scfg) as s:
+        plan = s.plan(mix=JobMix((CollectiveRequest("all-reduce", 1e6,
+                                                    group=(0, 1)),)))
+        want = tuple(int(i) for i in plan.mesh_plan.flat)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        with s.wrap():
+            mesh = mesh_mod.make_production_mesh()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+    res = {"order_is_plans": mesh.order == want, "shape": list(mesh.shape),
+           "axis_names": list(mesh.axis_names), "device": str(mesh.device),
+           "identity": mesh.order == tuple(range(256)),
+           "allocated_before": before, "allocated_after": after, "card": card}
+    if not res["order_is_plans"] or res["identity"] or before != after or \
+            mesh.shape != (16, 16) or mesh.device.type != "cuda":
+        raise AssertionError(f"wrapped production mesh: {res}")
+    return res
+
+
+def _dense_ranks_layer(seed: int, card: str) -> dict:
+    """Phase 20 (c): one dbrx-132b MoE layer at published widths (16
+    experts top-4, the published capacity factor) on ``MOE_DP_RANKS``
+    data ranks of ``MOE_DP_LAYER_ROWS // MOE_DP_RANKS`` rows x
+    ``MOE_TP_SEQ`` tokens: ``moe_dense_ranks`` forward and backward, each
+    rank its own view of the layer, its gradient a row of a ``[d, ...]``
+    buffer as in the step, against ``moe_dense`` on the global batch.
+    The outputs, the input's gradient and the ranks' summed gradients of
+    the experts and the router, each relative to its largest entry; the
+    aux relative to the reference's.  The controls: the mean of the
+    ranks' own aux terms (each rank's routing shares), and the gradients
+    summed over every rank but the last."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = get_config(MOE_ARCH)
+    d = MOE_DP_RANKS
+    rows = MOE_DP_LAYER_ROWS // d
+    p = _ep_layer(cfg, seed, range(cfg.n_experts))
+    if set(p) != {"router", "w1", "w3", "w2"}:
+        raise AssertionError(f"moe dense (c): layer leaves {sorted(p)}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 21)
+    x = torch.randn((MOE_DP_LAYER_ROWS, MOE_TP_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(getattr(torch, cfg.dtype))
+    cot = torch.randn(x.shape, generator=gen, device="cuda")
+    names = ("w1", "w3", "w2", "router")
+    # the reference's fallback: moe_dense on the global batch
+    for k in names:
+        p[k].requires_grad_()
+    xg = x.clone().requires_grad_()
+    y, aux = L.moe_dense(p, xg, cfg)
+    ((y.float() * cot).sum() + aux).backward()
+    want = {k: p[k].grad for k in names}
+    want["input"] = xg.grad
+    y, aux = y.detach(), aux.detach()
+    del xg
+    base = {k: p[k].detach() for k in names}
+    del p
+    _free()
+    # the step's fallback: each rank its own view, its gradient a row of
+    # one [d, ...] buffer, the ranks in one graph
+    bufs = {k: torch.zeros((d, *base[k].shape), dtype=base[k].dtype,
+                           device="cuda") for k in names}
+    views, xs = [], []
+    for r in range(d):
+        v = {}
+        for k in names:
+            v[k] = base[k].detach().requires_grad_()
+            v[k].grad = bufs[k][r]          # backward accumulates in place
+        views.append(v)
+        xs.append(x[r * rows:(r + 1) * rows].clone().requires_grad_())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ys, aux_r = L.moe_dense_ranks(views, xs, cfg)
+    (sum((yr.float() * cot[r * rows:(r + 1) * rows]).sum()
+         for r, yr in enumerate(ys)) + aux_r).backward()
+    torch.cuda.synchronize()
+    layer_s = time.monotonic() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del views
+
+    def summed(k, ranks):
+        acc = bufs[k][0].float()
+        for r in range(1, ranks):
+            acc += bufs[k][r]
+        return acc
+
+    rel = {"output": _rel(torch.cat([yr.detach() for yr in ys]), y),
+           "input_grad": _rel(torch.cat([xr.grad for xr in xs]),
+                              want["input"])}
+    rel.update({f"{k}_grad": _rel(summed(k, d), want[k]) for k in names})
+    aux_rel = abs(aux_r.item() - aux.item()) / abs(aux.item())
+    control_grad = max(_rel(summed(k, d - 1), want[k]) for k in names)
+    # the control aux: each rank's term over its own routing shares
+    with torch.no_grad():
+        terms = []
+        for xr in xs:
+            _, _, me, ce = L._router_stats(base, L._dispatch_groups(xr, cfg),
+                                           cfg)
+            terms.append(cfg.n_experts * torch.sum(me * ce))
+        control_aux = abs(torch.stack(terms).mean().item() - aux.item()) \
+            / abs(aux.item())
+    res = {"ranks": d, "tokens": [MOE_DP_LAYER_ROWS, MOE_TP_SEQ],
+           "capacity_factor": cfg.capacity_factor, "relative": rel,
+           "worst": max(rel.values()), "aux": aux.item(),
+           "aux_relative": aux_rel, "control_aux_relative": control_aux,
+           "control_grad_one_rank_left_out": control_grad,
+           "bound": MOE_DP_LAYER_BOUND, "aux_bound": MOE_DP_AUX_BOUND,
+           "peak_mem_gb": peak_gb, "layer_s_host_clock": layer_s,
+           "card": card}
+    del base, bufs, want, ys, xs, y, x, cot
+    _free()
+    return res
+
+
+def _memory_line(run: dict) -> dict:
+    """The data-parallel MoE step's reckoning, as the train command
+    printed it (``[train] memory {...}``)."""
+    line = run["stdout"].split("[train] memory ")[1].splitlines()[0]
+    return json.loads(line)
+
+
+def train_moe_dense_fallback(seed: int, card: str) -> dict:
+    """Phase 20: MoE training where the data axis does not divide the
+    experts (the reference's fallback to ``moe_dense``): the smoke run,
+    the published run's reckoning, a run that fits held to its
+    reckoning, the fallback's layer at published widths; then a wrapped
+    session on the card (see the module docstring)."""
+    import math
+
+    from repro_torch import configs, obs
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.train import partition_tree
+    from repro_torch.train.sharded_step import param_shapes
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.monotonic()
+    # (a) the smoke dbrx on 8 data ranks: 4 experts, EP cannot arm
+    rec = obs.recorder()
+    was, before = rec.enabled, rec.captured
+    rec.enabled = True
+    try:
+        smoke = _tp_run(MOE_DP_SMOKE_CLI)
+        records = rec.trace().records
+        ops = [r.op for r in records[len(records) - (rec.captured - before):]]
+    finally:
+        rec.enabled = was
+    smoke["a2a_records"] = ops.count("all-to-all")
+    rep = smoke["report"]
+    scfg = dataclasses.replace(get_config(MOE_ARCH).smoke(), vocab_size=2048)
+    leaves = tree_leaves(param_shapes(get_model(scfg, device="cpu")))
+    buckets = len(partition_tree(leaves, rep["bucket_bytes"]))
+    want_ring = buckets * MOE_DP_SMOKE_STEPS
+    every = sum(t.numel() * t.element_size() for t in leaves)
+    _say(f"moe dense (a): {MOE_ARCH} smoke on --mesh 8, losses "
+         f"{[round(v, 4) for v in rep['losses']]}; peer_ring "
+         f"{smoke['launches']['peer_ring']} = {buckets} buckets x "
+         f"{MOE_DP_SMOKE_STEPS} steps over every leaf ({every} bytes), "
+         f"fused_add {smoke['launches']['fused_add']}, all-to-all records "
+         f"{smoke['a2a_records']} [{card}]")
+    if len(rep["losses"]) != MOE_DP_SMOKE_STEPS or \
+            not all(math.isfinite(v) for v in rep["losses"]):
+        raise AssertionError(f"moe dense (a): losses {rep['losses']}")
+    if "ep" in rep or rep["dense_moe"]["all_reduce_bytes"] != every or \
+            rep["buckets"] != buckets:
+        raise AssertionError(f"moe dense (a): not the data-parallel step over "
+                             f"every leaf: {rep}")
+    if smoke["launches"]["peer_ring"] != want_ring or \
+            smoke["launches"]["fused_add"] != 0 or smoke["a2a_records"] != 0:
+        raise AssertionError(f"moe dense (a): launches {smoke['launches']}, "
+                             f"{smoke['a2a_records']} all-to-all records; "
+                             f"reckoned peer_ring {want_ring}, 0 and 0")
+    _free()
+    # (a) the published dbrx at one block on 3 data ranks: the reckoning
+    # decides whether it runs
+    base, cut = _cut_config(MOE_TRAIN_DEPTH, None, MOE_ARCH)
+    configs.get_config = cut
+    try:
+        pub = _tp_run(MOE_DP_CLI, refusal="reckoned")
+    finally:
+        configs.get_config = base
+    _free()
+    mem = _memory_line(pub)
+    fits = mem["total"] <= mem["card_bytes"]
+    published = {"memory": mem, "fits": fits, "refusal": pub["refusal"],
+                 "peak_mem_gb": pub["peak_mem_gb"], "wall_s": pub["wall_s"],
+                 "launches": pub["launches"]}
+    if fits != (pub["refusal"] is None):
+        raise AssertionError(f"moe dense (a): the reckoning ({mem['total']} "
+                             f"of {mem['card_bytes']} bytes) predicted "
+                             f"{'a run' if fits else 'a refusal'}: "
+                             f"{published}")
+    if fits:
+        prep = pub["report"]
+        want_pub = prep["buckets"] * MOE_DP_STEPS
+        published.update(losses=prep["losses"],
+                         step_ms_host_clock=[v * 1e3 for v in prep["step_s"]],
+                         buckets=prep["buckets"],
+                         bucket_bytes=prep["bucket_bytes"],
+                         checkpoint_bytes=prep["checkpoint"]["bytes"])
+        if len(prep["losses"]) != MOE_DP_STEPS or \
+                not all(math.isfinite(v) for v in prep["losses"]) or \
+                pub["launches"]["peer_ring"] != want_pub or \
+                pub["peak_mem_gb"] * 1e9 > mem["card_bytes"]:
+            raise AssertionError(f"moe dense (a) published: {published}")
+        _say(f"moe dense (a): {MOE_ARCH} at {MOE_TRAIN_DEPTH} block on --mesh "
+             f"{MOE_DP_RANKS} ran, as its reckoning of "
+             f"{mem['total'] / 1e9:.2f} "
+             f"GB (weights {mem['weights'] / 1e9:.2f}, moments "
+             f"{mem['moments'] / 1e9:.2f}, {MOE_DP_RANKS} ranks' gradient "
+             f"buffers {mem['gradients'] / 1e9:.2f}, their mean "
+             f"{mem['mean'] / 1e9:.2f}, in flight "
+             f"{mem['in_flight'] / 1e9:.2f}) against the card's "
+             f"{mem['card_bytes'] / 1e9:.2f} GB predicted: losses "
+             f"{[round(v, 4) for v in prep['losses']]}, step ms (host clock) "
+             f"{[round(v * 1e3, 1) for v in prep['step_s']]}, peak "
+             f"{pub['peak_mem_gb']:.2f} GB, peer_ring "
+             f"{pub['launches']['peer_ring']} = {prep['buckets']} buckets x "
+             f"{MOE_DP_STEPS} [{card}]")
+    else:
+        _say(f"moe dense (a): {MOE_ARCH} at {MOE_TRAIN_DEPTH} block on --mesh "
+             f"{MOE_DP_RANKS} refused, as its reckoning of "
+             f"{mem['total'] / 1e9:.2f} GB against the card's "
+             f"{mem['card_bytes'] / 1e9:.2f} GB predicted: {pub['refusal']} "
+             f"[{card}]")
+    # (a) the reckoning held where the fallback runs: the same command with
+    # MOE_DP_MID_EXPERTS experts, its peak against the reckoned bytes
+    def mid(name):
+        cfg = cut(name)
+        return dataclasses.replace(cfg, n_experts=MOE_DP_MID_EXPERTS) \
+            if name == MOE_ARCH else cfg
+
+    configs.get_config = mid
+    try:
+        run = _tp_run(MOE_DP_CLI)
+    finally:
+        configs.get_config = base
+    _free()
+    mmem, mrep = _memory_line(run), run["report"]
+    state = mmem["weights"] + mmem["moments"] + mmem["gradients"]
+    peak = run["peak_mem_gb"] * 1e9
+    reckoned = {"memory": mmem, "state": state, "peak_bytes": peak,
+                "upper": mmem["total"] + MOE_DP_ACT_BYTES,
+                "losses": mrep["losses"], "buckets": mrep["buckets"],
+                "launches": run["launches"], "wall_s": run["wall_s"],
+                "step_ms_host_clock": [v * 1e3 for v in mrep["step_s"]],
+                "checkpoint_bytes": mrep["checkpoint"]["bytes"]}
+    _say(f"moe dense (a): {MOE_ARCH} at {MOE_TRAIN_DEPTH} block with "
+         f"{MOE_DP_MID_EXPERTS} experts on --mesh {MOE_DP_RANKS}: peak "
+         f"{peak / 1e9:.3f} GB against the state {state / 1e9:.3f} GB "
+         f"(weights, moments, {MOE_DP_RANKS} gradient buffers) and the "
+         f"reckoned {mmem['total'] / 1e9:.3f} GB (mean "
+         f"{mmem['mean'] / 1e9:.3f}, in flight {mmem['in_flight'] / 1e9:.3f})"
+         f" + {MOE_DP_ACT_BYTES / 1e9:.0f} GB of activations; losses "
+         f"{[round(v, 4) for v in mrep['losses']]}, peer_ring "
+         f"{run['launches']['peer_ring']} = {mrep['buckets']} buckets x "
+         f"{MOE_DP_STEPS} [{card}]")
+    if mmem["total"] > mmem["card_bytes"] or \
+            len(mrep["losses"]) != MOE_DP_STEPS or \
+            not all(math.isfinite(v) for v in mrep["losses"]) or \
+            run["launches"]["peer_ring"] != mrep["buckets"] * MOE_DP_STEPS:
+        raise AssertionError(f"moe dense (a) with {MOE_DP_MID_EXPERTS} "
+                             f"experts: {reckoned}")
+    if not state <= peak <= reckoned["upper"]:
+        raise AssertionError(f"moe dense (a): the peak {peak} bytes lies "
+                             f"outside the reckoning's [{state}, "
+                             f"{reckoned['upper']}]: {reckoned}")
+    # (c) the fallback's layer at published widths against moe_dense
+    layer_dp = _dense_ranks_layer(seed, card)
+    _say(f"moe dense (c): dbrx layer on {MOE_DP_RANKS} ranks x "
+         f"{MOE_DP_LAYER_ROWS // MOE_DP_RANKS} rows x {MOE_TP_SEQ} tokens "
+         f"against moe_dense on the global batch: relative "
+         f"{json.dumps(layer_dp['relative'])} (bound {MOE_DP_LAYER_BOUND}; "
+         f"control, one rank left out, "
+         f"{layer_dp['control_grad_one_rank_left_out']:.4g}); aux "
+         f"{layer_dp['aux']:.6f} relative {layer_dp['aux_relative']:.3g} "
+         f"(bound {MOE_DP_AUX_BOUND}; control, the ranks' own terms, "
+         f"{layer_dp['control_aux_relative']:.3g}); peak "
+         f"{layer_dp['peak_mem_gb']:.2f} GB [{card}]")
+    if layer_dp["worst"] > MOE_DP_LAYER_BOUND or \
+            layer_dp["aux_relative"] > MOE_DP_AUX_BOUND:
+        raise AssertionError(f"moe dense (c): {layer_dp}")
+    if layer_dp["control_grad_one_rank_left_out"] <= MOE_DP_LAYER_BOUND or \
+            layer_dp["control_aux_relative"] <= MOE_DP_AUX_BOUND:
+        raise AssertionError(f"moe dense (c): a control passed its bound: "
+                             f"{layer_dp}")
+    # (b) a wrapped session on the card
+    layer = _wrapped_ep_layer(seed, card)
+    _free()
+    _say(f"moe dense (b): inside wrap(), arm_ep with no plan armed "
+         f"{layer['wrapped_order']} (the entry's local_perm "
+         f"{layer['entry_local_perm']}, its nodes {layer['entry_perm']}; "
+         f"plan= armed {layer['explicit_order']}); the dbrx layer on "
+         f"{MOE_TP_ROWS} x {MOE_TP_SEQ} tokens bit for bit: "
+         f"{layer['bit_equal']} ({layer['a2a_records']} all-to-all records)")
+    prod = _wrapped_production_mesh(card)
+    _say(f"moe dense (b): inside wrap(), make_production_mesh() is the plan's "
+         f"order: {prod['order_is_plans']} ({prod['shape']} "
+         f"{prod['axis_names']} on {prod['device']}); allocated bytes "
+         f"{prod['allocated_before']} -> {prod['allocated_after']}")
+    res = {"smoke": {"losses": rep["losses"], "launches": smoke["launches"],
+                     "peer_ring_reckoned": want_ring, "buckets": buckets,
+                     "a2a_records": smoke["a2a_records"],
+                     "memory": _memory_line(smoke), "wall_s": smoke["wall_s"]},
+           "published": published, "reckoned_run": reckoned,
+           "dense_ranks_layer": layer_dp, "wrapped_layer": layer,
+           "production_mesh": prod, "phase_s": time.monotonic() - t_phase,
+           "card": card}
+    _say("moe dense " + json.dumps(res, default=float))
     return res
 
 
@@ -5069,6 +5540,8 @@ def main(argv=None) -> int:
     _free()
     trained_moe = train_moe_full_width(args.seed, card)
     _free()
+    trained_moe_dense = train_moe_dense_fallback(args.seed, card)
+    _free()
     # each kernel's launches come from the path it carries; the peer ring's
     # from the user's entry point (the hand-wired planned run's beside it)
     paths = {"wkv_chunked": served, "wkv_scan": served, "fused_add": trained,
@@ -5086,6 +5559,10 @@ def main(argv=None) -> int:
                 "counted"]["launches"]["fused_add"]
         if k["name"] == "peer_ring":
             k["launches_moe_train"] = trained_moe["train"]["launches"]["peer_ring"]
+            k["launches_moe_dense_train"] = {
+                "smoke": trained_moe_dense["smoke"]["launches"]["peer_ring"],
+                "published": trained_moe_dense["published"]["launches"][
+                    "peer_ring"]}
         if k["name"] == "fused_add":
             k["launches_moe_tp_layer"] = trained_moe["tp_layer"]["fused_add"]
         if k["name"] in ("fused_add", "peer_ring"):
@@ -5119,7 +5596,8 @@ def main(argv=None) -> int:
         "bench_overlap": bench_overlap["phase_s"],
         "host_commands": host_cmds["phase_s"],
         "tp_train": trained_tp["phase_s"],
-        "moe_train": trained_moe["phase_s"]}))
+        "moe_train": trained_moe["phase_s"],
+        "moe_dense_train": trained_moe_dense["phase_s"]}))
     _say(f"the whole script: {time.monotonic() - t_start:.1f} s (host clock)")
 
     print(json.dumps({"kernels": kernels}))

@@ -51,6 +51,9 @@ __all__ = [
 
 PASS = "equiv"
 
+#: rewrite stages :func:`certify_stages` proves, in application order
+STAGES = ("base", "apply_permutation", "chunk", "fuse_rounds")
+
 #: abstract state: rank -> chunk id -> contributor rank set
 State = Dict[int, Dict[int, FrozenSet[int]]]
 
@@ -359,16 +362,17 @@ def certify_stages(
             "program_fingerprint": prog.fingerprint(),
         })
 
-    run("base", current)
+    base, permuted, chunked, fused = STAGES
+    run(base, current)
     if perm is not None:
         current = apply_permutation(current, perm)
-        run("apply_permutation", current)
+        run(permuted, current)
     if chunk_k > 1:
         current = chunk(current, chunk_k)
-        run("chunk", current)
+        run(chunked, current)
     if fuse:
         current, _ = fuse_rounds(current, verify=False)
-        run("fuse_rounds", current)
+        run(fused, current)
     return out
 
 

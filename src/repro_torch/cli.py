@@ -315,6 +315,16 @@ def train_schedule(lr: float, steps: int):
     return cosine_schedule(lr, WARMUP_STEPS, steps)
 
 
+def device_memory(device) -> Optional[int]:
+    """The card's memory in bytes; None on the CPU, where nothing is
+    refused for memory."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory
+
+
 def cmd_train(args: argparse.Namespace) -> int:
     """``train``: plan, then train over the mesh's virtual ranks.
 
@@ -324,11 +334,16 @@ def cmd_train(args: argparse.Namespace) -> int:
     tensor-parallel, ZeRO-1 step (:mod:`repro_torch.train.sharded_step`):
     every model-axis sum a certified ring over the model group's slots,
     the gradients all-reduced over the data-parallel ranks.  An MoE arch
-    on 2 or more data ranks runs the EP step
+    on 2 or more data ranks that divide its experts runs the EP step
     (:class:`~repro_torch.train.sharded_step.EPTrainStep`) on ``(data,)``
     or ``(data, model)``: the plan's all-to-all order armed by
     ``configure_sp``, the experts ``E/d`` a data rank, the all-reduce
-    planned on and run over the replicated leaves only.
+    planned on and run over the replicated leaves only.  Where the data
+    axis does not divide the experts, EP cannot arm and the reference
+    trains data-parallel on ``moe_dense``: so does
+    :class:`~repro_torch.train.sharded_step.DenseMoETrainStep`, every
+    leaf all-reduced; its memory is reckoned first, and on the card a
+    reckoning over the card's memory refuses the run.
     """
     import numpy as np
     import torch
@@ -345,7 +360,8 @@ def cmd_train(args: argparse.Namespace) -> int:
     from repro_torch.parallel import moe_a2a
     from repro_torch.parallel.tensor import require_tp_family
     from repro_torch.train import OverlapGradReducer, certified_allreduce
-    from repro_torch.train.sharded_step import expert_leaves, param_shapes
+    from repro_torch.train.sharded_step import (
+        expert_leaves, param_shapes, reckon_dense_moe_memory)
     from repro_torch.tree import tree_leaves
 
     cfg = session_config_from_args(args, workload="train")
@@ -360,20 +376,19 @@ def cmd_train(args: argparse.Namespace) -> int:
         raise ValueError(f"--batch {args.batch} does not split over the "
                          f"{dp} data-parallel ranks of --mesh {args.mesh}")
 
+    # every check below reads the config that runs
     arch = get_config(args.arch)
-    ep = bool(arch.n_experts) and dp > 1
+    if args.smoke:
+        arch = dataclasses.replace(arch.smoke(), vocab_size=2048)
+    moe = bool(arch.n_experts) and dp > 1
+    # EP arms where the data axis divides the experts; elsewhere the
+    # reference's ep_armed is false and its moe_layer runs moe_dense
+    ep = moe and arch.n_experts % dp == 0
     if arch.n_experts and "pod" in axes and dict(zip(axes, shape))["pod"] > 1:
         raise NotImplementedError(
             f"train {arch.name} ({arch.family!r}) on a pod axis: the experts "
             f"are replicated over pods, so their gradients need a pod-axis "
             f"all-reduce of their own, ROADMAP.md §1 item 24")
-    if ep and arch.n_experts % dp:
-        # the dense per-rank step would stack d copies of the experts'
-        # gradients; EP cannot arm
-        raise ValueError(
-            f"{arch.name}'s {arch.n_experts} experts do not split over the "
-            f"{dp} data-parallel ranks of --mesh {args.mesh}: expert "
-            f"parallelism needs a data axis that divides them")
     if arch.family == "encdec":
         # the reference's train builds batches of tokens and labels only
         # (host_batch), and WhisperLM.loss reads batch["frontend_embeds"]
@@ -384,8 +399,6 @@ def cmd_train(args: argparse.Namespace) -> int:
             f"the same missing key)")
     if m > 1:
         require_tp_family(arch)
-    if args.smoke:
-        arch = dataclasses.replace(arch.smoke(), vocab_size=2048)
     model = get_model(arch, device=device)
     shapes = param_shapes(model)
     # the bytes the data axis reduces: under EP the replicated leaves, the
@@ -419,7 +432,7 @@ def cmd_train(args: argparse.Namespace) -> int:
                 entry = plan.lookup("all-reduce", grad_bytes)
                 bucket_bytes = float(cfg.overlap.bucket_bytes or
                                      entry.bucket_bytes or grad_bytes)
-    if (m > 1 or ep) and dp > 1 and reducer is None:
+    if (m > 1 or moe) and dp > 1 and reducer is None:
         reducer = OverlapGradReducer(
             certified_allreduce(dp, bucket_bytes, "ring"),
             bucket_bytes=bucket_bytes, mode=mode,
@@ -429,6 +442,27 @@ def cmd_train(args: argparse.Namespace) -> int:
             certified_allreduce(n, DEFAULT_BUCKET_BYTES, "ring"),
             bucket_bytes=DEFAULT_BUCKET_BYTES, mode=mode,
             use_kernel_add=cfg.overlap.use_kernel_add, transport=transport)
+    memory = None
+    if moe and not ep:
+        memory = reckon_dense_moe_memory(shapes, dp, reducer.bucket_bytes)
+        card = device_memory(device)
+        reckoned = (f"weights {memory['weights']}, AdamW moments "
+                    f"{memory['moments']}, {dp} ranks' gradient buffers "
+                    f"{memory['gradients']}, their mean {memory['mean']}, "
+                    f"gradients in flight {memory['in_flight']}: "
+                    f"{memory['total']} bytes before activations")
+        print(f"[train] {arch.name}'s {arch.n_experts} experts do not split "
+              f"over the {dp} data-parallel ranks: EP cannot arm, so the "
+              f"data-parallel step runs the MoE blocks on moe_dense; memory "
+              f"reckoned: {reckoned}, against "
+              + (f"the card's {card} bytes" if card is not None
+                 else f"no limit on {device}"))
+        print("[train] memory " + json.dumps(dict(memory, card_bytes=card)))
+        if card is not None and memory["total"] > card:
+            raise ValueError(
+                f"train {arch.name} on --mesh {args.mesh}: the data-parallel "
+                f"MoE step's memory is reckoned at {reckoned}, over the "
+                f"card's {card} bytes")
     opt = AdamWConfig(schedule=train_schedule(args.lr, args.steps))
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -437,7 +471,7 @@ def cmd_train(args: argparse.Namespace) -> int:
     configure_sp(arch, mesh, plan=plan)
     try:
         return _train_run(args, arch, model, mesh, plan, reducer, opt, gen, ds,
-                          bucket_bytes, (m, dp, n, axes, ep),
+                          bucket_bytes, (m, dp, n, axes, ep, memory),
                           cfg.overlap.use_kernel_add)
     finally:
         moe_a2a.clear_ep()
@@ -448,7 +482,8 @@ def _train_run(args, arch, model, mesh, plan, reducer, opt, gen, ds,
                bucket_bytes, layout, use_kernel_add: bool) -> int:
     """``train`` past its plan: build the step for the mesh (``layout``:
     the model-axis size, the data-parallel ranks, all ranks, the axis
-    names and whether EP runs) and the arch, run the trainer, print its
+    names, whether EP runs, and the data-parallel MoE step's reckoned
+    memory where it runs) and the arch, run the trainer, print its
     report."""
     from repro_torch.data import batches as mesh_batches
     from repro_torch.parallel import moe_a2a
@@ -458,9 +493,10 @@ def _train_run(args, arch, model, mesh, plan, reducer, opt, gen, ds,
         Trainer, TrainerConfig, init_state, make_overlap_train_step,
         make_train_step, partition_tree)
     from repro_torch.train.sharded_step import (
-        init_sharded_state, make_ep_train_step, make_sharded_train_step)
+        DenseMoETrainStep, init_sharded_state, make_ep_train_step,
+        make_sharded_train_step)
 
-    m, dp, n, axes, ep = layout
+    m, dp, n, axes, ep, memory = layout
     device = model.device
     tp_step = None
     if ep:
@@ -500,6 +536,23 @@ def _train_run(args, arch, model, mesh, plan, reducer, opt, gen, ds,
               f"{reducer.transport}")
         batches = mesh_batches(ds, mesh, batch_spec(mesh))
         moe_a2a.reset_ep_stats()
+    elif memory is not None:
+        tp_step = DenseMoETrainStep(model, opt, mesh, reducer, use_kernel_add)
+        step_fn = tp_step
+        state = init_sharded_state(model, gen, tp_step.layout)
+        buckets = partition_tree(state.params, reducer.bucket_bytes)
+        print(f"[train] {arch.name} on {device}: mesh {args.mesh} "
+              f"({', '.join(axes)}), {dp} data-parallel ranks x "
+              f"{args.batch // dp} x {args.seq} tokens, the MoE blocks on "
+              f"moe_dense with the routing shares averaged over the ranks "
+              f"(the global batch's aux loss)"
+              + (f", model axis {m}" if m > 1 else "")
+              + f"; data-axis all-reduce of every leaf, the experts' "
+              f"included: {memory['weights']} bytes, ring over {dp} ranks "
+              f"{list(reducer.schedule.order)}, {len(buckets)} buckets of "
+              f"{reducer.bucket_bytes:.0f} bytes, transport "
+              f"{reducer.transport}")
+        batches = mesh_batches(ds, mesh, batch_spec(mesh))
     elif m > 1:
         if reducer is not None and reducer.n != dp:
             raise ValueError(f"the data axis's all-reduce spans {reducer.n} "
@@ -582,6 +635,9 @@ def _train_run(args, arch, model, mesh, plan, reducer, opt, gen, ds,
         "plan_digest": plan.fingerprint.digest if plan is not None else None,
         "mesh_order": list(mesh.order), "checkpoint": ck,
     }
+    if memory is not None:
+        summary["dense_moe"] = {"all_reduce_bytes": memory["weights"],
+                                "memory_reckoned": memory}
     if ep:
         summary["ep"] = {
             "order": list(order) if order is not None else None,

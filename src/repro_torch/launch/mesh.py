@@ -20,18 +20,28 @@ This placement is the only one: :mod:`repro_torch.kernels.group_runner`
 runs schedule position ``i`` in the process that holds slot ``i``, as the
 reference's ``shard_map`` runs it on the device at axis index ``i``.
 
+The reference's production meshes have counterparts of the same names:
+:func:`production_shape` (single-pod ``(data=16, model=16)``, multi-pod
+``(pod=2, data=16, model=16)``), :func:`make_production_mesh` (the
+identity order at that shape) and :func:`make_reordered_mesh` (a solved
+``MeshPlan``'s order, the reference's ``devices[plan.flat]``).  Each is
+metadata: a :class:`PlannedMesh` allocates nothing on its device.
+
 A plan without a mesh assignment raises; nothing falls back to an
 unreordered mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Sequence, Tuple
+from typing import Any, Iterator, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["PlannedMesh", "make_mesh", "make_planned_mesh"]
+__all__ = ["PlannedMesh", "make_mesh", "make_planned_mesh",
+           "make_production_mesh", "make_reordered_mesh", "mesh_context",
+           "production_shape"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,21 +114,33 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
                        device=resolve_device(device))
 
 
-def make_planned_mesh(plan, device: Any = "cuda", group=None) -> PlannedMesh:
-    """The mesh of a compiled :class:`~repro_torch.plan.Plan`: its solved
-    ``MeshPlan``'s rank order (the paper's reordered IP list).
+def production_shape(multi_pod: bool = False
+                     ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """The production mesh's shape and axis names: ``(16, 16)`` over
+    ``(data, model)``, or ``(2, 16, 16)`` over ``(pod, data, model)``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return shape, axes
 
-    Virtual ranks on ``device`` by default; with a process ``group``, mesh
-    slot ``i`` is placed on the process at group rank ``order[i]``, and a
-    group of another size than the mesh raises.
-    """
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: Any = "cuda") -> PlannedMesh:
+    """The production mesh in identity order, virtual ranks on ``device``
+    (:meth:`repro_torch.session.Session.wrap` swaps in a planned order)."""
+    return make_mesh(*production_shape(multi_pod), device)
+
+
+def make_reordered_mesh(plan, device: Any = "cuda", group=None) -> PlannedMesh:
+    """The mesh whose rank order is a solved
+    :class:`~repro_torch.core.reorder.MeshPlan`'s: mesh slot ``i`` on rank
+    ``plan.flat[i]``, at ``plan.assignment.shape`` (the paper's reordered
+    IP list).  Virtual ranks on ``device``; with a process ``group``, slot
+    ``i`` on the process at group rank ``plan.flat[i]``, and a group of
+    another size than the plan raises, as the reference's device count
+    must equal the plan's."""
     from repro_torch import resolve_device
 
-    mp = plan.mesh_plan
-    if mp is None:
-        raise ValueError("the plan was compiled without a mesh shape; "
-                         "request one (SessionConfig.mesh.shape)")
-    order = tuple(int(i) for i in mp.flat)
+    order = tuple(int(i) for i in np.asarray(plan.flat).reshape(-1))
     if group is not None:
         import torch.distributed as dist
 
@@ -127,6 +149,24 @@ def make_planned_mesh(plan, device: Any = "cuda", group=None) -> PlannedMesh:
             raise ValueError(f"the group has {size} processes, the planned "
                              f"mesh {len(order)} slots")
     return PlannedMesh(order=order,
-                       shape=tuple(int(s) for s in mp.assignment.shape),
-                       axis_names=tuple(mp.axis_names),
+                       shape=tuple(int(s) for s in plan.assignment.shape),
+                       axis_names=tuple(plan.axis_names),
                        device=resolve_device(device), group=group)
+
+
+def make_planned_mesh(plan, device: Any = "cuda", group=None) -> PlannedMesh:
+    """The mesh of a compiled :class:`~repro_torch.plan.Plan`: its solved
+    ``MeshPlan`` applied by :func:`make_reordered_mesh`.  A plan compiled
+    without a mesh shape raises."""
+    if plan.mesh_plan is None:
+        raise ValueError("the plan was compiled without a mesh shape; "
+                         "request one (SessionConfig.mesh.shape)")
+    return make_reordered_mesh(plan.mesh_plan, device, group)
+
+
+@contextlib.contextmanager
+def mesh_context(mesh) -> Iterator[Any]:
+    """The reference's ``mesh_context`` sets JAX's global mesh.  The port
+    has none: every collective takes its mesh as an argument.  So this
+    yields ``mesh`` and does nothing else."""
+    yield mesh

@@ -7,7 +7,7 @@ partition spec (:class:`MetaSpec`): nothing is allocated, so the
 236B-parameter cells build on any host.  :func:`configure_sp` arms the
 sequence-parallel and expert-parallel contexts as the reference's
 launchers do, and :func:`step_callable` is the function each cell runs.
-The dry-run that lowers these cells is ROADMAP.md §1 item 15.
+The dry run that lowers these cells is ROADMAP.md §1 item 15b.
 """
 
 from __future__ import annotations

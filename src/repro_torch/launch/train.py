@@ -23,15 +23,20 @@ the plan (:meth:`~repro_torch.session.Session.overlap_step`).
 
 Unlike the reference, a mesh that cannot be built raises; training never
 proceeds on an unreordered mesh in place of a planned one.
+``python -m repro_torch.launch.train`` and :func:`default_job_mix` remain
+as the reference's deprecated shims over the CLI's ``train`` and
+:func:`repro_torch.session.train_mix`.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Any
 
 import numpy as np
 
-__all__ = ["apply_planned", "build_mesh", "parse_mesh", "planning_session"]
+__all__ = ["apply_planned", "build_mesh", "default_job_mix", "main",
+           "parse_mesh", "planning_session"]
 
 
 def parse_mesh(s: str):
@@ -40,6 +45,16 @@ def parse_mesh(s: str):
     axes = ("pod", "data", "model")[-len(dims):] if len(dims) == 3 else (
         ("data", "model") if len(dims) == 2 else ("data",))
     return dims, axes
+
+
+def default_job_mix(payload_bytes: float, moe: bool = False):
+    """Deprecated: use :func:`repro_torch.session.train_mix`."""
+    warnings.warn(
+        "repro_torch.launch.train.default_job_mix is deprecated; use "
+        "repro_torch.session.train_mix", DeprecationWarning, stacklevel=2)
+    from repro_torch.session import train_mix
+
+    return train_mix(payload_bytes, moe=moe)
 
 
 def planning_session(args, moe: bool = False, session_config=None):
@@ -119,3 +134,19 @@ def build_mesh(args, mix=None, moe: bool = False, session_config=None,
     with session:
         applied = apply_planned(session, mix=mix, device=device)
     return applied.mesh, applied.plan
+
+
+def main() -> None:
+    """Deprecated entry point: delegates to ``python -m repro_torch train``."""
+    import sys
+
+    warnings.warn(
+        "python -m repro_torch.launch.train is deprecated; use "
+        "`python -m repro_torch train`", DeprecationWarning, stacklevel=2)
+    from repro_torch.cli import main as cli_main
+
+    raise SystemExit(cli_main(["train", *sys.argv[1:]]))
+
+
+if __name__ == "__main__":
+    main()

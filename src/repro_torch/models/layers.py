@@ -39,8 +39,8 @@ __all__ = [
     "attention_tp", "dense_init", "init_from_spec", "layer_norm", "make_rope",
     "map_spec", "mla_attention", "mla_attention_decode",
     "mla_attention_decode_absorbed", "mla_spec", "mlp", "mlp_spec", "mlp_tp",
-    "moe_dense", "moe_layer", "moe_scatter", "moe_spec", "rms_norm",
-    "stack_spec", "unbind_layers",
+    "moe_dense", "moe_dense_ranks", "moe_layer", "moe_scatter", "moe_spec",
+    "rms_norm", "stack_spec", "unbind_layers",
 ]
 
 Params = Dict[str, Any]
@@ -522,12 +522,11 @@ def moe_spec(cfg) -> Params:
     return p
 
 
-def _router_probs(p: Params, x: torch.Tensor, cfg):
-    """Top-k gating in f32: ``(expert_idx [.., K], weights [.., K], aux)``.
-
-    The weights are the top-k probabilities renormalised; ``aux`` is the
-    Switch-style load-balancing loss ``E * sum_e f_e * p_e``.
-    """
+def _router_stats(p: Params, x: torch.Tensor, cfg):
+    """Top-k gating in f32: ``(expert_idx [.., K], weights [.., K], p_e,
+    f_e)``: the weights the top-k probabilities renormalised, ``p_e`` each
+    expert's mean probability and ``f_e`` the share of tokens that chose
+    it (no gradient: it counts)."""
     E = cfg.n_experts
     logits = x.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
@@ -536,7 +535,14 @@ def _router_probs(p: Params, x: torch.Tensor, cfg):
     lead = tuple(range(probs.dim() - 1))
     me = probs.mean(dim=lead)
     ce = (F.one_hot(idx, E).sum(-2) > 0).float().mean(dim=lead)
-    return idx, weights, E * torch.sum(me * ce)
+    return idx, weights, me, ce
+
+
+def _router_probs(p: Params, x: torch.Tensor, cfg):
+    """Top-k gating in f32: ``(expert_idx [.., K], weights [.., K], aux)``,
+    ``aux`` the Switch-style load-balancing loss ``E * sum_e f_e * p_e``."""
+    idx, weights, me, ce = _router_stats(p, x, cfg)
+    return idx, weights, cfg.n_experts * torch.sum(me * ce)
 
 
 def _experts(p: Params, xin: torch.Tensor, lead: str) -> torch.Tensor:
@@ -554,13 +560,24 @@ def moe_dense(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tens
     cumsum positions, exact for these counts), and a choice past the
     capacity ``C = max(ceil(g*K/E*cf), K)`` is dropped.
     """
-    B, S, D = x.shape
-    E = cfg.n_experts
-    group = min(cfg.moe_group_size, S)
-    n_g = max(S // group, 1)
-    xg = x.reshape(B * n_g, group, D)
+    xg = _dispatch_groups(x, cfg)
     idx, w, aux = _router_probs(p, xg, cfg)                  # [G, g, K]
-    G, K = xg.shape[0], idx.shape[-1]
+    return _dense_dispatch(p, x, xg, idx, w, cfg), aux
+
+
+def _dispatch_groups(x: torch.Tensor, cfg) -> torch.Tensor:
+    """``x [B, S, D]`` as ``[B * n_g, g, D]``, ``g = min(moe_group_size, S)``."""
+    B, S, D = x.shape
+    group = min(cfg.moe_group_size, S)
+    return x.reshape(B * max(S // group, 1), group, D)
+
+
+def _dense_dispatch(p: Params, x: torch.Tensor, xg: torch.Tensor,
+                    idx: torch.Tensor, w: torch.Tensor, cfg) -> torch.Tensor:
+    """:func:`moe_dense`'s output for the routing ``idx``/``w`` of the
+    groups ``xg``."""
+    E = cfg.n_experts
+    G, group, K = idx.shape
     C = max(int(math.ceil(group * K / E * cfg.capacity_factor)), K)
     onehot = F.one_hot(idx, E).float()                      # [G, g, K, E]
     pos_e = torch.cumsum(onehot.reshape(G, -1, E), dim=1).reshape(
@@ -574,10 +591,37 @@ def moe_dense(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tens
     combine = torch.einsum("gtk,gtke,gtkc->gtec", w.to(x.dtype), keep, posc)
     xin = torch.einsum("gtec,gtd->gecd", dispatch, xg)       # [G, E, C, D]
     xout = _experts(p, xin, "g")
-    y = torch.einsum("gtec,gecd->gtd", combine, xout).reshape(B, S, D)
+    y = torch.einsum("gtec,gecd->gtd", combine, xout).reshape(x.shape)
     if cfg.n_shared_experts:
         y = y + mlp(p["shared"], x)
-    return y, aux
+    return y
+
+
+def moe_dense_ranks(ps: Sequence[Params], xs: Sequence[torch.Tensor], cfg,
+                    tp=None) -> Tuple[list, torch.Tensor]:
+    """:func:`moe_dense` on each data rank's rows, rank ``r`` reading its
+    own view ``ps[r]`` of the layer (model-axis storage under ``tp``, the
+    experts gathered whole as :func:`moe_layer` gathers them), with the
+    aux loss of the whole batch: the reference's ``moe_dense`` where EP
+    cannot arm runs on the global batch, so ``f_e`` is every rank's
+    tokens' share.  The ranks' shares are averaged (the data axis's
+    all-reduce of the counts; every rank routes as many tokens), each
+    rank's ``E * sum_e f_e * p_e`` takes its own ``p_e``, and their mean
+    is the global aux, each rank's gradient its rows' part of it.
+    Dispatch and capacity are per group of a row, so a rank's outputs
+    are the global batch's rows."""
+    from repro_torch.parallel.moe_a2a import whole_weights
+
+    if tp is not None:
+        ps = [whole_weights(p, tp) for p in ps]
+    xgs = [_dispatch_groups(x, cfg) for x in xs]
+    stats = [_router_stats(p, xg, cfg) for p, xg in zip(ps, xgs)]
+    ce = torch.stack([s[3] for s in stats]).mean(0)
+    ys = [_dense_dispatch(p, x, xg, idx, w, cfg)
+          for p, x, xg, (idx, w, _, _) in zip(ps, xs, xgs, stats)]
+    aux = torch.stack([cfg.n_experts * torch.sum(me * ce)
+                       for _, _, me, _ in stats]).mean()
+    return ys, aux
 
 
 def _pack(dest: torch.Tensor, n: int, cap: int):

@@ -192,9 +192,11 @@ class DecoderLM:
         """One block on every data rank's rows, rank ``r`` reading its own
         view ``ps[r]`` of the block's parameters; an MoE block's layer is
         the EP all-to-all over the ranks
-        (:func:`~repro_torch.parallel.moe_a2a.moe_ranks`), the rest rank
-        by rank."""
-        from repro_torch.parallel.moe_a2a import moe_ranks
+        (:func:`~repro_torch.parallel.moe_a2a.moe_ranks`) where EP is
+        armed, else the dense dispatch with the whole batch's aux
+        (:func:`~repro_torch.models.layers.moe_dense_ranks`), the rest
+        rank by rank."""
+        from repro_torch.parallel.moe_a2a import ep_armed, moe_ranks
 
         cfg = self.cfg
         xs = [self._attend(p, x, positions, tp, spec)[0]
@@ -202,7 +204,8 @@ class DecoderLM:
         hs = [L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
               for p, x in zip(ps, xs)]
         if "moe" in ps[0]:
-            ys, aux = moe_ranks([p["moe"] for p in ps], hs, cfg, tp)
+            layer = moe_ranks if ep_armed(cfg) else L.moe_dense_ranks
+            ys, aux = layer([p["moe"] for p in ps], hs, cfg, tp)
         else:
             ys = [L.mlp(p["mlp"], h) if tp is None else
                   L.mlp_tp(p["mlp"], spec["mlp"], h, tp)
@@ -318,8 +321,9 @@ class DecoderLM:
         of the parameters (model-axis storage under ``tp``), and the MoE
         layers run the armed EP all-to-all across the ranks, so the aux
         term every rank adds is the mean over all of them (the
-        reference's ``pmean``).  Each stacked block is checkpointed over
-        all ranks at once (``remat="block"``)."""
+        reference's ``pmean``); without EP they run the dense dispatch
+        with the whole batch's aux.  Each stacked block is checkpointed
+        over all ranks at once (``remat="block"``)."""
         cfg = self.cfg
         if tp is not None:
             require_tp_family(cfg)

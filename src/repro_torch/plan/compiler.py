@@ -7,9 +7,8 @@ best (algorithm, chunk count, rank permutation) differs per op and size
 band (PCCL, Won et al.; the MCF reformulation, Arzani et al.).  This
 module compiles the whole mix once:
 
-* a :class:`JobMix` declares the collectives a job issues (the
-  reference's ``JobMix.from_hlo`` waits for a trace-based collective
-  count, ROADMAP.md §1 item 15);
+* a :class:`JobMix` declares the collectives a job issues, by hand or
+  from optimized HLO text (:meth:`JobMix.from_hlo`);
 * :class:`PlanCompiler` enumerates, per (collective, message-size bucket,
   process group), every feasible registered builder from
   :mod:`repro_torch.collective`, compiles each into a typed ``Program``,
@@ -137,6 +136,28 @@ class JobMix:
             for r in self.requests
         )
         return json.dumps(rows, separators=(",", ":"))
+
+    @staticmethod
+    def from_hlo(hlo_text: str, name: str = "hlo",
+                 scale_loops: bool = True) -> "JobMix":
+        """Build a mix from optimized HLO text.
+
+        Wraps :func:`repro_torch.launch.hlo_analysis.parse_collectives`;
+        each detail row (comp, op, total_bytes, multiplier) becomes a
+        request of ``total_bytes / multiplier`` per call, ``multiplier``
+        calls.  ``collective-permute`` rows are skipped (no algorithm
+        choice), as are rows of zero bytes or zero multiplier.
+        """
+        from repro_torch.launch.hlo_analysis import parse_collectives
+
+        stats = parse_collectives(hlo_text, scale_loops=scale_loops)
+        reqs = []
+        for _comp, op, total_bytes, mult in stats.details:
+            if op not in PLANNED_OPS or total_bytes <= 0 or mult <= 0:
+                continue
+            reqs.append(CollectiveRequest(
+                op=op, size_bytes=total_bytes / mult, count=float(mult)))
+        return JobMix(requests=tuple(reqs), name=name)
 
 
 @dataclasses.dataclass

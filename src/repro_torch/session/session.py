@@ -40,8 +40,11 @@ Where the port differs from the reference:
   :class:`~repro_torch.collective.Lowered`: the serve engine's planned
   all-gather, and the process-group runner
   (:mod:`repro_torch.kernels.group_runner`);
-* ``wrap``/``unwrap`` (patching ``make_production_mesh`` and ``arm_ep``)
-  are not ported: neither patched function exists in the port.
+* :meth:`Session.wrap` patches the port's
+  :func:`repro_torch.launch.mesh.make_production_mesh` and
+  :func:`repro_torch.parallel.moe_a2a.arm_ep`; the port's ``arm_ep`` also
+  takes ``session=``, so the patch supplies the plan only where the
+  caller passed neither.
 """
 
 from __future__ import annotations
@@ -133,6 +136,21 @@ class AppliedPlan:
         return "\n".join(lines)
 
 
+class _WrapGuard:
+    """Returned by :meth:`Session.wrap`; scopes the patches to a ``with``
+    block without closing the session (bare calls patch until
+    ``unwrap``/``close``)."""
+
+    def __init__(self, session: "Session"):
+        self.session = session
+
+    def __enter__(self) -> "Session":
+        return self.session
+
+    def __exit__(self, *exc) -> None:
+        self.session.unwrap()
+
+
 class Session:
     """Owns the probe → plan → apply → monitor lifecycle (see module doc)."""
 
@@ -165,6 +183,8 @@ class Session:
         self._drift: Optional[DriftMonitor] = None
         self._monitor_thread: Optional[threading.Thread] = None
         self._monitor_stop = threading.Event()
+        #: (module, attribute, original) of every wrap() patch
+        self._patches: List[Tuple[Any, str, Any]] = []
         #: the sparse poll's freshly refreshed probe, consumed by the
         #: next _replan so a drift recompile keeps the hierarchy (and
         #: does not re-spend the probe budget from scratch)
@@ -974,15 +994,76 @@ class Session:
                                     reason="ladder")
         return self._plan, rungs
 
+    # -- non-intrusive wrap ------------------------------------------------
+    def wrap(self) -> "_WrapGuard":
+        """Patch the launch surface so unmodified code gets planned orders.
+
+        * ``repro_torch.launch.mesh.make_production_mesh`` returns the
+          session's reordered mesh when its assignment has the production
+          shape, and the identity-order mesh otherwise;
+        * ``repro_torch.parallel.moe_a2a.arm_ep`` is armed with the
+          session's plan whenever the caller passed neither a plan nor a
+          session.
+
+        A call site reaches a patch only by looking the function up in its
+        module at call time (``moe_a2a.arm_ep(...)``, or an import inside
+        the calling function), as the port's own call sites do.  Usable
+        as a context manager (``with session.wrap(): ...``); :meth:`unwrap`
+        (also run by :meth:`close`) restores the originals.  The paper's
+        "no code changes nor rebuild" property, applied to the launchers.
+        """
+        self._require_open("wrap")
+        if self._patches:
+            raise SessionError("session is already wrapped")
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.parallel import moe_a2a
+
+        orig_make = mesh_mod.make_production_mesh
+        orig_arm = moe_a2a.arm_ep
+
+        def make_production_mesh(*, multi_pod: bool = False,
+                                 device: Any = "cuda"):
+            plan = self._plan
+            if plan is not None and plan.mesh_plan is not None:
+                shape, _axes = mesh_mod.production_shape(multi_pod)
+                if tuple(plan.mesh_plan.assignment.shape) == tuple(shape):
+                    return mesh_mod.make_reordered_mesh(plan.mesh_plan, device)
+            return orig_make(multi_pod=multi_pod, device=device)
+
+        def arm_ep(mesh, ep_axis="data", tp_axis="model", plan=None,
+                   session=None):
+            if plan is None and session is None:
+                plan = self._plan
+            return orig_arm(mesh, ep_axis, tp_axis, plan=plan, session=session)
+
+        self._patch(mesh_mod, "make_production_mesh", make_production_mesh)
+        self._patch(moe_a2a, "arm_ep", arm_ep)
+        return _WrapGuard(self)
+
+    def _patch(self, module: Any, attr: str, replacement: Any) -> None:
+        self._patches.append((module, attr, getattr(module, attr)))
+        setattr(module, attr, replacement)
+
+    def unwrap(self) -> None:
+        """Restore every attribute :meth:`wrap` replaced (idempotent)."""
+        while self._patches:
+            module, attr, original = self._patches.pop()
+            setattr(module, attr, original)
+
+    @property
+    def wrapped(self) -> bool:
+        return bool(self._patches)
+
     # -- lifecycle: close --------------------------------------------------
     def close(self) -> None:
-        """Stop monitoring, shut the service (idempotent)."""
+        """Stop monitoring, unwrap patches, shut the service (idempotent)."""
         if self.state == "closed":
             return
         self._monitor_stop.set()
         t = self._monitor_thread
         if t is not None and t.is_alive():
             t.join(timeout=5.0)
+        self.unwrap()
         with self._lock:
             if self._service is not None:
                 self._service.close()

@@ -335,7 +335,9 @@ def reducer_from_plan(plan, total_bytes: float,
     back to a certified ring at the planned rank order: the reordering
     is kept, the algorithm choice is not.  ``transport="peer_ring"``
     (the default) runs each bucket through the peer-memory ring kernel
-    at that order, and refuses a plan whose schedule is not a ring.
+    at that order; a plan whose schedule is not a ring (a double binary
+    tree over 3 ranks) takes the same fallback, since the kernel runs
+    rings only.  ``transport="runner"`` runs the planned schedule.
     """
     entry = plan.lookup("all-reduce", total_bytes, group)
     if entry is None:
@@ -347,7 +349,8 @@ def reducer_from_plan(plan, total_bytes: float,
     prog = entry_b.program()
     sched = ScheduleLowering().lower_schedule(prog)
     require_certified(prog, sched)
-    if sched.postcondition != "allreduce":
+    if sched.postcondition != "allreduce" or (
+            transport == "peer_ring" and sched.algorithm != "ring"):
         local = [entry_b.group.index(p) for p in entry_b.perm]
         sched = certified_allreduce(len(entry_b.group), bb, algo="ring",
                                     perm=local,

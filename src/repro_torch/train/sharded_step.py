@@ -47,7 +47,9 @@ gradient is its rank's; the experts' gradient is then ``d`` times the
 mean loss's and is divided by ``d``.  The update runs in place, a large
 leaf in slices of ``UPDATE_ELEMS`` elements (the same elementwise
 arithmetic), and the ZeRO-1 all-gather runs leaf by leaf in pieces, so
-that the step holds one copy of the state.
+that the step holds one copy of the state.  :class:`DenseMoETrainStep`,
+where the data axis does not divide the experts, runs the same views
+with every leaf replicated; both are :class:`RankViewTrainStep`s.
 """
 
 from __future__ import annotations
@@ -68,8 +70,10 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 
 from .train_step import TrainState, batch_on
 
-__all__ = ["EPTrainStep", "ShardedLayout", "expert_leaves", "init_sharded_state",
-           "make_ep_train_step", "make_sharded_train_step", "param_shapes"]
+__all__ = ["DenseMoETrainStep", "EPTrainStep", "RankViewTrainStep",
+           "ShardedLayout", "expert_leaves", "init_sharded_state",
+           "make_ep_train_step", "make_sharded_train_step", "param_shapes",
+           "reckon_dense_moe_memory"]
 
 #: the in-place update's slice of a large leaf (f32 temporaries of 256 MB)
 UPDATE_ELEMS = 1 << 26
@@ -304,42 +308,30 @@ def _pieces(t: torch.Tensor, limit: int) -> List[torch.Tensor]:
             for q in _pieces(t[s:s + rows], limit)]
 
 
-class EPTrainStep(ShardedTrainStep):
-    """The MoE step with the EP all-to-all armed over the data axis of a
-    ``(data,)`` or ``(data, model)`` mesh: ``step(state, batch) ->
-    (state', metrics)``, the state :func:`init_sharded_state`'s.
+class RankViewTrainStep(ShardedTrainStep):
+    """The MoE step over per-rank leaf views on a ``(data,)`` or ``(data,
+    model)`` mesh: ``step(state, batch) -> (state', metrics)``, the state
+    :func:`init_sharded_state`'s.  One graph covers the data ranks, each
+    rank reading its own view of every leaf; ``expert`` flags (flatten
+    order) the leaves of which each rank reads its ``E/d`` experts (EP),
+    the others being replicated, their ``d`` gradients through the data
+    axis's reducer.  :class:`EPTrainStep` and :class:`DenseMoETrainStep`
+    are its two constructions, each checking its own preconditions.
 
     ``counts`` tallies the collectives as :class:`ShardedTrainStep`'s, and
     ``model_reducescatter`` (the experts' gradients over the model axis).
     """
 
-    def __init__(self, model, opt_cfg, mesh, reducer=None,
-                 use_kernel_add: bool = True):
-        from repro_torch.parallel import moe_a2a
-
-        cfg = model.cfg
-        if not cfg.n_experts:
-            raise ValueError(f"{cfg.name} has no experts: the EP step "
-                             f"trains MoE models")
-        moe_a2a._check_axes(mesh, "data")
-        sizes = shd.mesh_axis_sizes(mesh)
-        d, m = sizes.get("data", 1), sizes.get("model", 1)
-        if m > 1:
-            require_tp_family(cfg)
-        if d < 2 or cfg.n_experts % d:
-            raise ValueError(f"EP over {d} data-parallel ranks cannot split "
-                             f"{cfg.name}'s {cfg.n_experts} experts")
-        state = moe_a2a._EP_STATE
-        if state["mesh"] is not mesh or state["ep"] != "data":
-            raise ValueError("arm EP over this mesh's data axis first "
-                             "(launch.specs.configure_sp)")
+    def __init__(self, model, opt_cfg, mesh, reducer, use_kernel_add: bool,
+                 expert: List[bool]):
+        d = shd.mesh_axis_sizes(mesh).get("data", 1)
         self.model, self.opt_cfg, self.mesh = model, opt_cfg, mesh
         self.layout = ShardedLayout.of(model, mesh)
         self.tp = (TensorParallel(mesh, self.layout.pspecs, use_kernel_add)
-                   if m > 1 else None)
-        self.expert = expert_leaves(param_shapes(model))
+                   if self.layout.m > 1 else None)
+        self.expert = expert
         if reducer is None or reducer.n != d:
-            raise ValueError(f"the EP step needs a reducer over the {d} "
+            raise ValueError(f"the MoE step needs a reducer over the {d} "
                              f"data-parallel ranks")
         self.reducer = reducer
         self.gather_schedule = certified_all_gather(d)
@@ -472,6 +464,101 @@ class EPTrainStep(ShardedTrainStep):
                 self.counts[f"model_{kind}"] += (self.tp.counts.get(kind, 0)
                                                  - before.get(kind, 0))
         return new_state, dict(metrics, loss=loss)
+
+
+class EPTrainStep(RankViewTrainStep):
+    """The MoE step with the EP all-to-all armed over the data axis
+    (:func:`repro_torch.launch.specs.configure_sp`), which divides the
+    experts: each data rank reads its ``E/d`` experts, whose gradient
+    comes whole from the graph; the reducer carries the replicated
+    leaves only."""
+
+    def __init__(self, model, opt_cfg, mesh, reducer=None,
+                 use_kernel_add: bool = True):
+        from repro_torch.parallel import moe_a2a
+
+        cfg = model.cfg
+        if not cfg.n_experts:
+            raise ValueError(f"{cfg.name} has no experts: the EP step "
+                             f"trains MoE models")
+        moe_a2a._check_axes(mesh, "data")
+        sizes = shd.mesh_axis_sizes(mesh)
+        d, m = sizes.get("data", 1), sizes.get("model", 1)
+        if m > 1:
+            require_tp_family(cfg)
+        if d < 2 or cfg.n_experts % d:
+            raise ValueError(f"EP over {d} data-parallel ranks cannot split "
+                             f"{cfg.name}'s {cfg.n_experts} experts")
+        state = moe_a2a._EP_STATE
+        if state["mesh"] is not mesh or state["ep"] != "data":
+            raise ValueError("arm EP over this mesh's data axis first "
+                             "(launch.specs.configure_sp)")
+        super().__init__(model, opt_cfg, mesh, reducer, use_kernel_add,
+                         expert_leaves(param_shapes(model)))
+
+
+class DenseMoETrainStep(RankViewTrainStep):
+    """The MoE step where the data axis does not divide the experts: the
+    reference's fallback.  Its ``arm_ep`` arms the mesh but ``ep_armed``
+    is false, so ``moe_layer`` runs ``moe_dense`` on the global batch.
+    Here the MoE blocks run the dense dispatch on each data rank's rows in
+    one graph over the ranks
+    (:func:`~repro_torch.models.layers.moe_dense_ranks`, the routing
+    shares averaged over the ranks, so the aux loss is the global
+    batch's); every leaf, the experts' included, is replicated, and its
+    ``d`` gradients go through the data axis's reducer.
+    :func:`reckon_dense_moe_memory` is its device memory."""
+
+    def __init__(self, model, opt_cfg, mesh, reducer=None,
+                 use_kernel_add: bool = True):
+        from repro_torch.parallel import moe_a2a
+
+        cfg = model.cfg
+        if not cfg.n_experts:
+            raise ValueError(f"{cfg.name} has no experts")
+        if cfg.moe_impl == "scatter":
+            raise ValueError(f"{cfg.name}'s sort-based dispatch sizes its "
+                             f"capacity over the whole batch; the data-"
+                             f"parallel MoE step runs the dense dispatch")
+        if moe_a2a.ep_armed(cfg):
+            raise ValueError("EP is armed over a data axis that divides the "
+                             "experts: that mesh runs EPTrainStep")
+        moe_a2a._check_axes(mesh, "data")
+        if shd.mesh_axis_sizes(mesh).get("model", 1) > 1:
+            require_tp_family(cfg)
+        super().__init__(model, opt_cfg, mesh, reducer, use_kernel_add,
+                         [False] * len(tree_leaves(param_shapes(model))))
+
+
+def reckon_dense_moe_memory(shapes: Any, d: int, bucket_bytes: float
+                            ) -> Dict[str, int]:
+    """:class:`DenseMoETrainStep`'s device bytes from the parameter shapes
+    (a reckoning, nothing measured; activations not counted): the
+    weights, the f32 AdamW moments, the ``d`` ranks' gradient buffers,
+    their mean, and the gradients in flight.  A stacked leaf reaches each
+    rank's graph through one split into layers, whose backward runs after
+    every block's, so autograd holds every rank's gradients of the
+    stacked leaves before they are added into the buffers; then the
+    reducer's copy of a bucket's rows where it joins leaves, and the
+    ring's reduced row.  AdamW's f32 temporaries of one slice of
+    ``UPDATE_ELEMS`` come after the flight."""
+    from .overlap_grads import partition_tree
+
+    def nbytes(tree) -> int:
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    leaves = tree_leaves(shapes)
+    n = sum(t.numel() for t in leaves)
+    w = nbytes(shapes)
+    bucket = max((d * b.n_bytes if len(b.leaf_ids) > 1 else 0) + b.n_bytes
+                 for b in partition_tree(leaves, bucket_bytes))
+    largest = max(t.numel() for t in leaves)
+    in_flight = max(d * nbytes(shapes["blocks"]) + bucket,
+                    7 * 4 * min(UPDATE_ELEMS, largest))
+    out = {"params": n, "weights": w, "moments": 8 * n, "gradients": d * w,
+           "mean": w, "in_flight": in_flight}
+    out["total"] = w + 8 * n + d * w + w + in_flight
+    return out
 
 
 def make_ep_train_step(model, opt_cfg, mesh, reducer,

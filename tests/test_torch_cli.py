@@ -1,6 +1,7 @@
 """``python -m repro_torch`` on the CPU: serve, probe, plan and train (smoke configs)."""
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -282,18 +283,186 @@ def test_train_refuses_what_is_not_ported(tmp_path):
             main(["train", "--arch", arch, "--smoke", "--device", "cpu",
                   "--mesh", "1x2", "--reorder", "none",
                   "--ckpt-dir", str(tmp_path)])
-    # MoE trains (test_train_moe_over_the_ep_all_to_all); MLA on a model
-    # axis and an MoE arch on a pod axis name their items, and experts a
-    # data axis does not divide are refused in words, never stacked
+    # MoE trains (test_train_moe_over_the_ep_all_to_all, and where the data
+    # axis does not divide the experts
+    # test_train_moe_where_the_data_axis_does_not_divide_the_experts); MLA
+    # on a model axis and an MoE arch on a pod axis name their items
     for arch, mesh, err, match in (
             ("deepseek-v2-236b", "2x2", NotImplementedError, "item 23"),
-            ("dbrx-132b", "2x2x2", NotImplementedError, "item 24"),
-            ("dbrx-132b", "3", ValueError, "do not split over the 3")):
+            ("dbrx-132b", "2x2x2", NotImplementedError, "item 24")):
         with pytest.raises(err, match=match):
             main(["train", "--arch", arch, "--smoke", "--device", "cpu",
-                  "--mesh", mesh, "--batch", "6" if mesh == "3" else "8",
+                  "--mesh", mesh, "--batch", "8",
                   "--reorder", "none", "--ckpt-dir", str(tmp_path)])
     # Whisper's loss needs audio the synthetic batches do not carry
     with pytest.raises(NotImplementedError, match="frontend_embeds"):
         main(["train", "--arch", "whisper-small", "--smoke", "--device", "cpu",
               "--reorder", "none", "--ckpt-dir", str(tmp_path)])
+
+
+def test_train_checks_the_smoke_config_it_runs(tmp_path):
+    """``--smoke`` applies before any check reads the experts: the
+    published dbrx's 16 split over 8 data ranks, the smoke one's 4 do
+    not, so ``--mesh 8`` runs the data-parallel fallback (the check once
+    read the published config, armed EP and died in ``EPTrainStep``)."""
+    from repro_torch.cli import main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert main(["train", "--arch", "dbrx-132b", "--smoke", "--device",
+                     "cpu", "--mesh", "8", "--batch", "8", "--seq", "4",
+                     "--steps", "1", "--reorder", "none",
+                     "--ckpt-dir", str(tmp_path)]) == 0
+    text = out.getvalue()
+    report = json.loads(text.split("[train] report ")[1].splitlines()[0])
+    assert "4 experts do not split over the 8" in text
+    assert "dense_moe" in report and "ep" not in report
+
+
+def test_train_refuses_the_fallback_only_over_the_cards_memory(
+        monkeypatch, capsys, tmp_path):
+    """The data-parallel MoE step reckons its memory first (weights, f32
+    moments, the ranks' gradient buffers and their mean, the gradients in
+    flight); a card
+    smaller than the reckoning refuses the run in words, before any
+    weight is drawn; the CPU reckons and refuses nothing."""
+    from repro_torch import cli
+    from repro_torch.train import sharded_step
+
+    argv = ["train", "--arch", "dbrx-132b", "--smoke", "--device", "cpu",
+            "--mesh", "3", "--batch", "3", "--seq", "4", "--steps", "1",
+            "--reorder", "none", "--ckpt-dir", str(tmp_path)]
+    monkeypatch.setattr(cli, "device_memory", lambda device: 10 ** 6)
+    monkeypatch.setattr(sharded_step, "init_sharded_state", None)
+    with pytest.raises(ValueError, match="reckoned at weights .* over the "
+                                         "card's 1000000 bytes"):
+        cli.main(argv)
+    memory = json.loads(capsys.readouterr().out.split(
+        "[train] memory ")[1].splitlines()[0])
+    n = memory["params"]
+    assert memory["card_bytes"] == 10 ** 6
+    assert (memory["weights"], memory["moments"], memory["gradients"]) == \
+        (4 * n, 8 * n, 3 * 4 * n)        # f32 smoke weights, 3 ranks
+    # in flight: at least 3 ranks' gradients of the smoke experts (w1, w3
+    # and w2 of [2 blocks, 4 experts, 64, 32] in f32)
+    assert memory["in_flight"] >= 3 * 3 * (2 * 4 * 64 * 32) * 4
+    assert memory["mean"] == 4 * n
+    assert memory["total"] == sum(memory[k] for k in (
+        "weights", "moments", "gradients", "mean", "in_flight"))
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_moe_reference(lr: float):
+    """The reference's smoke dbrx (4 experts, vocab 2048, as ``train
+    --smoke``), its loss and gradient, and its AdamW step at ``train``'s
+    schedule over one step, jitted once for every case below."""
+    import dataclasses
+
+    import jax
+    from repro.configs import get_config as jax_get_config
+    from repro.models import get_model as jax_get_model
+    from repro.optim import AdamWConfig, apply_opt, cosine_schedule
+
+    from repro_torch.cli import WARMUP_STEPS
+
+    model = jax_get_model(dataclasses.replace(
+        jax_get_config("dbrx-132b").smoke(), vocab_size=2048))
+    opt = AdamWConfig(schedule=cosine_schedule(lr, WARMUP_STEPS, 1))
+    return (model, jax.jit(jax.value_and_grad(model.loss)),
+            jax.jit(functools.partial(apply_opt, opt)))
+
+
+# the smoke dbrx (4 experts) where the data axis does not divide them
+@pytest.mark.parametrize("mesh,batch", [("8", 8), ("3", 6), ("3x2", 6)])
+def test_train_moe_where_the_data_axis_does_not_divide_the_experts(
+        monkeypatch, tmp_path, mesh, batch):
+    """The reference arms EP on any data axis, but its ``ep_armed`` is
+    false where the axis does not divide the experts, and ``moe_layer``
+    runs ``moe_dense`` on the global batch: so does the port's fallback.
+    On the same weights on both sides (the port's seeded init, carried
+    through ``params_from_jax``), the step-0 loss is
+    the reference's ``DecoderLM`` loss on the global batch within 1e-5
+    (the aux loss the global batch's, not a mean of the ranks'), and one
+    step lands within 1e-5 of the reference's AdamW on the full-batch
+    gradient; every leaf, the experts' included, goes through the
+    reducer."""
+    import jax
+    import jax.numpy as jnp
+    from repro.optim import init_opt as r_init_opt
+    from repro.parallel import moe_a2a as R_a2a
+
+    from repro_torch import cli
+    from repro_torch.convert import params_from_jax
+    from repro_torch.data import SyntheticLM, host_batch
+    from repro_torch.parallel import moe_a2a
+    from repro_torch.parallel.tensor import shard_params, unshard_params
+    from repro_torch.train import sharded_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    lr, seq = 1e-3, 16
+    rmodel, r_value_and_grad, r_apply_opt = _dense_moe_reference(lr)
+    seen = {}
+    real_init = sharded_step.init_sharded_state
+
+    def whole(tree, layout):
+        """A tree in model-axis storage, unsharded, as numpy."""
+        if layout.m > 1:
+            tree = unshard_params(tree, layout.pspecs)
+        return tree_map(lambda t: t.detach().numpy().copy(), tree)
+
+    def init_seen(model, gen, layout):
+        state = real_init(model, gen, layout)
+        seen["numpy"] = whole(state.params, layout)
+        conv = shard_params(params_from_jax(seen["numpy"], model),
+                            layout.pspecs, layout.m)
+        for dst, src in zip(tree_leaves(state.params), tree_leaves(conv)):
+            dst.copy_(src)
+        seen["state"], seen["layout"] = state, layout
+        return state
+
+    monkeypatch.setattr(sharded_step, "init_sharded_state", init_seen)
+    real_apply = sharded_step.DenseMoETrainStep.apply
+
+    def apply_seen(self, state, grads):
+        seen["grads"] = whole(grads, self.layout)
+        return real_apply(self, state, grads)
+
+    monkeypatch.setattr(sharded_step.DenseMoETrainStep, "apply", apply_seen)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(["train", "--arch", "dbrx-132b", "--smoke", "--device",
+                         "cpu", "--mesh", mesh, "--batch", str(batch), "--seq",
+                         str(seq), "--steps", "1", "--lr", str(lr),
+                         "--ckpt-dir", str(tmp_path)]) == 0
+    text = out.getvalue()
+    report = json.loads(text.split("[train] report ")[1].splitlines()[0])
+    rparams = jax.tree.map(jnp.asarray, seen["numpy"])
+    assert jax.tree.structure(rparams) == jax.tree.structure(
+        jax.eval_shape(rmodel.init, jax.random.PRNGKey(0)))
+    assert "EP cannot arm" in text and "ep" not in report
+    assert (report["dp"], report["model"]) == \
+        tuple(int(v) for v in (mesh + "x1").split("x")[:2])
+    # every leaf's bytes go through the all-reduce
+    assert report["dense_moe"]["all_reduce_bytes"] == sum(
+        a.size * a.dtype.itemsize for a in jax.tree.leaves(rparams))
+    assert moe_a2a._EP_STATE["mesh"] is None
+
+    R_a2a.clear_ep()
+    b = host_batch(SyntheticLM(rmodel.cfg.vocab_size, seq, batch, seed=0), 0)
+    rbatch = {k: jnp.asarray(v) for k, v in b.items()}
+    loss, grads = r_value_and_grad(rparams, rbatch)
+    assert abs(report["losses"][0] - float(loss)) <= 1e-5, \
+        (report["losses"][0], float(loss))
+    # the mean gradient the reducer hands the update, every leaf
+    for g, w in zip(jax.tree.leaves(seen["grads"]), jax.tree.leaves(grads)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-4 * float(np.abs(w).max()) + 1e-12)
+    want, _, _ = r_apply_opt(rparams, grads, r_init_opt(rparams))
+    got = whole(seen["state"].params, seen["layout"])
+    moved = 0.0
+    for g, w, p0 in zip(jax.tree.leaves(got), jax.tree.leaves(want),
+                        jax.tree.leaves(rparams)):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=1e-5)
+        moved = max(moved, float(np.abs(np.asarray(w) - np.asarray(p0)).max()))
+    assert moved > 5e-5      # the step moves the weights past the tolerance

@@ -95,6 +95,7 @@ NEW_MODULES = [
     "repro_torch.train.trainer", "repro_torch.kernels.rwkv6_scan",
     "repro_torch.faults.inject", "repro_torch.obs.capture",
     "repro_torch.analysis.lint", "repro_torch.bench.overlap_step",
+    "repro_torch.launch.hlo_analysis", "repro_torch.launch.serve",
 ]
 
 

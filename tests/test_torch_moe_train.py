@@ -24,7 +24,12 @@ dense dispatch nor the EP all-to-all drops a choice:
   and ``jax.grad`` (rtol 1e-4 / atol 1e-5), each model-axis collective
   counted; with EP disarmed, the dense dispatch on the experts gathered
   whole; and the aux loss under a model axis pinned from the reference's
-  own ``_router_probs`` on each shard's tokens.
+  own ``_router_probs`` on each shard's tokens;
+* the data-parallel MoE step's layer, ``moe_dense_ranks`` on 3 data
+  ranks, against the reference's ``moe_dense`` on the global batch at the
+  published capacity factor: outputs, aux, the input's and the ranks'
+  summed gradients (rtol 1e-4 / atol 1e-5; the aux rtol 1e-6), the mean
+  of the ranks' own aux terms, the control, off by more than 1e-5.
 """
 
 import dataclasses
@@ -241,3 +246,52 @@ def test_moe_layer_on_a_data_model_mesh_equals_moe_dense():
     columns = np.mean(per, axis=0)
     assert abs(columns[0] - columns[1]) > 1e-3
     np.testing.assert_allclose(float(aux.detach()), np.mean(per), rtol=1e-5)
+
+
+def test_moe_dense_ranks_equals_moe_dense_on_the_global_batch():
+    """The data-parallel MoE step's layer: ``moe_dense_ranks`` on 3 data
+    ranks, each its own view of the layer, against the reference's
+    ``moe_dense`` on the global batch at the published capacity factor
+    (a dispatch group is a row, so the ranks drop what the global batch
+    drops): the outputs, the aux loss, the input's gradient and the
+    ranks' summed gradients; a mean of the ranks' own aux terms, the
+    control, is off."""
+    cfg_t = get_config("dbrx-132b").smoke()
+    cfg_j = jax_get_config("dbrx-132b").smoke()
+    d, rows = 3, 2
+    rng = np.random.default_rng(6)
+    # every weight at its fan-in's scale, as the layer test above draws them
+    p_np = L.map_spec(L.moe_spec(cfg_t), lambda e: (
+        rng.standard_normal(e[0]) * e[0][-2] ** -0.5).astype(np.float32))
+    x_np = rng.standard_normal((d * rows, SEQ, cfg_t.d_model)).astype(np.float32)
+    cot = rng.standard_normal(x_np.shape).astype(np.float32)
+
+    def ref(p, x):
+        y, aux = JL.moe_dense(p, x, cfg_j)
+        return jnp.sum(y * cot) + aux, (y, aux)
+
+    (_, (y_ref, aux_ref)), (gp_ref, gx_ref) = jax.jit(jax.value_and_grad(
+        ref, argnums=(0, 1), has_aux=True))(p_np, x_np)
+
+    names = sorted(p_np)
+    bufs = {k: torch.zeros((d, *p_np[k].shape)) for k in names}
+    views = []
+    for r in range(d):
+        v = {k: torch.from_numpy(p_np[k]).requires_grad_() for k in names}
+        for k in names:
+            v[k].grad = bufs[k][r]
+        views.append(v)
+    xs = [torch.from_numpy(x_np[r * rows:(r + 1) * rows]).requires_grad_()
+          for r in range(d)]
+    ys, aux = L.moe_dense_ranks(views, xs, cfg_t)
+    (sum((y * torch.from_numpy(cot[r * rows:(r + 1) * rows])).sum()
+         for r, y in enumerate(ys)) + aux).backward()
+    _allclose(torch.cat(ys), y_ref)
+    np.testing.assert_allclose(float(aux.detach()), float(aux_ref), rtol=1e-6)
+    _allclose(torch.cat([x.grad for x in xs]), gx_ref)
+    for k in names:
+        _allclose(bufs[k].sum(0), gp_ref[k])
+    own = np.mean([float(JL._router_probs(
+        p_np, x_np[r * rows:(r + 1) * rows].reshape(-1, SEQ, cfg_j.d_model),
+        cfg_j)[2]) for r in range(d)])
+    assert abs(own - float(aux_ref)) > 1e-5 * abs(float(aux_ref))

@@ -263,3 +263,30 @@ def test_cuda_peer_ring_equals_the_virtual_ring(cuda_device, n, dtype):
             assert rc.ring_status(cuda_device) == 0
             assert torch.equal(got, rc.ring_reduce_scatter(x, perm))
             assert torch.equal(got, rc.remote_ring_reduce_scatter_plain(x, perm))
+
+
+def test_peer_ring_reducer_rings_a_plan_that_is_not_a_ring():
+    """Over 3 ranks the plan's all-reduce is a double binary tree: the
+    runner transport runs it as planned, the ring kernel's transport runs
+    a certified ring at the planned order (``train --mesh 3`` on the card
+    once raised here)."""
+    from repro_torch.session import Session, SessionConfig
+
+    # what `train --mesh 3 --reorder simulate` plans
+    with Session(SessionConfig().replace(
+            fabric={"kind": "tpu-fleet", "pod_shape": (3, 1),
+                    "scramble_seed": 0},
+            mesh={"shape": (3,), "axis_names": ("data",)},
+            payload_bytes=8.98e9, moe=True)) as s:
+        plan = s.plan()
+    runner = reducer_from_plan(plan, 8.98e9, transport="runner")
+    assert runner.schedule.algorithm == "double_binary_tree"
+    ring = reducer_from_plan(plan, 8.98e9)
+    entry = plan.lookup("all-reduce", ring.bucket_bytes)
+    assert (ring.schedule.algorithm, ring.transport) == ("ring", "peer_ring")
+    assert list(ring.schedule.order) == [entry.group.index(p)
+                                         for p in entry.perm]
+    assert ring.bucket_bytes == runner.bucket_bytes
+    x = torch.randn(3, 6, generator=torch.Generator().manual_seed(0))
+    got, _ = ring({"g": x})
+    torch.testing.assert_close(got["g"], x.mean(0), rtol=1e-6, atol=1e-6)

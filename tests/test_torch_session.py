@@ -354,3 +354,113 @@ def test_plan_store_on_disk_hits_and_invalidates_as_the_reference(tmp_path):
     assert trail[2] == (2, []) and trail[3][1]["compiles"] == 1
     for got, want in zip(plans, ref_plans):
         _assert_same_plan(got, want)
+
+
+# -- wrap(): the non-intrusive patch (tests/test_session.py:239-292) -------
+
+# the reference test's small config
+WRAP_CFG = {
+    "fabric": {"kind": "datacenter", "nodes": 12, "scramble_seed": 1},
+    "solver": {"budget": {"iters": 80, "chains": 2}},
+    "payload_bytes": 1e6,
+}
+
+
+def _wrap_config(**over):
+    return SessionConfig.from_dict(WRAP_CFG).replace(**over)
+
+
+def test_wrap_patches_and_restores_launch_surface():
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.parallel import moe_a2a
+
+    orig_make = mesh_mod.make_production_mesh
+    orig_arm = moe_a2a.arm_ep
+    s = Session(_wrap_config())
+    with s.wrap():
+        assert s.wrapped
+        assert mesh_mod.make_production_mesh is not orig_make
+        assert moe_a2a.arm_ep is not orig_arm
+    assert not s.wrapped
+    assert mesh_mod.make_production_mesh is orig_make
+    assert moe_a2a.arm_ep is orig_arm
+    with pytest.raises(SessionError, match="closed"):
+        s.close() or s.wrap()
+
+
+def test_wrap_injects_plan_into_arm_ep():
+    """An unmodified ``arm_ep`` call site (no ``plan``) arms the session's
+    solved all-to-all ring, as the reference's; a ``plan=`` or ``session=``
+    the caller passes wins."""
+    from repro_torch.launch import make_mesh
+    from repro_torch.parallel import moe_a2a
+
+    with Session(_wrap_config(moe=True)) as s:
+        s.plan()
+        entry = s.planned.lookup("all-to-all", 1.0)
+        assert entry is not None
+        mesh = make_mesh((12,), ("data",), device="cpu")
+        with s.wrap():
+            moe_a2a.arm_ep(mesh, "data", None)   # unmodified call site
+            armed = moe_a2a._EP_STATE["a2a_order"]
+            moe_a2a.arm_ep(mesh, "data", None, session=s)
+            assert moe_a2a._EP_STATE["a2a_order"] == armed
+        moe_a2a.arm_ep(mesh, "data", None)       # unwrapped: no plan
+        assert moe_a2a._EP_STATE["a2a_order"] is None
+        moe_a2a.clear_ep()
+    assert armed == tuple(int(i) for i in entry.local_perm)
+
+
+def test_wrap_twice_raises():
+    with Session(_wrap_config()) as s:
+        guard = s.wrap()
+        try:
+            with pytest.raises(SessionError, match="already wrapped"):
+                s.wrap()
+        finally:
+            guard.__exit__(None, None, None)
+
+
+def test_close_unwraps():
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.parallel import moe_a2a
+
+    orig_arm = moe_a2a.arm_ep
+    orig_make = mesh_mod.make_production_mesh
+    s = Session(_wrap_config())
+    s.wrap()
+    assert moe_a2a.arm_ep is not orig_arm
+    s.close()
+    assert moe_a2a.arm_ep is orig_arm
+    assert mesh_mod.make_production_mesh is orig_make
+
+
+def test_wrapped_production_mesh_is_the_plans_order():
+    """A plan compiled at the production shape ``(16, 16)`` on the
+    simulated fleet: inside ``wrap``, ``make_production_mesh()`` is the
+    plan's order (the reference's ``devices[plan.flat]``); outside it, and
+    for the multi-pod shape the plan does not have, the identity."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.plan import CollectiveRequest, JobMix
+
+    cfg = SessionConfig.from_dict({
+        "fabric": {"kind": "tpu-fleet", "n_pods": 1, "pod_shape": [16, 16],
+                   "scramble_seed": 0},
+        "mesh": {"shape": [16, 16], "axis_names": ["data", "model"]},
+        "probe": {"n_probes": 4},
+        "solver": {"budget": {"iters": 20, "chains": 1}},
+        "payload_bytes": 1e6})
+    with Session(cfg) as s:
+        # one small request: the mesh assignment is what this case reads
+        plan = s.plan(mix=JobMix((CollectiveRequest("all-reduce", 1e6,
+                                                    group=(0, 1)),)))
+        want = tuple(int(i) for i in plan.mesh_plan.flat)
+        assert want != tuple(range(256))
+        with s.wrap():
+            mesh = mesh_mod.make_production_mesh(device="cpu")
+            pods = mesh_mod.make_production_mesh(multi_pod=True, device="cpu")
+        assert (mesh.order, mesh.shape, mesh.axis_names) == \
+            (want, (16, 16), ("data", "model"))
+        assert pods.order == tuple(range(512)) and pods.shape == (2, 16, 16)
+        assert mesh_mod.make_production_mesh(device="cpu").order == \
+            tuple(range(256))
