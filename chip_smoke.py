@@ -201,7 +201,8 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
 17. the host commands through ``repro_torch.cli.main`` on a machine with
     no JAX: ``bench`` (plan, faults, obs), ``analyze`` (sweep, ``--equiv``,
     ``--plan``, ``--lint`` over this checkout), ``status``, ``trace
-    export`` and ``trace replay``, each required to exit 0, each timed.
+    export`` and ``trace replay`` (the three that plan a session's fabric
+    at 16 nodes), each required to exit 0, each timed.
 
 18. tensor parallelism and ZeRO-1 through the user's entry point:
     ``python -m repro_torch train --arch qwen2-0.5b --mesh 4x2 --reorder
@@ -268,6 +269,26 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
     the layer armed with ``plan=``; inside the wrap of a session planned at
     ``(16, 16)``, ``make_production_mesh()`` is the plan's order and
     allocates nothing on the card.
+
+21. the dry run (``repro_torch.launch.dryrun``): (a) ``run_cell`` of
+    ``qwen2-0.5b`` and ``dbrx-132b`` x ``train_4k`` on the production mesh
+    ``(16, 16)`` at the depths of ``DRY_CELLS`` (all on ``meta``: the card's
+    allocated bytes unchanged), each record's roofline,
+    ``live_bytes_per_device`` and ``trace_s`` printed; (b) the anchor:
+    full-width ``qwen2-0.5b`` (24 blocks) on a one-rank mesh at
+    ``ANCHOR_BATCH`` x ``ANCHOR_SEQ``, ``ANCHOR_STEPS`` train steps with
+    attention ``xla`` (the first under the counters), then one prefill
+    with ``flash`` (``flash_fwd_wgmma<64>``): FlopCounterMode over the
+    card's run plus the kernels' ``work()`` at their launches equals the
+    dry run's meta count of the same cell exactly;
+    ``torch.cuda.max_memory_allocated()`` of the counted step lies within
+    ``MEM_BAND`` of the reckoned ``live_bytes_per_device``, and the
+    reckoning without the temporaries (the control) outside it; the
+    steady step's time over the roofline's ``bound_s`` is printed; (c) the
+    train step on ``--mesh 8`` (the data-parallel step, ``peer_ring`` a
+    bucket) at ``ANCHOR_MESH_DEPTH`` blocks: the tracker's total peak over
+    the 8 virtual ranks (arguments plus the step's storage, undivided)
+    within ``MEM_BAND`` of the card's measured peak, the FLOPs equal.
 
 Phase 4 also holds the smoke ``recurrentgemma-9b`` (a group and a tail,
 at P > W and P == W) and ``whisper-small`` in f32 on the card: flash
@@ -523,6 +544,13 @@ SOLVER_ITERS = {"vectorized": 256, "reference": 32}
 # order (f32: the chunk-form tolerance of the CPU tests); bf16 y also
 # rounds once to bf16 (2 ulps relative)
 TOL = {"float32": (5e-4, 5e-3), "bfloat16": (2e-2, 1.6e-2)}
+#: phase 21: the production-mesh cells' depth (the whole cells are the
+#: dry run's ``--all``), the anchor's shapes, and
+#: the band the card's measured peak must lie in around the reckoning
+DRY_CELLS = (("qwen2-0.5b", 2), ("dbrx-132b", 1))
+ANCHOR_ARCH, ANCHOR_BATCH, ANCHOR_SEQ, ANCHOR_STEPS = "qwen2-0.5b", 4, 2048, 3
+ANCHOR_MESH_DEPTH, ANCHOR_MESH_RANKS, ANCHOR_MESH_SEQ = 4, 8, 1024
+MEM_BAND = (0.97, 1.03)
 
 
 def _say(msg: str) -> None:
@@ -5262,10 +5290,11 @@ def host_commands(card: str) -> dict:
         ["bench", "--scenario", "obs", "--smoke"],
         ["analyze", "--n-list", "4,8,16"],
         ["analyze", "--equiv", "--n-list", "4,8,16"],
-        ["analyze", "--plan"],
+        ["analyze", "--plan", "--nodes", "16"],
         ["analyze", "--lint", "--root", root],
-        ["status", "--format", "prom"],
-        ["trace", "export", "--out", os.path.join(tmp, "trace.json")],
+        ["status", "--nodes", "16", "--format", "prom"],
+        ["trace", "export", "--nodes", "16", "--out",
+         os.path.join(tmp, "trace.json")],
         ["trace", "replay"],
     ]
     enabled = obs.tracer().enabled
@@ -5377,6 +5406,190 @@ def profile_window(label: str, fn) -> dict:
     }
     _say("profile " + json.dumps(res))
     return res
+
+
+def _anchor_peak(cfg, shape, mesh, seed: int) -> dict:
+    """One real step of a dry-run cell on the card under the counters:
+    its count, the card's peak over it, and the state it left."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    fn, args, build = dryrun.cell_step(cfg, shape, mesh, "cuda",
+                                       _seeded(seed))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = dryrun.account(fn, args, build, shape)
+    torch.cuda.synchronize()
+    got["peak"] = torch.cuda.max_memory_allocated()
+    got["fn"], got["args"] = fn, args
+    return got
+
+
+def _in_band(what: str, measured: float, reckoned: float, control: float
+             ) -> None:
+    lo, hi = MEM_BAND
+    ratio, c_ratio = measured / reckoned, measured / control
+    _say(f"dry run {what}: measured peak {measured} bytes, reckoned "
+         f"{reckoned} ({ratio:.4f}); the control {control} ({c_ratio:.4f}); "
+         f"band {MEM_BAND}")
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"dry run {what}: measured/reckoned {ratio:.4f} "
+                             f"outside {MEM_BAND}")
+    if lo <= c_ratio <= hi:
+        raise AssertionError(f"dry run {what}: the control {c_ratio:.4f} "
+                             f"lies inside {MEM_BAND}")
+
+
+def dry_run_phase(seed: int, card: str) -> dict:
+    """Phase 21: the dry run on the card's host, and held to real steps
+    on the card (see the module docstring)."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.monotonic()
+    out = {"production": {}}
+    # (a) the production mesh, on meta
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for arch, depth in DRY_CELLS:
+        rec = dryrun.run_cell(arch, "train_4k", do_diff=False,
+                              overrides={"n_layers": depth}, verbose=False,
+                              device="cuda")
+        torch.cuda.synchronize()
+        if rec["status"] != "ok" or torch.cuda.memory_allocated() != before:
+            raise AssertionError(f"dry run (a) {arch}: status "
+                                 f"{rec['status']}, allocated "
+                                 f"{torch.cuda.memory_allocated() - before}")
+        keep = {k: rec[k] for k in ("step", "trace_s", "roofline",
+                                    "cost_analysis_raw", "collectives")}
+        keep["live_bytes_per_device"] = rec["memory"][
+            "live_bytes_per_device"]
+        keep["fits_hbm"] = rec["memory"]["fits_hbm"]
+        out["production"][arch] = keep
+        _say(f"dry run (a) {arch} x train_4k on 16x16 at {depth} blocks: "
+             f"step {rec['step']}, trace {rec['trace_s']} s, live "
+             f"{keep['live_bytes_per_device']} bytes a device, collectives "
+             f"{json.dumps(rec['collectives'])} a device, roofline "
+             f"{json.dumps(rec['roofline'])} [{card}]")
+
+    # (b) the anchor: full-width qwen2-0.5b on one rank
+    cfg = get_config(ANCHOR_ARCH)
+    mesh = make_mesh((1,), ("data",), "cuda")
+    tshape = ShapeSpec("anchor_train", ANCHOR_SEQ, ANCHOR_BATCH, "train")
+    rec = dryrun.cell_record(cfg, tshape, mesh, "cuda", do_diff=False,
+                             verbose=False)
+    real = _anchor_peak(cfg, tshape, mesh, seed)
+    count = real["count"]
+    if count.flops != rec["cost_analysis_raw"]["flops"]:
+        raise AssertionError(f"dry run (b): the card's step counts "
+                             f"{count.flops} FLOPs, the meta run "
+                             f"{rec['cost_analysis_raw']['flops']}")
+    mem = rec["memory"]
+    control = (mem["argument_bytes"] + mem["output_bytes"]
+               - mem["alias_bytes"])
+    _in_band("(b) train", real["peak"], mem["live_bytes_per_device"], control)
+    fn, (state, batch) = real["fn"], real["args"]
+    losses = [float(count.out[1]["loss"])]
+    state = count.out[0]
+    del real, count
+    step_ms = []
+    for _ in range(ANCHOR_STEPS - 1):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        state, metrics = fn(state, batch)
+        t1.record()
+        torch.cuda.synchronize()
+        step_ms.append(t0.elapsed_time(t1))
+        losses.append(float(metrics["loss"]))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"dry run (b): losses {losses}")
+    bound_s = rec["roofline"]["bound_s"]
+    share = bound_s / (min(step_ms) / 1e3)
+    out["anchor_train"] = {
+        "flops": rec["cost_analysis_raw"]["flops"],
+        "bytes_accessed": rec["cost_analysis_raw"]["bytes_accessed"],
+        "live_bytes_per_device": mem["live_bytes_per_device"],
+        "control_bytes": control, "losses": losses, "step_ms": step_ms,
+        "roofline": rec["roofline"], "bound_share": share}
+    _say(f"dry run (b) {ANCHOR_ARCH} train {ANCHOR_BATCH} x {ANCHOR_SEQ} on "
+         f"one rank: FLOPs {rec['cost_analysis_raw']['flops']:.6e} counted "
+         f"alike on meta and on the card; losses {losses}; steady step "
+         f"{min(step_ms):.2f} ms, roofline bound {bound_s * 1e3:.2f} ms "
+         f"({rec['roofline']['dominant']}): the step at {share:.4f} of its "
+         f"bound [{card}]")
+    del state, batch, fn
+    _free()
+
+    pshape = ShapeSpec("anchor_prefill", ANCHOR_SEQ, ANCHOR_BATCH, "prefill")
+    prec = dryrun.cell_record(cfg, pshape, mesh, "cuda", do_diff=False,
+                              verbose=False)
+    launches = dict(fa.flash_attention.kernel_launches)
+    with torch.no_grad():
+        preal = dryrun.measure_cell(cfg, pshape, mesh, "cuda",
+                                    generator=_seeded(seed))
+    got = {k: fa.flash_attention.kernel_launches[k] - launches[k]
+           for k in launches}
+    pc = preal["count"]
+    if pc.flops != prec["cost_analysis_raw"]["flops"] or \
+            got["flash_fwd_wgmma"] != cfg.n_layers or \
+            pc.kernel_calls.get("flash_attention") != cfg.n_layers:
+        raise AssertionError(f"dry run (b) prefill: FLOPs {pc.flops} on the "
+                             f"card, {prec['cost_analysis_raw']['flops']} on "
+                             f"meta; launches {got}")
+    out["anchor_prefill"] = {"flops": pc.flops, "kernel_flops": pc.kernel_flops,
+                             "launches": got}
+    out["launches"] = {"flash_attention": sum(got.values())}
+    _say(f"dry run (b) {ANCHOR_ARCH} flash prefill {ANCHOR_BATCH} x "
+         f"{ANCHOR_SEQ}: FLOPs {pc.flops:.6e} on the card (of them the "
+         f"kernel's work() {pc.kernel_flops:.6e} at {got['flash_fwd_wgmma']} "
+         f"flash_fwd_wgmma launches) equal to the meta count [{card}]")
+    del preal, pc
+    _free()
+
+    # (c) the virtual mesh: 8 data-parallel ranks on the one card
+    ccfg = dataclasses.replace(cfg, n_layers=ANCHOR_MESH_DEPTH)
+    cmesh = make_mesh((ANCHOR_MESH_RANKS,), ("data",), "cuda")
+    cshape = ShapeSpec("anchor_mesh", ANCHOR_MESH_SEQ, ANCHOR_MESH_RANKS,
+                       "train")
+    crec = dryrun.cell_record(ccfg, cshape, cmesh, "cuda", do_diff=False,
+                              verbose=False)
+    creal = _anchor_peak(ccfg, cshape, cmesh, seed)
+    cmem = crec["memory"]
+    # the tracker's peak over all 8 ranks: their arguments and the most
+    # storage the step held at once, undivided; the control without the
+    # step's temporaries (its new state alone)
+    total = cmem["argument_bytes_total"] + cmem["step_peak_bytes_total"]
+    ctl = cmem["argument_bytes_total"] + creal["out_new_total"]
+    if creal["count"].flops != crec["cost_analysis_raw"]["flops"] * \
+            ANCHOR_MESH_RANKS:
+        raise AssertionError(f"dry run (c): FLOPs {creal['count'].flops} "
+                             f"on the card, {crec['cost_analysis_raw']}")
+    _in_band("(c) --mesh 8", creal["peak"], total, ctl)
+    out["anchor_mesh"] = {"step": crec["step"], "peak": creal["peak"],
+                          "tracked_total": total, "control": ctl,
+                          "ring": creal["count"].kernel_calls}
+    del creal
+    _free()
+    out["phase_s"] = round(time.monotonic() - t_phase, 1)
+    _say(f"dry run phase: {out['phase_s']} s")
+    return out
+
+
+def _seeded(seed: int):
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return gen
 
 
 def _free() -> None:
@@ -5542,6 +5755,8 @@ def main(argv=None) -> int:
     _free()
     trained_moe_dense = train_moe_dense_fallback(args.seed, card)
     _free()
+    dry = dry_run_phase(args.seed, card)
+    _free()
     # each kernel's launches come from the path it carries; the peer ring's
     # from the user's entry point (the hand-wired planned run's beside it)
     paths = {"wkv_chunked": served, "wkv_scan": served, "fused_add": trained,
@@ -5580,6 +5795,7 @@ def main(argv=None) -> int:
                 VLM_ARCH: vlm["launches"]["flash_attention"],
                 MOE_ARCH: moe["launches"]["flash_attention"],
                 MLA_ARCH: mla["launches"]["flash_attention"],
+                "dry run anchor": dry["launches"]["flash_attention"],
                 f"{PIPE_ARCH} pipeline": piped["bf16_flash"]["launches"][
                     "flash_attention"]}
             # every model's layer shape on a flash path (PERF.md section 6)
@@ -5597,7 +5813,8 @@ def main(argv=None) -> int:
         "host_commands": host_cmds["phase_s"],
         "tp_train": trained_tp["phase_s"],
         "moe_train": trained_moe["phase_s"],
-        "moe_dense_train": trained_moe_dense["phase_s"]}))
+        "moe_dense_train": trained_moe_dense["phase_s"],
+        "dry_run": dry["phase_s"]}))
     _say(f"the whole script: {time.monotonic() - t_start:.1f} s (host clock)")
 
     print(json.dumps({"kernels": kernels}))

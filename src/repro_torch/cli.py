@@ -65,12 +65,10 @@ import tempfile
 from typing import Any, Dict, List, Optional
 
 from repro_torch import obs
+from repro_torch.launch.train import DEFAULT_BUCKET_BYTES
 
 __all__ = ["main", "build_parser", "session_config_from_args",
            "run_obs_scenario"]
-
-#: the reducer's bucket payload when no plan supplies one (``--reorder none``)
-DEFAULT_BUCKET_BYTES = 4 * 1024 * 1024
 #: linear warm-up steps of ``train``'s learning rate, as the reference's
 #: ``train`` (``repro/cli.py:287``)
 WARMUP_STEPS = 10
@@ -345,7 +343,6 @@ def cmd_train(args: argparse.Namespace) -> int:
     leaf all-reduced; its memory is reckoned first, and on the card a
     reckoning over the card's memory refuses the run.
     """
-    import numpy as np
     import torch
 
     from repro_torch import resolve_device
@@ -353,15 +350,12 @@ def cmd_train(args: argparse.Namespace) -> int:
     from repro_torch.data import SyntheticLM
     from repro_torch.launch import (
         apply_planned, make_mesh, parse_mesh, planning_session)
-    from repro_torch.launch.specs import configure_sp
+    from repro_torch.launch.train import build_train_step, train_layout
     from repro_torch.models import get_model
     from repro_torch.models.layers import clear_sequence_parallel
     from repro_torch.optim import AdamWConfig
     from repro_torch.parallel import moe_a2a
-    from repro_torch.parallel.tensor import require_tp_family
-    from repro_torch.train import OverlapGradReducer, certified_allreduce
-    from repro_torch.train.sharded_step import (
-        expert_leaves, param_shapes, reckon_dense_moe_memory)
+    from repro_torch.train.sharded_step import expert_leaves, param_shapes
     from repro_torch.tree import tree_leaves
 
     cfg = session_config_from_args(args, workload="train")
@@ -369,36 +363,13 @@ def cmd_train(args: argparse.Namespace) -> int:
         return 0
     device = resolve_device(args.device)
     shape, axes = parse_mesh(args.mesh)
-    n = int(np.prod(shape))
-    m = dict(zip(axes, shape)).get("model", 1)
-    dp = n // m
-    if args.batch % dp:
-        raise ValueError(f"--batch {args.batch} does not split over the "
-                         f"{dp} data-parallel ranks of --mesh {args.mesh}")
 
     # every check below reads the config that runs
     arch = get_config(args.arch)
     if args.smoke:
         arch = dataclasses.replace(arch.smoke(), vocab_size=2048)
-    moe = bool(arch.n_experts) and dp > 1
-    # EP arms where the data axis divides the experts; elsewhere the
-    # reference's ep_armed is false and its moe_layer runs moe_dense
-    ep = moe and arch.n_experts % dp == 0
-    if arch.n_experts and "pod" in axes and dict(zip(axes, shape))["pod"] > 1:
-        raise NotImplementedError(
-            f"train {arch.name} ({arch.family!r}) on a pod axis: the experts "
-            f"are replicated over pods, so their gradients need a pod-axis "
-            f"all-reduce of their own, ROADMAP.md §1 item 24")
-    if arch.family == "encdec":
-        # the reference's train builds batches of tokens and labels only
-        # (host_batch), and WhisperLM.loss reads batch["frontend_embeds"]
-        raise NotImplementedError(
-            f"train has no audio batches for {arch.name} ({arch.family!r}): "
-            f"its loss needs the encoder's frontend_embeds, which the "
-            f"synthetic data does not carry (the reference's train fails on "
-            f"the same missing key)")
-    if m > 1:
-        require_tp_family(arch)
+    lay = train_layout(arch, shape, axes, batch=args.batch)
+    m, dp, n, ep = lay["m"], lay["dp"], lay["n"], lay["ep"]
     model = get_model(arch, device=device)
     shapes = param_shapes(model)
     # the bytes the data axis reduces: under EP the replicated leaves, the
@@ -432,82 +403,40 @@ def cmd_train(args: argparse.Namespace) -> int:
                 entry = plan.lookup("all-reduce", grad_bytes)
                 bucket_bytes = float(cfg.overlap.bucket_bytes or
                                      entry.bucket_bytes or grad_bytes)
-    if (m > 1 or moe) and dp > 1 and reducer is None:
-        reducer = OverlapGradReducer(
-            certified_allreduce(dp, bucket_bytes, "ring"),
-            bucket_bytes=bucket_bytes, mode=mode,
-            use_kernel_add=cfg.overlap.use_kernel_add, transport=transport)
-    if reducer is None and m == 1 and n > 1:
-        reducer = OverlapGradReducer(
-            certified_allreduce(n, DEFAULT_BUCKET_BYTES, "ring"),
-            bucket_bytes=DEFAULT_BUCKET_BYTES, mode=mode,
-            use_kernel_add=cfg.overlap.use_kernel_add, transport=transport)
-    memory = None
-    if moe and not ep:
-        memory = reckon_dense_moe_memory(shapes, dp, reducer.bucket_bytes)
-        card = device_memory(device)
-        reckoned = (f"weights {memory['weights']}, AdamW moments "
-                    f"{memory['moments']}, {dp} ranks' gradient buffers "
-                    f"{memory['gradients']}, their mean {memory['mean']}, "
-                    f"gradients in flight {memory['in_flight']}: "
-                    f"{memory['total']} bytes before activations")
-        print(f"[train] {arch.name}'s {arch.n_experts} experts do not split "
-              f"over the {dp} data-parallel ranks: EP cannot arm, so the "
-              f"data-parallel step runs the MoE blocks on moe_dense; memory "
-              f"reckoned: {reckoned}, against "
-              + (f"the card's {card} bytes" if card is not None
-                 else f"no limit on {device}"))
-        print("[train] memory " + json.dumps(dict(memory, card_bytes=card)))
-        if card is not None and memory["total"] > card:
-            raise ValueError(
-                f"train {arch.name} on --mesh {args.mesh}: the data-parallel "
-                f"MoE step's memory is reckoned at {reckoned}, over the "
-                f"card's {card} bytes")
     opt = AdamWConfig(schedule=train_schedule(args.lr, args.steps))
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    ds = SyntheticLM(arch.vocab_size, args.seq, args.batch, seed=0)
-    # the reference's SP/EP contexts and the plan's all-to-all ring
-    configure_sp(arch, mesh, plan=plan)
     try:
-        return _train_run(args, arch, model, mesh, plan, reducer, opt, gen, ds,
-                          bucket_bytes, (m, dp, n, axes, ep, memory),
-                          cfg.overlap.use_kernel_add)
+        build = build_train_step(
+            arch, mesh, device, model=model, opt=opt, plan=plan,
+            reducer=reducer, bucket_bytes=bucket_bytes, mode=mode,
+            use_kernel_add=cfg.overlap.use_kernel_add,
+            card_bytes=device_memory(device), log=print)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        ds = SyntheticLM(arch.vocab_size, args.seq, args.batch, seed=0)
+        return _train_run(args, arch, build, plan, gen, ds, bucket_bytes)
     finally:
         moe_a2a.clear_ep()
         clear_sequence_parallel()
 
 
-def _train_run(args, arch, model, mesh, plan, reducer, opt, gen, ds,
-               bucket_bytes, layout, use_kernel_add: bool) -> int:
-    """``train`` past its plan: build the step for the mesh (``layout``:
-    the model-axis size, the data-parallel ranks, all ranks, the axis
-    names, whether EP runs, and the data-parallel MoE step's reckoned
-    memory where it runs) and the arch, run the trainer, print its
-    report."""
+def _train_run(args, arch, build, plan, gen, ds, bucket_bytes) -> int:
+    """``train`` past its plan: the step :func:`build_train_step
+    <repro_torch.launch.train.build_train_step>` picked for the mesh and
+    the arch (``build``), its state drawn from ``gen``; run the trainer,
+    print its report."""
     from repro_torch.data import batches as mesh_batches
     from repro_torch.parallel import moe_a2a
     from repro_torch.parallel.sharding import batch_spec
     from repro_torch.parallel.tensor import data_groups, model_groups
-    from repro_torch.train import (
-        Trainer, TrainerConfig, init_state, make_overlap_train_step,
-        make_train_step, partition_tree)
-    from repro_torch.train.sharded_step import (
-        DenseMoETrainStep, init_sharded_state, make_ep_train_step,
-        make_sharded_train_step)
+    from repro_torch.train import Trainer, TrainerConfig, partition_tree
 
-    m, dp, n, axes, ep, memory = layout
-    device = model.device
-    tp_step = None
-    if ep:
-        if reducer is None or reducer.n != dp:
-            raise ValueError(f"the data axis's all-reduce spans "
-                             f"{getattr(reducer, 'n', None)} ranks, the "
-                             f"mesh's data-parallel ranks {dp}")
-        tp_step = make_ep_train_step(model, opt, mesh, reducer,
-                                     use_kernel_add)
-        step_fn = tp_step
-        state = init_sharded_state(model, gen, tp_step.layout)
+    mesh, reducer, tp_step = build.mesh, build.reducer, build.sharded
+    m, dp, n = build.layout["m"], build.layout["dp"], build.layout["n"]
+    axes, ep, memory = mesh.axis_names, build.layout["ep"], build.memory
+    device = build.model.device
+    step_fn = build.step
+    state = build.state(gen)
+    if build.kind == "ep":
         rep = tp_step.replicated(state.params)
         rep_bytes = sum(t.numel() * t.element_size() for t in rep)
         buckets = partition_tree(rep, reducer.bucket_bytes)
@@ -534,12 +463,8 @@ def _train_run(args, arch, model, mesh, plan, reducer, opt, gen, ds,
               f"{list(reducer.schedule.order)}, {len(buckets)} buckets of "
               f"{reducer.bucket_bytes:.0f} bytes, transport "
               f"{reducer.transport}")
-        batches = mesh_batches(ds, mesh, batch_spec(mesh))
         moe_a2a.reset_ep_stats()
-    elif memory is not None:
-        tp_step = DenseMoETrainStep(model, opt, mesh, reducer, use_kernel_add)
-        step_fn = tp_step
-        state = init_sharded_state(model, gen, tp_step.layout)
+    elif build.kind == "dense_moe":
         buckets = partition_tree(state.params, reducer.bucket_bytes)
         print(f"[train] {arch.name} on {device}: mesh {args.mesh} "
               f"({', '.join(axes)}), {dp} data-parallel ranks x "
@@ -552,15 +477,7 @@ def _train_run(args, arch, model, mesh, plan, reducer, opt, gen, ds,
               f"{list(reducer.schedule.order)}, {len(buckets)} buckets of "
               f"{reducer.bucket_bytes:.0f} bytes, transport "
               f"{reducer.transport}")
-        batches = mesh_batches(ds, mesh, batch_spec(mesh))
-    elif m > 1:
-        if reducer is not None and reducer.n != dp:
-            raise ValueError(f"the data axis's all-reduce spans {reducer.n} "
-                             f"ranks, the mesh's data-parallel ranks {dp}")
-        tp_step = make_sharded_train_step(model, opt, mesh, reducer,
-                                          use_kernel_add)
-        step_fn = tp_step
-        state = init_sharded_state(model, gen, tp_step.layout)
+    elif build.kind == "tensor_parallel":
         leaves = tp_step.layout.counts()
         buckets = partition_tree(state.params, bucket_bytes)
         print(f"[train] {arch.name} on {device}: mesh {args.mesh} "
@@ -574,25 +491,20 @@ def _train_run(args, arch, model, mesh, plan, reducer, opt, gen, ds,
               + (f"all-reduce ring over {dp} ranks, {len(buckets)} buckets of "
                  f"{bucket_bytes:.0f} bytes, transport {reducer.transport}"
                  if reducer is not None else "none (one data-parallel rank)"))
+    elif build.kind == "one_rank":
+        print(f"[train] {arch.name} on {device}: one rank, no all-reduce")
+    else:
+        buckets = partition_tree(state.params, reducer.bucket_bytes)
+        print(f"[train] {arch.name} on {device}: {n} data-parallel ranks "
+              f"x {args.batch // n} x {args.seq} tokens; all-reduce "
+              f"{reducer.schedule.algorithm} order "
+              f"{list(reducer.schedule.order)}, {len(buckets)} buckets of "
+              f"{reducer.bucket_bytes:.0f} bytes, transport "
+              f"{reducer.transport}")
+    if build.global_batch:
         batches = mesh_batches(ds, mesh, batch_spec(mesh))
     else:
-        state = init_state(model, gen)
-        if reducer is None:
-            step_fn = make_train_step(model, opt)    # one rank: no all-reduce
-            print(f"[train] {arch.name} on {device}: one rank, no all-reduce")
-        else:
-            if reducer.n != n:
-                raise ValueError(f"the plan's all-reduce spans {reducer.n} "
-                                 f"ranks, the mesh {n}")
-            buckets = partition_tree(state.params, reducer.bucket_bytes)
-            print(f"[train] {arch.name} on {device}: {n} data-parallel ranks "
-                  f"x {args.batch // n} x {args.seq} tokens; all-reduce "
-                  f"{reducer.schedule.algorithm} order "
-                  f"{list(reducer.schedule.order)}, {len(buckets)} buckets of "
-                  f"{reducer.bucket_bytes:.0f} bytes, transport "
-                  f"{reducer.transport}")
-            step_fn = make_overlap_train_step(model, opt, reducer)
-        rows = mesh.batch_rows(args.batch)   # data shard i on rank mesh.order[i]
+        rows = mesh.batch_rows(args.batch)  # data shard i on rank mesh.order[i]
 
         def host_batches():
             i = 0
@@ -667,8 +579,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
     from repro_torch.launch import build_mesh
+    from repro_torch.launch.serve import serve_arch, serving_layout
     from repro_torch.models import get_model
-    from repro_torch.parallel.moe_a2a import arm_ep, clear_ep
     from repro_torch.serve import GenerationConfig, GenerationEngine
     from repro_torch.session import serve_mix
 
@@ -683,8 +595,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
     arch = get_config(args.arch)
     if args.smoke:
         arch = arch.smoke()
-    arch = dataclasses.replace(arch, wkv_impl=args.wkv_impl,
-                               attention_impl=args.attention_impl)
+    arch = serve_arch(arch, args.attention_impl, args.wkv_impl)
     mix = serve_mix(cfg.payload_bytes, moe=bool(arch.n_experts))
     # a one-rank mesh, or --reorder none, plans nothing
     mesh, plan = build_mesh(args, mix=mix, session_config=cfg, device=device)
@@ -707,22 +618,12 @@ def cmd_serve(args: argparse.Namespace) -> int:
     if plan is not None:
         print(f"[serve] plan {plan.fingerprint.digest} hints: "
               f"{eng.collective_hints(cfg.payload_bytes)}")
-    sizes = dict(zip(mesh.axis_names, mesh.shape))
-    # the EP half of the reference's configure_sp: an MoE arch on a mesh
-    # whose data axis has more than one rank runs its prompts' experts
-    # through the EP all-to-all, in the plan's order
-    armed = bool(arch.n_experts) and sizes.get("data", 1) > 1
-    if armed:
-        arm_ep(mesh, "data", "model" if sizes.get("model", 1) > 1 else None,
-               plan=plan)
     timer = obs.tracer().timer("cli.serve.generate", batch=args.batch)
-    try:
-        with timer:
-            # ends on a host copy: synchronised
-            outs = eng.generate(prompts, frontend_embeds=fe)
-    finally:
-        if armed:
-            clear_ep()
+    # an MoE arch on a data axis of 2 or more ranks runs its prompts'
+    # experts through the EP all-to-all, in the plan's order
+    with serving_layout(arch, mesh, plan), timer:
+        # ends on a host copy: synchronised
+        outs = eng.generate(prompts, frontend_embeds=fe)
     dt = max(timer.elapsed, 1e-9)
     total = sum(len(o) for o in outs)
     print(f"[serve] arch={arch.name} {total} tokens in {dt:.2f}s "

@@ -39,6 +39,7 @@ torch evaluator of :mod:`repro_torch.kernels.solver_eval`, on ``device``
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import time
 from typing import Any, List, Optional, Tuple
@@ -132,11 +133,20 @@ def held_karp(c: np.ndarray) -> Tuple[np.ndarray, float]:
     return np.asarray(tour, dtype=np.int64), best
 
 
+@functools.lru_cache(maxsize=8)
+def _all_perms(n: int) -> np.ndarray:
+    """Every permutation of ``range(n)`` in lexicographic order, built once
+    an ``n`` (read-only)."""
+    perms = np.asarray(list(itertools.permutations(range(n))), dtype=np.int64)
+    perms.setflags(write=False)
+    return perms
+
+
 def exhaustive(cost_model: CostModel) -> Tuple[np.ndarray, float]:
     """Brute force over all N! permutations (N <= 8), batched eval."""
     n = cost_model.n
     assert n <= 8, "exhaustive limited to N <= 8"
-    perms = np.asarray(list(itertools.permutations(range(n))), dtype=np.int64)
+    perms = _all_perms(n)
     costs = np.concatenate(
         [cost_model.cost_batch(perms[i : i + 8192]) for i in range(0, len(perms), 8192)]
     )

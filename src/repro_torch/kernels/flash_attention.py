@@ -40,12 +40,13 @@ What bounds it on an H100: at the dense serving path's prefill shape
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 
-from . import build
+from . import accounting, build
 
 __all__ = ["HEAD_DIMS", "KERNELS", "flash_attention", "flash_attention_plain",
            "work"]
@@ -121,6 +122,7 @@ def flash_attention_plain(
     return (acc / safe[..., None]).reshape(B, H, S, hd).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
 def valid_pairs(S: int, causal: bool, window: int) -> int:
     """(query, key) pairs the mask lets through, for one (batch row, head)."""
     total = 0
@@ -189,7 +191,9 @@ def flash_attention(
     """Attention forward ``[B, H, S, hd]`` in ``q``'s dtype.
 
     On CUDA tensors it launches the kernel (or raises); on CPU tensors it
-    runs :func:`flash_attention_plain`.  ``flash_attention.launches``
+    runs :func:`flash_attention_plain`; on meta tensors it launches
+    nothing and returns an empty output (:mod:`.accounting` tallies
+    :func:`work` there and at each launch).  ``flash_attention.launches``
     counts kernel launches, ``flash_attention.kernel_launches[name]``
     those of each kernel of :data:`KERNELS`.
     """
@@ -197,8 +201,16 @@ def flash_attention(
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      sm_scale=sm_scale, block_q=block_q,
                                      block_k=block_k)
+    if q.device.type == "meta":
+        # the dry run: the kernel's work and an empty output, no launch
+        _check_args(q, k, v, block_q, block_k)
+        accounting.record("flash_attention", lambda: work(
+            *q.shape[:2], k.shape[1], q.shape[2], q.shape[3], causal,
+            window, q.element_size()))
+        return q.new_empty(q.shape)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+        raise ValueError(f"flash_attention runs on cuda or cpu (and stands "
+                         f"in on meta), not {q.device}")
     _check_args(q, k, v, block_q, block_k)
     _check_cuda(q, k, v)
     B, H, S, hd = q.shape
@@ -225,6 +237,8 @@ def flash_attention(
                            f"{err} ({KERNELS[kernel.value]})")
     flash_attention.launches += 1
     flash_attention.kernel_launches[KERNELS[kernel.value]] += 1
+    accounting.record("flash_attention", lambda: work(
+        B, H, KV, S, hd, causal, window, q.element_size()))
     return out
 
 

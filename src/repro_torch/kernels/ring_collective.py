@@ -42,7 +42,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import build
+from . import accounting, build
 
 __all__ = ["RingState", "fused_add", "fused_add_plain",
            "peer_ring_schedule_plain", "remote_ring_reduce_scatter",
@@ -99,7 +99,9 @@ def fused_add(a: torch.Tensor, b: torch.Tensor,
 
     ``out`` (same shape, dtype and device; may be ``a`` itself) receives
     the result, else a new tensor does.  On CUDA tensors it launches the
-    kernel or raises; on CPU tensors it runs :func:`fused_add_plain`.
+    kernel or raises; on CPU tensors it runs :func:`fused_add_plain`; on
+    meta tensors it launches nothing (:mod:`.accounting` tallies
+    :func:`work` there and at each launch).
     ``fused_add.launches`` counts kernel launches.
     """
     if a.shape != b.shape:
@@ -108,8 +110,14 @@ def fused_add(a: torch.Tensor, b: torch.Tensor,
     if a.device.type == "cpu":
         res = fused_add_plain(a, b)
         return res if out is None else out.copy_(res)
+    if a.device.type == "meta":
+        # the dry run: the kernel's work, no launch
+        accounting.record("fused_add", lambda: (0, work(a.numel(),
+                                                        a.element_size())))
+        return torch.empty_like(a) if out is None else out
     if a.device.type != "cuda":
-        raise ValueError(f"fused_add runs on cuda or cpu, not {a.device}")
+        raise ValueError(f"fused_add runs on cuda or cpu (and stands in on "
+                         f"meta), not {a.device}")
     _check_cuda(a, b, out)
     if out is None:
         out = torch.empty_like(a)
@@ -124,6 +132,8 @@ def fused_add(a: torch.Tensor, b: torch.Tensor,
     if err:
         raise RuntimeError(f"fused_add kernel launch failed: CUDA error {err}")
     fused_add.launches += 1
+    accounting.record("fused_add", lambda: (0, work(a.numel(),
+                                                    a.element_size())))
     return out
 
 
@@ -478,8 +488,14 @@ def remote_ring_reduce_scatter(
         raise ValueError("the ring needs a contiguous x")
     if x.device.type == "cpu":
         return remote_ring_reduce_scatter_plain(x, perm)
+    if x.device.type == "meta":
+        # the dry run: the function's bytes, no launch
+        accounting.record("peer_ring", lambda: (0, ring_work(
+            n, C * n, x.element_size())[1]))
+        return x.new_empty((n, C))
     if x.device.type != "cuda":
-        raise ValueError(f"the ring runs on cuda or cpu, not {x.device}")
+        raise ValueError(f"the ring runs on cuda or cpu (and stands in on "
+                         f"meta), not {x.device}")
     lib = _ring_lib()
     out = torch.empty((n, C), dtype=x.dtype, device=x.device)
     item = x.element_size()
@@ -497,6 +513,7 @@ def remote_ring_reduce_scatter(
     if err:
         raise RuntimeError(f"peer_ring kernel launch failed: CUDA error {err}")
     remote_ring_reduce_scatter.launches += 1
+    accounting.record("peer_ring", lambda: (0, ring_work(n, C * n, item)[1]))
     return out
 
 

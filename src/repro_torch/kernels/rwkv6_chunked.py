@@ -35,7 +35,7 @@ from typing import Tuple
 
 import torch
 
-from . import build
+from . import accounting, build
 
 __all__ = ["MAX_CHUNK", "tensor_core_flops", "wkv_chunked_matmul",
            "wkv_chunked_matmul_plain", "wkv_chunked_schedule_plain"]
@@ -245,13 +245,26 @@ def wkv_chunked_matmul(
     """Chunked WKV from a zero state: ``(y [B,S,H,V], S_T [B,H,K,V] f32)``.
 
     On CUDA tensors it launches the kernel (or raises); on CPU tensors it
-    runs :func:`wkv_chunked_matmul_plain`.  ``wkv_chunked_matmul.launches``
+    runs :func:`wkv_chunked_matmul_plain`; on meta tensors it launches
+    nothing (:mod:`.accounting` tallies :func:`work` there and at each
+    launch).  ``wkv_chunked_matmul.launches``
     counts kernel launches.
     """
     if r.device.type == "cpu":
         return wkv_chunked_matmul_plain(r, k, v, w, u, chunk=chunk)
+    if r.device.type == "meta":
+        # the dry run: the kernel's work and empty outputs, no launch
+        check_cuda_inputs("wkv_chunked", r, k, v, w, u)
+        B, S, H, K = r.shape
+        V = v.shape[-1]
+        T = _check_chunk(S, chunk)
+        accounting.record("wkv_chunked", lambda: work(
+            B, S, H, K, V, T, r.element_size())[::-1])
+        return (v.new_empty((B, S, H, V)),
+                r.new_empty((B, H, K, V), dtype=torch.float32))
     if r.device.type != "cuda":
-        raise ValueError(f"wkv_chunked runs on cuda or cpu, not {r.device}")
+        raise ValueError(f"wkv_chunked runs on cuda or cpu (and stands in on "
+                         f"meta), not {r.device}")
     check_cuda_inputs("wkv_chunked", r, k, v, w, u)
     B, S, H, K = r.shape
     V = v.shape[-1]
@@ -273,6 +286,8 @@ def wkv_chunked_matmul(
     if err:
         raise RuntimeError(f"wkv_chunked kernel launch failed: CUDA error {err}")
     wkv_chunked_matmul.launches += 1
+    accounting.record("wkv_chunked", lambda: work(
+        B, S, H, K, V, T, r.element_size())[::-1])
     return y, state
 
 

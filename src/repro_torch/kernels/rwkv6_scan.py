@@ -30,7 +30,7 @@ from typing import Tuple
 
 import torch
 
-from . import build
+from . import accounting, build
 from .ref import wkv_recurrence
 from .rwkv6_chunked import (
     _DTYPE_CODE, MAX_HEAD_DIM, SLICE_COLUMNS, _pad_channels, check_cuda_inputs)
@@ -155,13 +155,24 @@ def wkv_scan(
 
     ``chunk = min(chunk, S)`` must divide S, as in the reference.  On
     CUDA tensors it launches the kernel (or raises); on CPU tensors it
-    runs :func:`wkv_scan_plain`.  ``wkv_scan.launches`` counts kernel
+    runs :func:`wkv_scan_plain`; on meta tensors it launches nothing
+    (:mod:`.accounting` tallies :func:`work` there and at each launch).  ``wkv_scan.launches`` counts kernel
     launches.
     """
     if r.device.type == "cpu":
         return wkv_scan_plain(r, k, v, w, u, chunk=chunk)
+    if r.device.type == "meta":
+        # the dry run: the kernel's work and empty outputs, no launch
+        check_cuda_inputs("wkv_scan", r, k, v, w, u)
+        B, S, H, K = r.shape
+        V = v.shape[-1]
+        _check_chunk(S, chunk)
+        accounting.record("wkv_scan", lambda: work(
+            B, S, H, K, V, r.element_size())[::-1])
+        return v.new_empty((B, S, H, V))
     if r.device.type != "cuda":
-        raise ValueError(f"wkv_scan runs on cuda or cpu, not {r.device}")
+        raise ValueError(f"wkv_scan runs on cuda or cpu (and stands in on "
+                         f"meta), not {r.device}")
     check_cuda_inputs("wkv_scan", r, k, v, w, u)
     B, S, H, K = r.shape
     V = v.shape[-1]
@@ -182,6 +193,8 @@ def wkv_scan(
     if err:
         raise RuntimeError(f"wkv_scan kernel launch failed: CUDA error {err}")
     wkv_scan.launches += 1
+    accounting.record("wkv_scan", lambda: work(
+        B, S, H, K, V, r.element_size())[::-1])
     return y
 
 

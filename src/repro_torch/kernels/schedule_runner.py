@@ -136,6 +136,17 @@ def device_tables(schedule: LoweredSchedule, device: torch.device
     return tuple(out)
 
 
+#: :func:`issue_round` calls running; see :func:`in_links`
+_LINKS = [0]
+
+
+def in_links() -> bool:
+    """An :func:`issue_round` is running: the operations under way stand
+    for the links, whose traffic is the collective's own (the dry run's
+    byte counter leaves them to the collective's tally)."""
+    return _LINKS[0] > 0
+
+
 def issue_round(state: torch.Tensor, steps: Sequence[_Step],
                 cols: slice) -> List[torch.Tensor]:
     """Gather and "send" one round's payloads from the current state.
@@ -147,14 +158,18 @@ def issue_round(state: torch.Tensor, steps: Sequence[_Step],
     """
     view = state[:, :, cols]
     out = []
-    for st in steps:
-        payload = view[st.src, st.send]                 # [L, m, piece_len]
-        if st.all_receive:
-            out.append(payload)
-            continue
-        received = view.new_zeros((state.shape[0], *payload.shape[1:]))
-        received[st.dst] = payload
-        out.append(received)
+    _LINKS[0] += 1
+    try:
+        for st in steps:
+            payload = view[st.src, st.send]             # [L, m, piece_len]
+            if st.all_receive:
+                out.append(payload)
+                continue
+            received = view.new_zeros((state.shape[0], *payload.shape[1:]))
+            received[st.dst] = payload
+            out.append(received)
+    finally:
+        _LINKS[0] -= 1
     return out
 
 

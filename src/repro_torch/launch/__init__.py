@@ -12,10 +12,12 @@ the session drives:
 * :mod:`.hlo_analysis` — collective accounting from HLO text and the
   roofline terms at an H100's datasheet rates;
 * :mod:`.specs` — the cells' sharded stand-ins, ``configure_sp`` and
-  ``input_specs``.
+  ``input_specs``;
+* :mod:`.dryrun` — the dry run of every (arch x shape) cell on the
+  production meshes, counted on ``meta`` tensors (``python -m
+  repro_torch.launch.dryrun``, ROADMAP.md §1 item 15b).
 
-The reference's dry run (``launch/dryrun.py``) is not ported yet
-(ROADMAP.md §1 item 15b).  Submodules import lazily, as the reference's
+Submodules import lazily, as the reference's
 do; a name re-exported here is looked up in its module at each access,
 so :meth:`Session.wrap <repro_torch.session.Session.wrap>`'s patches
 reach it.
@@ -23,7 +25,7 @@ reach it.
 
 from importlib import import_module
 
-_SUBMODULES = ("hlo_analysis", "mesh", "serve", "specs", "train")
+_SUBMODULES = ("dryrun", "hlo_analysis", "mesh", "serve", "specs", "train")
 
 #: names re-exported from a submodule, resolved at each access
 _NAMES = {

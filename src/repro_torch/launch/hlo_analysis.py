@@ -12,9 +12,9 @@ of a step at an :class:`HW`'s rates.
 The port emits no HLO: :func:`parse_collectives`, :class:`CollectiveStats`
 and ``JobMix.from_hlo`` read only text that XLA compiled (a JAX program's
 ``compile().as_text()``, or a dump of one), so a job mix taken from a
-JAX run can be planned here.  The port's own dry run (``ROADMAP.md``
-item 15b) counts its collectives from its runners instead, and feeds
-:func:`roofline_terms` at :class:`HW`.
+JAX run can be planned here.  The port's own dry run
+(:mod:`repro_torch.launch.dryrun`) counts its collectives from its
+runners instead, and feeds :func:`roofline_terms` at :class:`HW`.
 
 :class:`HW`'s defaults are datasheet figures for an NVIDIA H100 80GB HBM3
 (SXM) at its 700 W limit, as ``nvidia-smi --query-gpu=name,power.limit

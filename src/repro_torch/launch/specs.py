@@ -6,8 +6,10 @@ meta-device tensor with the reference's shape and dtype paired with its
 partition spec (:class:`MetaSpec`): nothing is allocated, so the
 236B-parameter cells build on any host.  :func:`configure_sp` arms the
 sequence-parallel and expert-parallel contexts as the reference's
-launchers do, and :func:`step_callable` is the function each cell runs.
-The dry run that lowers these cells is ROADMAP.md §1 item 15b.
+launchers do, and :func:`step_callable` is the function each cell runs
+unsharded.  The dry run (:mod:`repro_torch.launch.dryrun`, ROADMAP.md §1
+item 15b) counts each cell through the step the port's command runs on
+the mesh instead, and reads these stand-ins for its serving cells.
 """
 
 from __future__ import annotations

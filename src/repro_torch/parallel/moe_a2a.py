@@ -71,7 +71,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import schedule_runner
+from repro_torch.kernels import accounting, schedule_runner
 
 __all__ = ["arm_ep", "clear_ep", "ep_armed", "ep_rank", "ep_stats",
            "moe_a2a", "moe_ranks", "reset_ep_stats", "whole_weights"]
@@ -158,6 +158,22 @@ def _count(key: str, value) -> None:
     _STATS[key] = _STATS.get(key, 0) + value
 
 
+class _TallyBackward(torch.autograd.Function):
+    """The identity, whose backward reports the all-to-all that carries
+    the cotangents back to their senders
+    (:mod:`repro_torch.kernels.accounting`)."""
+
+    @staticmethod
+    def forward(ctx, x, n_bytes):
+        ctx.n_bytes = n_bytes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        accounting.collective("all-to-all", lambda: ctx.n_bytes)
+        return g, None
+
+
 def _in_backward() -> bool:
     """A backward pass is running (a checkpoint's recompute included)."""
     return torch._C._current_graph_task_id() != -1
@@ -197,10 +213,15 @@ def _shift_perms(n: int, order: Optional[Tuple[int, ...]] = None):
 
 
 def _a2a_shift(x: torch.Tensor, n: int,
-               order: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+               order: Optional[Tuple[int, ...]] = None,
+               share: int = 1) -> torch.Tensor:
     """The all-to-all over the virtual mesh: ``x [n, n, ...]`` — rank
     ``i``'s piece ``j`` is addressed to rank ``j`` — to ``[n, n, ...]``
-    with rank ``d``'s piece ``s`` received from rank ``s``.
+    with rank ``d``'s piece ``s`` received from rank ``s``.  It is
+    reported to an open :class:`~repro_torch.kernels.accounting.
+    KernelWork`, forward, recompute and backward alike, as one rank's
+    result, its row over ``share`` (the model ranks whose columns a row
+    holds).
 
     The certified schedule of :func:`_lowered_a2a` runs through
     :func:`~repro_torch.kernels.schedule_runner.run_schedule` (its
@@ -213,6 +234,11 @@ def _a2a_shift(x: torch.Tensor, n: int,
     # out[d, s * n + d]: the piece s sent to d
     pick = torch.arange(n, device=x.device)
     got = out.reshape(n, n, n, -1)[pick[:, None], pick[None, :], pick[:, None]]
+    if accounting.counting():
+        n_bytes = x[0].numel() // share * x.element_size()
+        accounting.collective("all-to-all", lambda: n_bytes)
+        if got.requires_grad:
+            got = _TallyBackward.apply(got, n_bytes)
     return got.reshape(x.shape)
 
 
@@ -415,8 +441,8 @@ def moe_ranks(ps: Sequence[Dict[str, Any]], xs: Sequence[torch.Tensor],
         aux.extend(t[3] for t in per)
 
     # -- the dispatch all-to-all over the data axis, every column --------
-    recv_x = _a2a_shift(torch.stack(send_x), n, order)
-    recv_e = _a2a_shift(torch.stack(send_e), n, order)
+    recv_x = _a2a_shift(torch.stack(send_x), n, order, cols)
+    recv_e = _a2a_shift(torch.stack(send_e), n, order, cols)
 
     # -- each rank's experts, at full d_ff, on what each column received -
     backs = []
@@ -432,7 +458,7 @@ def moe_ranks(ps: Sequence[Dict[str, Any]], xs: Sequence[torch.Tensor],
             for j in range(cols)], 1))
 
     # -- the return trip and the combine ---------------------------------
-    ret = _a2a_shift(torch.stack(backs), n, order)
+    ret = _a2a_shift(torch.stack(backs), n, order, cols)
     ys = []
     for r in range(n):
         shared = None

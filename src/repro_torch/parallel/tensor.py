@@ -60,6 +60,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.collective.executors import LoweredSchedule
+from repro_torch.kernels import accounting
 from repro_torch.kernels.schedule_runner import run_schedule
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -197,6 +198,10 @@ def certified_reduce_scatter(n: int) -> LoweredSchedule:
     return sched
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 @functools.lru_cache(maxsize=32)
 def _certified_allreduce(n: int) -> LoweredSchedule:
     from repro_torch.train.overlap_grads import certified_allreduce
@@ -305,7 +310,11 @@ class TensorParallel:
 
     ``counts`` tallies the schedule runs by kind (``allreduce``,
     ``allgather``, and ``reducescatter`` once one has run), forward,
-    backward and recompute alike.
+    backward and recompute alike.  Each run is also reported to an open
+    :class:`~repro_torch.kernels.accounting.KernelWork` as one rank's
+    result; ``groups`` is the number of data-parallel groups whose runs
+    the caller makes one after another (1 outside a step's per-group
+    gradients), of which a rank takes part in one.
     """
 
     def __init__(self, mesh, pspecs: Any, use_kernel_add: bool = True):
@@ -319,22 +328,28 @@ class TensorParallel:
         self.allgather_schedule = certified_all_gather(self.m)
         self.reducescatter_schedule = certified_reduce_scatter(self.m)
         self.counts: Dict[str, int] = {"allreduce": 0, "allgather": 0}
+        self.groups = 1
 
     # -- the schedule runs --------------------------------------------------
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """``[m, ...]`` rank partials -> their sum ``[...]``."""
         self.counts["allreduce"] += 1
+        accounting.collective("all-reduce", lambda: _nbytes(x[0]),
+                              self.groups)
         return all_reduce_rows(x, self.allreduce_schedule, self.use_kernel_add)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """``[m, ...]`` one row a rank -> the gathered ``[m, ...]``."""
         self.counts["allgather"] += 1
+        accounting.collective("all-gather", lambda: _nbytes(x), self.groups)
         return all_gather_rows(x, self.allgather_schedule)
 
     def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
         """``[m, m, ...]`` every rank's share of every chunk -> ``[m, ...]``,
         rank ``k`` holding the sum of chunk ``k``."""
         self.counts["reducescatter"] = self.counts.get("reducescatter", 0) + 1
+        accounting.collective("reduce-scatter", lambda: _nbytes(x[0, 0]),
+                              self.groups)
         return reduce_scatter_rows(x, self.reducescatter_schedule,
                                    self.use_kernel_add)
 

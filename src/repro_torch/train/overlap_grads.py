@@ -51,6 +51,7 @@ from repro_torch.analysis import require_certified
 from repro_torch.collective import CollectiveOp, Program, ScheduleLowering, compile_op
 from repro_torch.collective.executors import LoweredSchedule
 from repro_torch.collective.passes import apply_permutation, chunk as chunk_pass
+from repro_torch.kernels import accounting
 from repro_torch.kernels.overlap import run_overlapped
 from repro_torch.kernels.ring_collective import remote_ring_reduce_scatter
 from repro_torch.optim import apply_opt
@@ -216,20 +217,34 @@ class OverlapGradReducer:
         return buckets
 
     # -- the reduction -----------------------------------------------------
-    def _payload(self, leaves: List[torch.Tensor], bkt: GradBucket
-                 ) -> torch.Tensor:
-        """Bucket ``bkt`` as ``[n, D]``, zero-padded to the schedule's quantum."""
+    def _payload(self, leaves: List[torch.Tensor], bkt: GradBucket,
+                 shares: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """Bucket ``bkt`` as ``[n, D]``, zero-padded to the schedule's
+        quantum; reported to an open
+        :class:`~repro_torch.kernels.accounting.KernelWork` as one
+        all-reduce of one rank's gradients (``shares``: see
+        :meth:`__call__`)."""
         n = self.n
         quantum = self.schedule.n_chunks * max(1, self.schedule.chunk_factor)
         flat = [leaves[i].reshape(n, -1) for i in bkt.leaf_ids]
         pad = (-bkt.n_elems) % quantum
+        accounting.collective("all-reduce", lambda: sum(
+            sz // (shares[i] if shares else 1)
+            for i, sz in zip(bkt.leaf_ids, bkt.sizes))
+            * leaves[bkt.leaf_ids[0]].element_size())
         if pad:
             flat.append(flat[0].new_zeros((n, pad)))
         return flat[0] if len(flat) == 1 else torch.cat(flat, dim=1)
 
     def __call__(self, stacked_tree,
-                 compute: Sequence[Callable[[], Any]] = ()
+                 compute: Sequence[Callable[[], Any]] = (),
+                 shares: Optional[Sequence[int]] = None
                  ) -> Tuple[Any, List[Any]]:
+        """The mean of ``stacked_tree``'s ``[n, ...]`` leaves over the
+        ranks, and ``compute``'s results.  ``shares`` (per leaf, default
+        1): the ranks of a real mesh whose pieces one row of the leaf
+        holds (the model axis's ``m`` for a leaf in model-axis storage),
+        so that a rank's all-reduce carries ``1/share`` of the row."""
         leaves = tree_leaves(stacked_tree)
         buckets = self.buckets_for(stacked_tree)
         n = self.n
@@ -293,12 +308,12 @@ class OverlapGradReducer:
             if self.transport == "peer_ring":
                 # queued on the stream; the thunks below run behind it
                 outs[b] = remote_ring_reduce_scatter(
-                    self._payload(leaves, bkt),
+                    self._payload(leaves, bkt, shares),
                     perm=self.schedule.order).reshape(-1)
                 res = [fn() for _, fn in shards]
             else:
                 state, res = run_overlapped(
-                    self._payload(leaves, bkt), self.schedule,
+                    self._payload(leaves, bkt, shares), self.schedule,
                     compute=[fn for _, fn in shards],
                     use_kernel_add=self.use_kernel_add, return_state=True)
                 # out[0] of run_schedule, kept without the other ranks' rows

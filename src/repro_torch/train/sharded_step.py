@@ -60,6 +60,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import accounting
 from repro_torch.optim import OptState
 from repro_torch.optim.adamw import adamw_update
 from repro_torch.parallel import sharding as shd
@@ -72,8 +73,8 @@ from .train_step import TrainState, batch_on
 
 __all__ = ["DenseMoETrainStep", "EPTrainStep", "RankViewTrainStep",
            "ShardedLayout", "expert_leaves", "init_sharded_state",
-           "make_ep_train_step", "make_sharded_train_step", "param_shapes",
-           "reckon_dense_moe_memory"]
+           "layout_state", "make_ep_train_step", "make_sharded_train_step",
+           "param_shapes", "reckon_dense_moe_memory"]
 
 #: the in-place update's slice of a large leaf (f32 temporaries of 256 MB)
 UPDATE_ELEMS = 1 << 26
@@ -126,6 +127,13 @@ class ShardedLayout:
             zdims.append(moved[0] + lead if moved else None)
         return cls(mesh, pspecs, sizes.get("model", 1), dp, zdims)
 
+    @property
+    def shares(self) -> List[int]:
+        """Per leaf, the model-axis ranks its storage is split over: ``m``
+        for a leaf in model-axis storage, else 1."""
+        return [self.m if model_dim(s) is not None and self.m > 1 else 1
+                for s in tree_leaves(self.pspecs)]
+
     def counts(self) -> Dict[str, int]:
         """Leaves sharded over the model axis, replicated, and ZeRO-1
         sliced."""
@@ -139,7 +147,14 @@ def init_sharded_state(model, generator: torch.Generator,
                        layout: ShardedLayout) -> TrainState:
     """Parameters drawn from ``generator`` (the unsharded model's), held
     in model-axis storage; zero moments, ZeRO-1 sliced; step 0."""
-    params = shard_params(model.init(generator), layout.pspecs, layout.m)
+    return layout_state(model.init(generator), layout)
+
+
+def layout_state(params: Any, layout: ShardedLayout) -> TrainState:
+    """The logical ``params`` held in model-axis storage, zero moments,
+    ZeRO-1 sliced, and step 0, on the parameters' device (on ``meta``:
+    the dry run's stand-ins, nothing allocated)."""
+    params = shard_params(params, layout.pspecs, layout.m)
 
     def zeros(p, zd):
         shape = p.shape if zd is None else _zslice(
@@ -149,7 +164,7 @@ def init_sharded_state(model, generator: torch.Generator,
     leaves = tree_leaves(params)
     m_ = tree_unflatten(params, [zeros(p, z) for p, z in zip(leaves, layout.zdims)])
     v_ = tree_unflatten(params, [zeros(p, z) for p, z in zip(leaves, layout.zdims)])
-    dev = generator.device
+    dev = leaves[0].device
     return TrainState(params, OptState(m_, v_, torch.zeros((), dtype=torch.int32,
                                                            device=dev)),
                       torch.zeros((), dtype=torch.int32, device=dev))
@@ -161,7 +176,9 @@ class ShardedTrainStep:
     ``counts`` tallies the collectives run: ``model_allreduce`` and
     ``model_allgather`` (the model axis: forward, backward, recompute and
     the clip), ``data_allgather`` (ZeRO-1's), ``data_allreduce`` (the
-    reducer's calls).
+    reducer's calls).  The data-parallel ranks' gradients run one after
+    another, so the model axis's collectives of that part report
+    ``groups=dp`` (:mod:`repro_torch.kernels.accounting`).
     """
 
     def __init__(self, model, opt_cfg, mesh, reducer=None,
@@ -196,24 +213,30 @@ class ShardedTrainStep:
         gradient in model-axis storage, after the data-axis all-reduce."""
         shards = self.dp_batches(batch)
         losses, stacked = [], None
-        for k, shard in enumerate(shards):
-            leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-            with torch.enable_grad():
-                loss = self.model.loss(tree_unflatten(params, leaves), shard,
-                                       tp=self.tp)
-            grads = torch.autograd.grad(loss, leaves)
-            losses.append(loss.detach())
-            if len(shards) == 1:
-                stacked = list(grads)
-                break
-            if stacked is None:
-                stacked = [g.new_empty((len(shards), *g.shape)) for g in grads]
-            for buf, g in zip(stacked, grads):
-                buf[k].copy_(g)
-            del grads
+        self.tp.groups = len(shards)
+        try:
+            for k, shard in enumerate(shards):
+                leaves = [p.detach().requires_grad_()
+                          for p in tree_leaves(params)]
+                with torch.enable_grad():
+                    loss = self.model.loss(tree_unflatten(params, leaves),
+                                           shard, tp=self.tp)
+                grads = torch.autograd.grad(loss, leaves)
+                losses.append(loss.detach())
+                if len(shards) == 1:
+                    stacked = list(grads)
+                    break
+                if stacked is None:
+                    stacked = [g.new_empty((len(shards), *g.shape))
+                               for g in grads]
+                for buf, g in zip(stacked, grads):
+                    buf[k].copy_(g)
+                del grads
+        finally:
+            self.tp.groups = 1
         tree = tree_unflatten(params, stacked)
         if len(shards) > 1:
-            tree, _ = self.reducer(tree)
+            tree, _ = self.reducer(tree, shares=self.layout.shares)
             self.counts["data_allreduce"] += 1
         return torch.stack(losses).mean(), tree
 
@@ -242,7 +265,8 @@ class ShardedTrainStep:
             new_m.append(m_)
             new_v.append(v_)
         for ids in sliced.values():
-            whole = self._gather([new_p[i] for i in ids])
+            whole = self._gather([new_p[i] for i in ids],
+                                 [self.layout.shares[i] for i in ids])
             for i, t in zip(ids, whole):
                 new_p[i] = _unslice(t, self.layout.zdims[i]).contiguous()
         metrics = {"grad_norm": gnorm,
@@ -253,15 +277,20 @@ class ShardedTrainStep:
         return TrainState(tree_unflatten(state.params, new_p), opt,
                           state.step + 1), metrics
 
-    def _gather(self, slices: List[torch.Tensor]) -> List[torch.Tensor]:
+    def _gather(self, slices: List[torch.Tensor], shares: List[int]
+                ) -> List[torch.Tensor]:
         """Every data-parallel rank's ``[dp, ...]`` slices, gathered by one
-        certified all-gather over the data axis (one payload a dtype)."""
+        certified all-gather over the data axis (one payload a dtype);
+        ``shares``: :attr:`ShardedLayout.shares` of the slices' leaves."""
         if self.gather_schedule is None:
             return slices
         dp = self.layout.dp
         flat = torch.cat([s.reshape(dp, -1) for s in slices], dim=1)
         got = all_gather_rows(flat, self.gather_schedule)
         self.counts["data_allgather"] += 1
+        accounting.collective("all-gather", lambda: sum(
+            s.numel() // k for s, k in zip(slices, shares))
+            * flat.element_size())
         out, off = [], 0
         for s in slices:
             w = s[0].numel()
@@ -371,12 +400,19 @@ class RankViewTrainStep(ShardedTrainStep):
                     v.grad = bufs[i][r]
                 lv.append(v)       # backward accumulates in place
             views.append(tree_unflatten(params, lv))
-        with torch.enable_grad():
-            losses = self.model.loss_ranks(views, shards, tp=self.tp)
-            torch.stack(losses).sum().backward()
+        if self.tp is not None:
+            self.tp.groups = d
+        try:
+            with torch.enable_grad():
+                losses = self.model.loss_ranks(views, shards, tp=self.tp)
+                torch.stack(losses).sum().backward()
+        finally:
+            if self.tp is not None:
+                self.tp.groups = 1
         del views
-        mean, _ = self.reducer([bufs[i] for i, e in enumerate(self.expert)
-                                if not e])
+        kept = [i for i, e in enumerate(self.expert) if not e]
+        mean, _ = self.reducer([bufs[i] for i in kept],
+                               shares=[self.layout.shares[i] for i in kept])
         self.counts["data_allreduce"] += 1
         it = iter(mean)
         grads = [bufs[i].div_(d) if e else next(it)
@@ -433,26 +469,29 @@ class RankViewTrainStep(ShardedTrainStep):
         zd = self.layout.zdims
         for i in (i for ids in sliced.values() for i in ids):
             params[i].copy_(_unslice(self._gather_leaf(
-                _zslice(params[i], zd[i], dp)), zd[i]))
+                _zslice(params[i], zd[i], dp), self.layout.shares[i]), zd[i]))
         metrics = {"grad_norm": gnorm,
                    "lr": torch.as_tensor(lr, dtype=torch.float32,
                                          device=gnorm.device)}
         opt = OptState(state.opt.m, state.opt.v, count)
         return TrainState(state.params, opt, state.step + 1), metrics
 
-    def _gather_leaf(self, s: torch.Tensor) -> torch.Tensor:
+    def _gather_leaf(self, s: torch.Tensor, share: int) -> torch.Tensor:
         """One leaf's ``[dp, ...]`` updated slices, gathered over the data
         axis by the certified all-gather in pieces of at most
         ``UPDATE_ELEMS`` elements a rank (the runner holds ``n + 1`` rows
-        of a piece a rank)."""
+        of a piece a rank); ``share``: the leaf's
+        :attr:`ShardedLayout.shares`."""
         dp = self.layout.dp
         flat = s.reshape(dp, -1)
         got = torch.empty_like(flat)
         for c in range(0, flat.shape[1], UPDATE_ELEMS):
             cols = slice(c, c + UPDATE_ELEMS)
-            got[:, cols] = all_gather_rows(flat[:, cols].contiguous(),
-                                           self.gather_schedule)
+            piece = flat[:, cols].contiguous()
+            got[:, cols] = all_gather_rows(piece, self.gather_schedule)
             self.counts["data_allgather"] += 1
+            accounting.collective("all-gather", lambda: piece.numel()
+                                  // share * piece.element_size())
         return got.reshape(s.shape)
 
     def __call__(self, state: TrainState, batch: Dict[str, Any]):

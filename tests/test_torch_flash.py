@@ -142,7 +142,13 @@ def test_argument_checks_follow_the_reference(shapes, match):
 
 
 def test_other_devices_raise():
-    q = torch.zeros((1, 2, 16, 8), device="meta")
+    """A device other than cuda and cpu raises; meta is the dry run's
+    stand-in (``test_torch_dryrun.py``), so a tensor that reports another
+    device type stands in for one."""
+    class Elsewhere:
+        device = torch.device("xpu")
+
+    q = Elsewhere()
     with pytest.raises(ValueError, match="cuda or cpu"):
         fa.flash_attention(q, q, q)
 

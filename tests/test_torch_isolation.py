@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, nothing of ``repro``, no silent CPU fall-back."""
 
 import ast
+import functools
 import os
 import subprocess
 import sys
@@ -22,9 +23,16 @@ def _port_files():
     return sorted(out) + [os.path.join(ROOT, "chip_smoke.py")]
 
 
-def _imported_roots(path):
+@functools.lru_cache(maxsize=None)
+def _import_nodes(path):
+    """The import statements of a file, parsed once for every test here."""
     tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
-    for node in ast.walk(tree):
+    return tuple(node for node in ast.walk(tree)
+                 if isinstance(node, (ast.Import, ast.ImportFrom)))
+
+
+def _imported_roots(path):
+    for node in _import_nodes(path):
         if isinstance(node, ast.Import):
             for a in node.names:
                 yield a.name.split(".")[0]
@@ -43,8 +51,7 @@ def test_no_port_file_imports_jax_or_repro():
 def _imported_modules(path):
     """Full dotted names of what a file imports (``from a import b`` as
     ``a.b`` too)."""
-    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
-    for node in ast.walk(tree):
+    for node in _import_nodes(path):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
@@ -96,6 +103,7 @@ NEW_MODULES = [
     "repro_torch.faults.inject", "repro_torch.obs.capture",
     "repro_torch.analysis.lint", "repro_torch.bench.overlap_step",
     "repro_torch.launch.hlo_analysis", "repro_torch.launch.serve",
+    "repro_torch.launch.dryrun", "repro_torch.kernels.accounting",
 ]
 
 
