@@ -290,6 +290,30 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
     the 8 virtual ranks (arguments plus the step's storage, undivided)
     within ``MEM_BAND`` of the card's measured peak, the FLOPs equal.
 
+22. MoE training on every production mesh kind: (a) one ``deepseek-v2-236b``
+    MLA layer at published widths (bf16, ``MLA_TP_ROWS`` x ``MLA_TP_SEQ``)
+    over a model axis of ``MLA_TP_M`` (``layers.mla_attention_tp``)
+    against ``layers.mla_attention`` on one rank: the output and every
+    gradient within ``MLA_TP_BOUND`` of their largest entry, the control
+    (the latents' gradients without their model-axis sum) outside; the
+    model-axis all-reduces and their ``fused_add`` launches held to the
+    count reckoned from the code; both timed with CUDA events; (b)
+    ``python -m repro_torch train --arch deepseek-v2-236b --mesh 2x4`` in
+    process at ``MESH_MLA_DEPTH`` blocks (the dense head block and an MoE
+    block), its routed experts cut to the largest even count whose dry-run
+    reckoning fits ``MESH_MLA_BUDGET`` of the card (``get_config``
+    patched), ``MESH_MLA_STEPS`` steps, its checkpoint not written: the
+    losses finite, ``peer_ring`` (counted by hand too), ``fused_add`` and
+    the model-axis collectives equal to the dry run's count of the same
+    step, the peak within ``MEM_BAND`` of the dry run's reckoning and the
+    control outside; (c) one step of ``dbrx-132b`` at published widths (1
+    block, 8 experts, E/K) built by ``launch.train.build_train_step`` on
+    the ``(pod, data, model)`` mesh ``POD_MESH`` and on ``POD_FLAT_MESH``
+    from the same weights and rows: the loss, the experts' gradients and
+    their AdamW update within their bounds, the control (the pod
+    all-reduce left out) outside; the pod all-reduce's ``peer_ring``
+    launches and bytes counted.
+
 Phase 4 also holds the smoke ``recurrentgemma-9b`` (a group and a tail,
 at P > W and P == W) and ``whisper-small`` in f32 on the card: flash
 prefill == xla prefill, greedy tokens equal.
@@ -496,7 +520,7 @@ EP_GROUP_SEQ = 1024
 # E/K times the tokens, so the tokens are few).  The bounds are relative
 # to the largest entry and lie between the sound readings and their
 # controls' (the readings are in PERF.md section 6)
-MOE_TRAIN_DEPTH, MOE_TRAIN_STEPS, MOE_TRAIN_RANKS = 1, 3, 4
+MOE_TRAIN_DEPTH, MOE_TRAIN_STEPS, MOE_TRAIN_RANKS = 1, 2, 4
 MOE_TRAIN_CLI = ["train", "--arch", MOE_ARCH, "--mesh", str(MOE_TRAIN_RANKS),
                  "--reorder", "simulate", "--steps", str(MOE_TRAIN_STEPS)]
 MOE_TP_ROWS, MOE_TP_SEQ, MOE_MLA_SEQ = 8, 256, 32
@@ -551,6 +575,32 @@ DRY_CELLS = (("qwen2-0.5b", 2), ("dbrx-132b", 1))
 ANCHOR_ARCH, ANCHOR_BATCH, ANCHOR_SEQ, ANCHOR_STEPS = "qwen2-0.5b", 4, 2048, 3
 ANCHOR_MESH_DEPTH, ANCHOR_MESH_RANKS, ANCHOR_MESH_SEQ = 4, 8, 1024
 MEM_BAND = (0.97, 1.03)
+# MoE training on every production mesh (phase 22).  (a) One deepseek-v2
+# MLA layer at published widths on MLA_TP_ROWS x MLA_TP_SEQ tokens over a
+# model axis of MLA_TP_M against the layer on one rank, bf16; the bound is
+# relative to the largest entry, as MOE_TP_BOUND.  (b) The train command
+# on deepseek-v2 at published widths, MESH_MLA_DEPTH blocks (the dense
+# head block and an MoE block), on MESH_MLA_MESH with the command's
+# default 8 x 64 tokens, MESH_MLA_STEPS steps, its routed experts cut to
+# the largest even count whose dry-run reckoning (arguments and the step's
+# peak storage, all ranks; secant steps from the published count and its
+# half, where the experts hold the peak) fits MESH_MLA_BUDGET of the card,
+# the rest left to the allocator's rounding and fragmentation.  (c) One step of dbrx at
+# published widths, MOE_TRAIN_DEPTH block, MOE_DP_MID_EXPERTS experts at
+# E/K on POD_MESH against POD_FLAT_MESH over the same POD_ROWS x
+# POD_SEQ rows: the experts' gradients relative to their largest entry
+# (POD_GRAD_BOUND), their AdamW update relative to its norm
+# (POD_UPDATE_BOUND: the first AdamW step is lr x the gradient's sign, so
+# an entry whose gradient rounds across zero moves 2 lr apart), the loss
+# within TP_BF16_RTOL
+MLA_TP_ROWS, MLA_TP_SEQ, MLA_TP_M, MLA_TP_BOUND = 2, 2048, 8, 0.03
+MESH_MLA_DEPTH, MESH_MLA_STEPS, MESH_MLA_BUDGET = 2, 2, 0.85
+MESH_MLA_MESH = "2x4"
+MESH_MLA_CLI = ["train", "--arch", MLA_ARCH, "--mesh", MESH_MLA_MESH,
+                "--reorder", "none", "--steps", str(MESH_MLA_STEPS)]
+POD_MESH, POD_FLAT_MESH = (2, 2, 2), (4, 2)
+POD_ROWS, POD_SEQ = 8, 256
+POD_GRAD_BOUND, POD_UPDATE_BOUND = 0.03, 0.3
 
 
 def _say(msg: str) -> None:
@@ -3323,19 +3373,21 @@ def _moe_reckon(cfg, d: int) -> dict:
     replicated leaves' gradient on each of the ``d`` data ranks and their
     mean; the checkpoint holds the weights and the moments."""
     from repro_torch.models import get_model
-    from repro_torch.train.sharded_step import expert_leaves, param_shapes
+    from repro_torch.train.sharded_step import (
+        expert_leaves, param_shapes, reckon_ep_memory)
     from repro_torch.tree import tree_leaves
 
     shapes = param_shapes(get_model(cfg, device="cpu"))
-    leaves = list(zip(tree_leaves(shapes), expert_leaves(shapes)))
-    n = sum(t.numel() for t, _ in leaves)
-    w = sum(t.numel() * t.element_size() for t, _ in leaves)
-    ex = sum(t.numel() * t.element_size() for t, e in leaves if e)
-    rep = w - ex
-    res = {"params": n, "expert_params": sum(t.numel() for t, e in leaves if e),
-           "weights_gb": w / 1e9, "moments_gb": 8 * n / 1e9,
-           "expert_grad_gb": ex / 1e9, "replicated_grad_gb": d * rep / 1e9,
-           "mean_grad_gb": rep / 1e9, "checkpoint_gb": (w + 8 * n) / 1e9}
+    mem = reckon_ep_memory(shapes, d)
+    w, n = mem["weights"], mem["params"]
+    res = {"params": n, "expert_params": sum(
+               t.numel() for t, e in zip(tree_leaves(shapes),
+                                         expert_leaves(shapes)) if e),
+           "weights_gb": w / 1e9, "moments_gb": mem["moments"] / 1e9,
+           "expert_grad_gb": mem["expert_gradients"] / 1e9,
+           "replicated_grad_gb": mem["replicated_gradients"] / 1e9,
+           "mean_grad_gb": mem["mean"] / 1e9,
+           "checkpoint_gb": (w + mem["moments"]) / 1e9}
     res["total_gb"] = (res["weights_gb"] + res["moments_gb"]
                        + res["expert_grad_gb"] + res["replicated_grad_gb"])
     return res
@@ -5583,6 +5635,440 @@ def dry_run_phase(seed: int, card: str) -> dict:
     _say(f"dry run phase: {out['phase_s']} s")
     return out
 
+def _mla_tp_layer(seed: int, card: str) -> dict:
+    """Phase 22 (a): one deepseek-v2-236b MLA layer at published widths,
+    bf16, on ``MLA_TP_ROWS`` x ``MLA_TP_SEQ`` tokens over a model axis of
+    ``MLA_TP_M`` (``layers.mla_attention_tp``, its parameters in model-axis
+    storage) against ``layers.mla_attention`` on one rank, forward and
+    backward: the output and the gradients of the input and every
+    parameter, each relative to its largest entry, within
+    ``MLA_TP_BOUND``; the control drops the latents' model-axis sum (each
+    latent's gradient model rank 0's alone).  The model-axis all-reduces
+    (``wo``'s forward, the three latents' backward) and their ``fused_add``
+    launches (``m - 1`` reduce steps each) against the count reckoned from
+    the code; both layers timed with CUDA events."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ring_collective as rc
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor as tpm
+
+    cfg = get_config(MLA_ARCH)
+    m = MLA_TP_M
+    gen = _seeded(seed + 17)
+    dtype = getattr(torch, cfg.dtype)
+    p = L.init_from_spec(gen, L.mla_spec(cfg), dtype)
+    x = torch.randn((MLA_TP_ROWS, MLA_TP_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(dtype)
+    cot = torch.randn(x.shape, generator=gen, device="cuda")
+    positions = torch.arange(MLA_TP_SEQ, device="cuda")
+    mesh = make_mesh((1, m), ("data", "model"), device="cuda")
+    pspecs = shd.param_pspecs({"attn": p}, cfg, mesh)["attn"]
+    storage = tpm.shard_params(p, pspecs, m)
+
+    def one_rank():
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        xg = x.clone().requires_grad_()
+        y, _ = L.mla_attention(leaves, xg, cfg, positions)
+        (y.float() * cot).sum().backward()
+        return y.detach(), dict({k: t.grad for k, t in leaves.items()},
+                                input=xg.grad)
+
+    def on_axis(tp):
+        leaves = {k: v.detach().requires_grad_() for k, v in storage.items()}
+        xg = x.clone().requires_grad_()
+        y = L.mla_attention_tp(leaves, pspecs, xg, cfg, tp,
+                               positions=positions)
+        (y.float() * cot).sum().backward()
+        grads = tpm.unshard_params({k: t.grad for k, t in leaves.items()},
+                                   pspecs)
+        return y.detach(), dict(grads, input=xg.grad)
+
+    y1, want = one_rank()
+    tp = tpm.TensorParallel(mesh, pspecs)
+    torch.cuda.synchronize()
+    rc.fused_add.launches = 0
+    ym, got = on_axis(tp)
+    torch.cuda.synchronize()
+    launches, counts = rc.fused_add.launches, dict(tp.counts)
+    rel = {"output": _rel(ym, y1)}
+    rel.update({f"{k}_grad": _rel(got[k], want[k]) for k in want})
+    del got, ym
+    # the control: the latents' gradients without their model-axis sum
+    orig = tpm._Scatter.__dict__["backward"]
+    tpm._Scatter.backward = staticmethod(lambda ctx, g: (g[0], None))
+    try:
+        _, bad = on_axis(tpm.TensorParallel(mesh, pspecs))
+    finally:
+        tpm._Scatter.backward = orig
+    upstream = ("wq_a", "q_norm", "wkv_a", "kv_norm", "wk_rope", "input")
+    control = {k: _rel(bad[k], want[k]) for k in upstream}
+    del bad
+    # wo's all-reduce forward; the three latents' (cq, ckv, k_rope) in the
+    # backward; each m - 1 fused_add reduce steps of the ring
+    reckoned = {"allreduce": 1 + 3, "fused_add": (1 + 3) * (m - 1)}
+    ms = {"one_rank": _time_ms(one_rank, 3, warmup=1),
+          f"model_axis_{m}": _time_ms(lambda: on_axis(tp), 3, warmup=1)}
+    res = {"tokens": [MLA_TP_ROWS, MLA_TP_SEQ], "model_axis": m,
+           "relative": rel, "worst": max(rel.values()),
+           "control_latents_unsummed": control,
+           "control_worst": max(control.values()), "bound": MLA_TP_BOUND,
+           "collective_runs": counts, "fused_add": launches,
+           "reckoned": reckoned, "fwd_bwd_ms": ms, "card": card}
+    del p, storage, want, y1, x
+    _free()
+    return res
+
+
+def _patched_config(arch: str, **fields):
+    """``repro_torch.configs.get_config`` with ``arch``'s ``fields``
+    replaced (the train command reads it at call time), and the
+    original."""
+    from repro_torch import configs
+
+    base = configs.get_config
+
+    def get(name):
+        cfg = base(name)
+        return dataclasses.replace(cfg, **fields) if name == arch else cfg
+    return base, get
+
+
+def _mesh_mla_count(experts: int) -> dict:
+    """The dry run's count (on ``meta``) of one step of the phase 22 (b)
+    command's at ``experts`` routed experts: its reckoned device bytes (the
+    arguments and the step's peak storage, all ranks), the control without
+    the step's temporaries, its kernel calls and the step's collectives."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import make_mesh, parse_mesh
+    from repro_torch.models.layers import clear_sequence_parallel
+    from repro_torch.parallel import moe_a2a
+
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MESH_MLA_DEPTH,
+                              n_experts=experts)
+    shape = ShapeSpec("mesh_mla", 64, 8, "train")
+    # the routing tallies of earlier phases are the card's tensors: the
+    # meta run adds its own to none of them
+    stats = dict(moe_a2a._STATS)
+    moe_a2a.reset_ep_stats()
+    try:
+        fn, args, build = dryrun.cell_step(
+            cfg, shape, make_mesh(*parse_mesh(MESH_MLA_MESH), "cuda"), "cuda")
+        got = dryrun.account(fn, args, build, shape)
+        counts = dict(build.sharded.counts)
+    finally:
+        moe_a2a.clear_ep()
+        clear_sequence_parallel()
+        moe_a2a.reset_ep_stats()
+        moe_a2a._STATS.update(stats)
+    c = got["count"]
+    return {"experts": experts, "reckoned": got["arg_total"] + c.peak_new,
+            "control": got["arg_total"] + got["out_new_total"],
+            "kernel_calls": dict(c.kernel_calls), "counts": counts,
+            "trace_s": c.trace_s}
+
+
+def _mesh_mla_train(card: str) -> dict:
+    """Phase 22 (b): ``python -m repro_torch train --arch deepseek-v2-236b
+    --mesh 2x4`` in process at published widths, ``MESH_MLA_DEPTH``
+    blocks, its routed experts cut to the largest even count whose dry-run
+    reckoning fits ``MESH_MLA_BUDGET`` of the card, ``MESH_MLA_STEPS``
+    steps, its checkpoint not written: the losses finite; ``peer_ring``
+    (the data axis's buckets of the replicated leaves, counted by hand
+    too), ``fused_add`` and the step's model-axis collectives equal to the
+    dry run's count of the same step, times the steps; the card's peak
+    over the command within ``MEM_BAND`` of the dry run's reckoning, the
+    control (without the step's temporaries) outside."""
+    import math
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.specs import _meta_model
+    from repro_torch.launch.train import DEFAULT_BUCKET_BYTES
+    from repro_torch.train import partition_tree
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.train.sharded_step import expert_leaves, param_shapes
+    from repro_torch.tree import tree_leaves
+
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    pub = configs.get_config(MLA_ARCH)
+    budget = MESH_MLA_BUDGET * card_bytes
+    # the reckoning is the step's peak, linear in the experts where they
+    # hold it: from the published count and half of it, secant steps to
+    # the largest even count within the budget
+    counts = {e: _mesh_mla_count(e) for e in (pub.n_experts,
+                                              pub.n_experts // 4 * 2)}
+    evens = range(pub.moe_top_k + pub.moe_top_k % 2, pub.n_experts + 1, 2)
+
+    def within(e):
+        return counts[e]["reckoned"] <= budget
+
+    experts = pub.n_experts if within(pub.n_experts) else None
+    for _ in range(3):
+        if experts is not None:
+            break
+        a, b = sorted(counts)[-2:] if all(not within(e) for e in counts) \
+            else (max(e for e in counts if within(e)),
+                  min(e for e in counts if not within(e)))
+        slope = (counts[b]["reckoned"] - counts[a]["reckoned"]) / (b - a)
+        guess = max((e for e in evens if counts[a]["reckoned"]
+                     + slope * (e - a) <= budget), default=evens[0])
+        if guess not in counts:
+            counts[guess] = _mesh_mla_count(guess)
+        if within(guess) and (guess + 2 in counts and not within(guess + 2)
+                              or counts[guess]["reckoned"] + 2 * slope
+                              > budget):
+            experts = guess
+    _say(f"mesh mla train: {MLA_ARCH} at {MESH_MLA_DEPTH} blocks on --mesh "
+         f"{MESH_MLA_MESH}: the dry run reckons "
+         f"{ {e: c['reckoned'] for e, c in sorted(counts.items())} } bytes "
+         f"by routed experts (traces "
+         f"{ {e: round(c['trace_s'], 1) for e, c in sorted(counts.items())} } "
+         f"s) against {MESH_MLA_BUDGET} of the card's {card_bytes} bytes: "
+         f"{experts} of {pub.n_experts} [{card}]")
+    if experts is None:
+        raise AssertionError("mesh mla train: no expert count found within "
+                             "the budget")
+    dry = counts[experts]
+    base, cut = _patched_config(MLA_ARCH, n_layers=MESH_MLA_DEPTH,
+                                n_experts=experts)
+    save = trainer_mod.AsyncCheckpointer.save
+
+    def no_write(self, step, tree, extras=None):
+        self.last = {"step": int(step), "path": None, "bytes": 0,
+                     "snapshot_s": 0.0, "write_s": 0.0}
+
+    _free()
+    before = torch.cuda.memory_allocated()
+    configs.get_config = cut
+    trainer_mod.AsyncCheckpointer.save = no_write
+    try:
+        run = _tp_run(MESH_MLA_CLI)
+    finally:
+        configs.get_config = base
+        trainer_mod.AsyncCheckpointer.save = save
+    _free()
+    rep = run["report"]
+    cfg = cut(MLA_ARCH)
+    shapes = param_shapes(_meta_model(cfg))
+    replicated = [t for t, e in zip(tree_leaves(shapes), expert_leaves(shapes))
+                  if not e]
+    buckets = len(partition_tree(replicated, DEFAULT_BUCKET_BYTES))
+    steps = len(rep["losses"])
+    want = {"peer_ring": steps * dry["kernel_calls"].get("peer_ring", 0),
+            "fused_add": steps * dry["kernel_calls"].get("fused_add", 0)}
+    model_counts = {k: v for k, v in rep["tp_collectives"].items()
+                    if k.startswith("model_")}
+    want_counts = {k: v for k, v in dry["counts"].items()
+                   if k.startswith("model_")}
+    peak = run["peak_mem_gb"] * 1e9 - before
+    res = {"experts": experts, "published_experts": pub.n_experts,
+           "losses": rep["losses"],
+           "step_ms_host_clock": [v * 1e3 for v in rep["step_s"]],
+           "launches": run["launches"], "launches_reckoned": want,
+           "buckets": buckets, "model_collectives_per_step": model_counts,
+           "model_collectives_reckoned": want_counts,
+           "peak_bytes": peak, "reckoned_bytes": dry["reckoned"],
+           "control_bytes": dry["control"],
+           "reckoned_by_experts": {e: c["reckoned"] for e, c in counts.items()},
+           "ep": {k: rep["ep"][k] for k in ("choices", "source_drops",
+                                            "destination_drops")},
+           "memory_reckoned_by_train": rep["ep"]["memory_reckoned"],
+           "wall_s": run["wall_s"], "card": card}
+    if steps != MESH_MLA_STEPS or not all(math.isfinite(v)
+                                          for v in rep["losses"]):
+        raise AssertionError(f"mesh mla train: losses {rep['losses']}")
+    if run["launches"]["peer_ring"] != want["peer_ring"] or \
+            want["peer_ring"] != steps * buckets:
+        raise AssertionError(f"mesh mla train: peer_ring "
+                             f"{run['launches']['peer_ring']}, the dry run "
+                             f"{want['peer_ring']}, {buckets} buckets x "
+                             f"{steps} steps")
+    if run["launches"]["fused_add"] != want["fused_add"]:
+        raise AssertionError(f"mesh mla train: fused_add "
+                             f"{run['launches']['fused_add']}, the dry run "
+                             f"{want['fused_add']}")
+    if model_counts != want_counts:
+        raise AssertionError(f"mesh mla train: model-axis collectives a step "
+                             f"{model_counts}, the dry run {want_counts}")
+    _say(f"mesh mla train: losses {[round(v, 4) for v in rep['losses']]}, "
+         f"step ms (host clock) {[round(v, 1) for v in res['step_ms_host_clock']]}; "
+         f"peer_ring {run['launches']['peer_ring']} = {buckets} buckets x "
+         f"{steps} steps; fused_add {run['launches']['fused_add']}; model-axis "
+         f"collectives a step {model_counts}, as the dry run counts them "
+         f"[{card}]")
+    _in_band(f"(22b) {MLA_ARCH} --mesh {MESH_MLA_MESH} at {experts} experts",
+             peak, dry["reckoned"], dry["control"])
+    return res
+
+
+def _pod_step(seed: int, card: str) -> dict:
+    """Phase 22 (c): one step of dbrx-132b at published widths,
+    ``MOE_TRAIN_DEPTH`` block, ``MOE_DP_MID_EXPERTS`` experts at the
+    capacity factor E/K, built by ``build_train_step`` (the train
+    command's step, its memory checked against the card) on the
+    ``(pod, data, model)`` mesh ``POD_MESH`` and on ``POD_FLAT_MESH``,
+    from the same weights and rows: the loss within ``TP_BF16_RTOL``, the
+    experts' gradients within ``POD_GRAD_BOUND`` of their largest entry
+    and their update within ``POD_UPDATE_BOUND`` of its norm; the control
+    leaves the pod all-reduce out (each pod's experts' gradient its own
+    ranks' alone, pod 0's read).  The pod all-reduce's ``peer_ring``
+    launches and bytes counted, against the experts' buckets."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM, make_global_batch
+    from repro_torch.kernels import ring_collective as rc
+    from repro_torch.launch import make_mesh, parse_mesh
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models import get_model
+    from repro_torch.models.layers import clear_sequence_parallel
+    from repro_torch.parallel import moe_a2a
+    from repro_torch.parallel.sharding import batch_spec
+    from repro_torch.train import partition_tree
+    from repro_torch.tree import tree_leaves
+
+    cfg = _no_drop(dataclasses.replace(
+        get_config(MOE_ARCH), n_layers=MOE_TRAIN_DEPTH,
+        n_experts=MOE_DP_MID_EXPERTS))
+    model = get_model(cfg, device="cuda")
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+
+    def run(shape, leave_out=False):
+        mesh = make_mesh(*parse_mesh("x".join(map(str, shape))), "cuda")
+        try:
+            build = build_train_step(cfg, mesh, "cuda", model=model,
+                                     card_bytes=card_bytes)
+            step = build.sharded
+            pod = {"launches": 0, "payload_bytes": []}
+            if step.pod_reducer is not None:
+                reducer = step.pod_reducer
+
+                def counted(bufs, shares=None):
+                    if leave_out:
+                        return [b[0] for b in bufs], []
+                    n0 = rc.remote_ring_reduce_scatter.launches
+                    out = reducer(bufs, shares=shares)
+                    pod["launches"] += rc.remote_ring_reduce_scatter.launches - n0
+                    pod["payload_bytes"] = [b.n_bytes for b in
+                                            reducer.buckets_for(bufs)]
+                    pod["buckets_reckoned"] = len(partition_tree(
+                        bufs, reducer.bucket_bytes, leading_axis=True))
+                    return out
+
+                step.pod_reducer = counted
+            state = build.state(_seeded(seed + 19))
+            batch = make_global_batch(SyntheticLM(cfg.vocab_size, POD_SEQ,
+                                                  POD_ROWS, seed=0),
+                                      0, mesh, batch_spec(mesh))
+            experts = [i for i, e in enumerate(step.expert) if e]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            loss, grads = step.value_and_grad(state.params, batch)
+            params = tree_leaves(state.params)
+            old = [params[i].clone() for i in experts]
+            step.apply(state, grads)
+            torch.cuda.synchronize()
+            g = [tree_leaves(grads)[i] for i in experts]
+            # bf16: new - old of one leaf's neighbouring values is exact
+            delta = [params[i] - o for i, o in zip(experts, old)]
+            out = {"loss": float(loss), "grads": g, "delta": delta,
+                   "pod": pod, "s": time.monotonic() - t0,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "memory_reckoned": build.memory,
+                   "counts": dict(step.counts)}
+            del state, grads, old, params, build, step
+            return out
+        finally:
+            moe_a2a.clear_ep()
+            clear_sequence_parallel()
+            _free()
+
+    def l2(a, b):
+        num = sum(float(torch.sum((x - y).float() ** 2)) for x, y in zip(a, b))
+        den = sum(float(torch.sum(y.float() ** 2)) for y in b)
+        return (num / den) ** 0.5
+
+    pods = run(POD_MESH)
+    flat = run(POD_FLAT_MESH)
+    grad_rel = max(_rel(a, b) for a, b in zip(pods["grads"], flat["grads"]))
+    update_rel = l2(pods["delta"], flat["delta"])
+    loss_rel = abs(pods["loss"] - flat["loss"]) / abs(flat["loss"])
+    del pods["grads"], pods["delta"]
+    ctl = run(POD_MESH, leave_out=True)
+    ctl_grad = max(_rel(a, b) for a, b in zip(ctl["grads"], flat["grads"]))
+    ctl_update = l2(ctl["delta"], flat["delta"])
+    del ctl, flat["grads"], flat["delta"]
+    _free()
+    res = {"mesh": f"{POD_MESH} against {POD_FLAT_MESH}",
+           "experts": MOE_DP_MID_EXPERTS, "tokens": [POD_ROWS, POD_SEQ],
+           "loss": {"pods": pods["loss"], "flat": flat["loss"],
+                    "relative": loss_rel, "bound": TP_BF16_RTOL},
+           "grad_relative": grad_rel, "grad_bound": POD_GRAD_BOUND,
+           "control_grad": ctl_grad, "update_relative_l2": update_rel,
+           "update_bound": POD_UPDATE_BOUND, "control_update": ctl_update,
+           "pod_allreduce": pods["pod"], "counts": pods["counts"],
+           "step_s_host_clock": {"pods": pods["s"], "flat": flat["s"]},
+           "peak_gb": {"pods": pods["peak_gb"], "flat": flat["peak_gb"]},
+           "memory_reckoned": {"pods": pods["memory_reckoned"],
+                               "flat": flat["memory_reckoned"]},
+           "card": card}
+    _say(f"pod step: {MOE_ARCH} 1 block, {MOE_DP_MID_EXPERTS} experts at E/K, "
+         f"{POD_MESH} vs {POD_FLAT_MESH}: loss {pods['loss']:.6f} vs "
+         f"{flat['loss']:.6f} (relative {loss_rel:.3g}); the experts' "
+         f"gradients {grad_rel:.3g} (bound {POD_GRAD_BOUND}, control "
+         f"{ctl_grad:.3g}), their update {update_rel:.3g} (bound "
+         f"{POD_UPDATE_BOUND}, control {ctl_update:.3g}); the pod all-reduce "
+         f"{pods['pod']['launches']} peer_ring launches of "
+         f"{pods['pod']['payload_bytes']} bytes; peaks {res['peak_gb']} GB "
+         f"[{card}]")
+    if loss_rel > TP_BF16_RTOL:
+        raise AssertionError(f"pod step: loss {res['loss']}")
+    _held_apart("pod step experts' gradients 2x2x2 vs 4x2", grad_rel,
+                POD_GRAD_BOUND, ctl_grad)
+    _held_apart("pod step experts' update 2x2x2 vs 4x2", update_rel,
+                POD_UPDATE_BOUND, ctl_update)
+    pod = pods["pod"]
+    if pod["launches"] != pod["buckets_reckoned"] or pod["launches"] < 1 or \
+            pods["counts"].get("pod_allreduce") != 1:
+        raise AssertionError(f"pod step: the pod all-reduce {pod}, counts "
+                             f"{pods['counts']}")
+    return res
+
+
+def train_moe_every_mesh(seed: int, card: str) -> dict:
+    """Phase 22: MoE training on every production mesh kind: (a) MLA over
+    a model axis, (b) deepseek-v2's train command on a ``(data, model)``
+    mesh, (c) dbrx on a ``(pod, data, model)`` mesh."""
+    t_phase = time.monotonic()
+    a = _mla_tp_layer(seed, card)
+    _say(f"moe every mesh (a): {MLA_ARCH} MLA layer on {MLA_TP_ROWS} x "
+         f"{MLA_TP_SEQ} tokens, model axis {MLA_TP_M} vs one rank, relative "
+         f"{json.dumps({k: float(f'{v:.3g}') for k, v in a['relative'].items()})} "
+         f"(bound {a['bound']}; control {a['control_worst']:.3g}); runs "
+         f"{a['collective_runs']}, fused_add {a['fused_add']} (reckoned "
+         f"{a['reckoned']}); fwd+bwd ms {a['fwd_bwd_ms']} [{card}]")
+    _held_apart("MLA layer on a model axis vs one rank", a["worst"],
+                a["bound"], a["control_worst"])
+    if a["collective_runs"].get("allreduce") != a["reckoned"]["allreduce"] or \
+            a["fused_add"] != a["reckoned"]["fused_add"]:
+        raise AssertionError(f"MLA layer: runs {a['collective_runs']}, "
+                             f"fused_add {a['fused_add']}, reckoned "
+                             f"{a['reckoned']}")
+    b = _mesh_mla_train(card)
+    c = _pod_step(seed, card)
+    res = {"mla_layer": a, "mesh_mla_train": b, "pod_step": c,
+           "phase_s": round(time.monotonic() - t_phase, 1), "card": card}
+    _say("moe every mesh " + json.dumps(res, default=float))
+    return res
+
 
 def _seeded(seed: int):
     import torch
@@ -5757,6 +6243,8 @@ def main(argv=None) -> int:
     _free()
     dry = dry_run_phase(args.seed, card)
     _free()
+    every_mesh = train_moe_every_mesh(args.seed, card)
+    _free()
     # each kernel's launches come from the path it carries; the peer ring's
     # from the user's entry point (the hand-wired planned run's beside it)
     paths = {"wkv_chunked": served, "wkv_scan": served, "fused_add": trained,
@@ -5780,6 +6268,13 @@ def main(argv=None) -> int:
                     "peer_ring"]}
         if k["name"] == "fused_add":
             k["launches_moe_tp_layer"] = trained_moe["tp_layer"]["fused_add"]
+            k["launches_mla_tp_layer"] = every_mesh["mla_layer"]["fused_add"]
+        if k["name"] in ("fused_add", "peer_ring"):
+            k["launches_mla_mesh_train"] = every_mesh["mesh_mla_train"][
+                "launches"][k["name"]]
+        if k["name"] == "peer_ring":
+            k["launches_pod_allreduce"] = every_mesh["pod_step"][
+                "pod_allreduce"]["launches"]
         if k["name"] in ("fused_add", "peer_ring"):
             k["launches_tp_train"] = {
                 label: run["launches"][k["name"]]
@@ -5814,7 +6309,7 @@ def main(argv=None) -> int:
         "tp_train": trained_tp["phase_s"],
         "moe_train": trained_moe["phase_s"],
         "moe_dense_train": trained_moe_dense["phase_s"],
-        "dry_run": dry["phase_s"]}))
+        "dry_run": dry["phase_s"], "moe_every_mesh": every_mesh["phase_s"]}))
     _say(f"the whole script: {time.monotonic() - t_start:.1f} s (host clock)")
 
     print(json.dumps({"kernels": kernels}))

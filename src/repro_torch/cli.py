@@ -333,15 +333,16 @@ def cmd_train(args: argparse.Namespace) -> int:
     every model-axis sum a certified ring over the model group's slots,
     the gradients all-reduced over the data-parallel ranks.  An MoE arch
     on 2 or more data ranks that divide its experts runs the EP step
-    (:class:`~repro_torch.train.sharded_step.EPTrainStep`) on ``(data,)``
-    or ``(data, model)``: the plan's all-to-all order armed by
-    ``configure_sp``, the experts ``E/d`` a data rank, the all-reduce
-    planned on and run over the replicated leaves only.  Where the data
-    axis does not divide the experts, EP cannot arm and the reference
-    trains data-parallel on ``moe_dense``: so does
+    (:class:`~repro_torch.train.sharded_step.EPTrainStep`) on ``(data,)``,
+    ``(data, model)`` or ``(pod, data, model)``: the plan's all-to-all
+    order armed by ``configure_sp``, the experts ``E/d`` a data rank (the
+    same on every pod, their gradients all-reduced over the pod axis),
+    the all-reduce planned on and run over the replicated leaves only.
+    Where the data axis does not divide the experts, EP cannot arm and
+    the reference trains data-parallel on ``moe_dense``: so does
     :class:`~repro_torch.train.sharded_step.DenseMoETrainStep`, every
-    leaf all-reduced; its memory is reckoned first, and on the card a
-    reckoning over the card's memory refuses the run.
+    leaf all-reduced.  Either MoE step's memory is reckoned first, and
+    on the card a reckoning over the card's memory refuses the run.
     """
     import torch
 
@@ -440,20 +441,27 @@ def _train_run(args, arch, build, plan, gen, ds, bucket_bytes) -> int:
         rep = tp_step.replicated(state.params)
         rep_bytes = sum(t.numel() * t.element_size() for t in rep)
         buckets = partition_tree(rep, reducer.bucket_bytes)
+        d, pods = tp_step.d, tp_step.pods
         entry = None
         if plan is not None:
             cands = [e for (op, _b, grp), e in plan.entries.items()
-                     if op == "all-to-all" and len(grp) == dp]
+                     if op == "all-to-all" and len(grp) == d]
             entry = max(cands, key=lambda e: e.size_bytes) if cands else None
         order = moe_a2a._EP_STATE["a2a_order"]
+        pod_red = tp_step.pod_reducer
         print(f"[train] {arch.name} on {device}: mesh {args.mesh} "
               f"({', '.join(axes)}), EP over {dp} data-parallel ranks x "
               f"{args.batch // dp} x {args.seq} tokens, "
-              f"{arch.n_experts // dp} experts a rank"
+              f"{arch.n_experts // d} experts a rank"
+              + (f" (an all-to-all over each of {pods} pods' {d} data ranks; "
+                 f"the experts replicated over the pods, their gradients "
+                 f"all-reduced over the pod axis by a ring over {pods} "
+                 f"ranks {list(pod_red.schedule.order)}, transport "
+                 f"{pod_red.transport})" if pod_red is not None else "")
               + (f", model axis {m} (experts gathered over it, model-axis "
                  f"groups {model_groups(mesh.order, m)})" if m > 1 else "")
               + f"; EP all-to-all shift order "
-              f"{list(order) if order is not None else list(range(dp))}"
+              f"{list(order) if order is not None else list(range(d))}"
               + (f" (the plan's all-to-all entry over {len(entry.group)} "
                  f"nodes, order {list(entry.perm)})" if entry is not None
                  else " (identity: no plan entry maps onto the data axis)")
@@ -547,15 +555,16 @@ def _train_run(args, arch, build, plan, gen, ds, bucket_bytes) -> int:
         "plan_digest": plan.fingerprint.digest if plan is not None else None,
         "mesh_order": list(mesh.order), "checkpoint": ck,
     }
-    if memory is not None:
+    if build.kind == "dense_moe":
         summary["dense_moe"] = {"all_reduce_bytes": memory["weights"],
                                 "memory_reckoned": memory}
     if ep:
         summary["ep"] = {
             "order": list(order) if order is not None else None,
             "plan_entry_order": list(entry.perm) if entry is not None else None,
-            "experts_per_rank": arch.n_experts // dp,
-            "replicated_bytes": rep_bytes, **moe_a2a.ep_stats()}
+            "experts_per_rank": arch.n_experts // d, "pods": pods,
+            "replicated_bytes": rep_bytes, "memory_reckoned": memory,
+            **moe_a2a.ep_stats()}
     if reducer is not None:
         summary.update(algorithm=reducer.schedule.algorithm,
                        order=list(reducer.schedule.order),

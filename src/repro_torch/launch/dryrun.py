@@ -290,7 +290,8 @@ def count_step(fn, *args) -> Count:
 
 def _rank_state_bytes(build, state, keep=None) -> int:
     """Rank 0's view of a train state: its model-axis shard of a sharded
-    leaf, its ZeRO-1 slice of the moments, its ``E/d`` experts under EP;
+    leaf, its ZeRO-1 slice of the moments, its ``E/D`` experts under EP
+    (of its pod's ZeRO-1 slice of an expert leaf's moments on a pod axis);
     a replicated leaf whole.  ``keep(leaf)`` picks the leaves counted."""
     from repro_torch.parallel.tensor import model_dim
     from repro_torch.tree import tree_leaves
@@ -303,15 +304,15 @@ def _rank_state_bytes(build, state, keep=None) -> int:
     if sh is not None:
         specs = tree_leaves(sh.layout.pspecs)
         expert = getattr(sh, "expert", [False] * len(leaves))
-        m, d = sh.layout.m, sh.layout.dp
+        m = sh.layout.m
 
     def view(t, i, moment):
         if sh is None:
             return t
         if moment and sh.layout.zdims[i] is not None:
             t = t[0]                          # rank 0's ZeRO-1 slice
-        elif expert[i]:
-            t = sh._experts_of(t, 0, d)       # its E/d experts
+        if expert[i]:
+            t = sh._experts_of(t, 0)          # its E/D experts
         split = model_dim(specs[i]) is not None and m > 1
         return t[0] if split else t           # its model-axis shard
 

@@ -151,12 +151,13 @@ def build_mesh(args, mix=None, moe: bool = False, session_config=None,
 def train_layout(arch, shape: Sequence[int], axes: Sequence[str],
                  batch: Optional[int] = None) -> Dict[str, Any]:
     """The layout ``train`` runs ``arch`` in on a mesh of ``shape`` over
-    ``axes``: ``m`` (the model axis), ``dp`` (the data-parallel ranks),
-    ``n`` (all ranks), ``moe`` (an MoE arch on 2 or more data ranks) and
-    ``ep`` (the data axis divides the experts, so EP arms).  Raises what
-    ``train`` refuses: a ``batch`` that does not split over the data
-    ranks, MoE on a pod axis (ROADMAP.md §1 item 24), ``encdec``, and a
-    family a model axis cannot shard (``require_tp_family``)."""
+    ``axes``: ``m`` (the model axis), ``dp`` (the data-parallel ranks,
+    pod x data), ``pods``, ``n`` (all ranks), ``moe`` (an MoE arch on 2
+    or more data-parallel ranks) and ``ep`` (a data axis of 2 or more
+    divides the experts, so EP arms: within each pod on a pod axis).
+    Raises what ``train`` refuses: a ``batch`` that does not split over
+    the data-parallel ranks, ``encdec``, and a family a model axis cannot
+    shard (``require_tp_family``)."""
     from repro_torch.parallel.tensor import require_tp_family
 
     sizes = dict(zip(axes, shape))
@@ -168,11 +169,7 @@ def train_layout(arch, shape: Sequence[int], axes: Sequence[str],
         raise ValueError(f"--batch {batch} does not split over the "
                          f"{dp} data-parallel ranks of --mesh {mesh}")
     moe = bool(arch.n_experts) and dp > 1
-    if arch.n_experts and sizes.get("pod", 1) > 1:
-        raise NotImplementedError(
-            f"train {arch.name} ({arch.family!r}) on a pod axis: the experts "
-            f"are replicated over pods, so their gradients need a pod-axis "
-            f"all-reduce of their own, ROADMAP.md §1 item 24")
+    d = sizes.get("data", 1)
     if arch.family == "encdec":
         # the reference's train builds batches of tokens and labels only
         # (host_batch), and WhisperLM.loss reads batch["frontend_embeds"]
@@ -184,9 +181,10 @@ def train_layout(arch, shape: Sequence[int], axes: Sequence[str],
     if m > 1:
         require_tp_family(arch)
     # EP arms where the data axis divides the experts; elsewhere the
-    # reference's ep_armed is false and its moe_layer runs moe_dense
-    return {"m": m, "dp": dp, "n": n, "moe": moe,
-            "ep": moe and arch.n_experts % dp == 0}
+    # reference's ep_armed is false (or, on a data axis of one, EP is not
+    # armed) and its moe_layer runs moe_dense
+    return {"m": m, "dp": dp, "pods": sizes.get("pod", 1), "n": n,
+            "moe": moe, "ep": moe and d > 1 and arch.n_experts % d == 0}
 
 
 @dataclasses.dataclass
@@ -260,7 +258,9 @@ def build_train_step(arch, mesh, device: Any = "cuda", *, model=None,
     a reckoning over ``card_bytes`` refuses the run.  Arms the SP/EP
     contexts (:func:`repro_torch.launch.specs.configure_sp`, in ``plan``'s
     all-to-all order); the caller clears them
-    (``moe_a2a.clear_ep``, ``clear_sequence_parallel``).
+    (``moe_a2a.clear_ep``, ``clear_sequence_parallel``).  The EP step's
+    memory is reckoned and checked alike (``reckon_ep_memory``: on a pod
+    axis the pods' expert-gradient buffers and their mean too).
     """
     import json
 
@@ -273,7 +273,7 @@ def build_train_step(arch, mesh, device: Any = "cuda", *, model=None,
         make_train_step)
     from repro_torch.train.sharded_step import (
         DenseMoETrainStep, make_ep_train_step, make_sharded_train_step,
-        param_shapes, reckon_dense_moe_memory)
+        param_shapes, reckon_dense_moe_memory, reckon_ep_memory)
 
     lay = train_layout(arch, mesh.shape, mesh.axis_names)
     m, dp, n, moe, ep = (lay[k] for k in ("m", "dp", "n", "moe", "ep"))
@@ -300,6 +300,7 @@ def build_train_step(arch, mesh, device: Any = "cuda", *, model=None,
                     f"{memory['gradients']}, their mean {memory['mean']}, "
                     f"gradients in flight {memory['in_flight']}: "
                     f"{memory['total']} bytes before activations")
+        what = "the data-parallel MoE step's"
         if log is not None:
             log(f"[train] {arch.name}'s {arch.n_experts} experts do not split "
                 f"over the {dp} data-parallel ranks: EP cannot arm, so the "
@@ -307,14 +308,26 @@ def build_train_step(arch, mesh, device: Any = "cuda", *, model=None,
                 f"reckoned: {reckoned}, against "
                 + (f"the card's {card_bytes} bytes" if card_bytes is not None
                    else f"no limit on {device}"))
+    elif ep:
+        pods = lay["pods"]
+        memory = reckon_ep_memory(param_shapes(model), dp // pods, pods)
+        reckoned = (f"weights {memory['weights']}, AdamW moments "
+                    f"{memory['moments']}, the experts' gradient buffers "
+                    f"{memory['expert_gradients']} ({pods} a pod), {dp} "
+                    f"ranks' gradients of the replicated leaves "
+                    f"{memory['replicated_gradients']}, the reducers' means "
+                    f"{memory['mean']}: {memory['total']} bytes before "
+                    f"activations")
+        what = "the EP step's"
+    if memory is not None:
+        if log is not None:
             log("[train] memory " + json.dumps(dict(memory,
                                                     card_bytes=card_bytes)))
         if card_bytes is not None and memory["total"] > card_bytes:
             shape = "x".join(str(s) for s in mesh.shape)
             raise ValueError(
-                f"train {arch.name} on --mesh {shape}: the data-parallel "
-                f"MoE step's memory is reckoned at {reckoned}, over the "
-                f"card's {card_bytes} bytes")
+                f"train {arch.name} on --mesh {shape}: {what} memory is "
+                f"reckoned at {reckoned}, over the card's {card_bytes} bytes")
     # the reference's SP/EP contexts and the plan's all-to-all ring
     configure_sp(arch, mesh, plan=plan)
     sharded = None
@@ -326,7 +339,7 @@ def build_train_step(arch, mesh, device: Any = "cuda", *, model=None,
         kind = "ep"
         sharded = step = make_ep_train_step(model, opt, mesh, reducer,
                                             use_kernel_add)
-    elif memory is not None:
+    elif moe:
         kind = "dense_moe"
         sharded = step = DenseMoETrainStep(model, opt, mesh, reducer,
                                            use_kernel_add)

@@ -16,7 +16,9 @@ the router stays f32 in any model dtype; ``moe_layer`` picks the GShard
 one-hot dispatch (``moe_dense``), the sorted scatter (``moe_scatter``) or,
 under an armed EP mesh, :func:`repro_torch.parallel.moe_a2a.moe_a2a`.
 MLA (deepseek-v2's latent attention, ``layers.py:477-674``) caches the
-compressed ``ckv``/``k_rope`` and decodes naive or matrix-absorbed.
+compressed ``ckv``/``k_rope`` and decodes naive or matrix-absorbed;
+``attention_tp``, ``mla_attention_tp`` and ``mlp_tp`` run over a model
+axis.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ __all__ = [
     "apply_rope", "attention", "attention_decode", "attention_spec",
     "attention_tp", "dense_init", "init_from_spec", "layer_norm", "make_rope",
     "map_spec", "mla_attention", "mla_attention_decode",
-    "mla_attention_decode_absorbed", "mla_spec", "mlp", "mlp_spec", "mlp_tp",
+    "mla_attention_decode_absorbed", "mla_attention_tp", "mla_spec", "mlp",
+    "mlp_spec", "mlp_tp",
     "moe_dense", "moe_dense_ranks", "moe_layer", "moe_scatter", "moe_spec",
     "rms_norm", "stack_spec", "unbind_layers",
 ]
@@ -784,6 +787,43 @@ def mla_attention(p: Params, x: torch.Tensor, cfg,
                     q_chunk=cfg.attn_q_chunk)
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.v_head_dim)
     return out @ p["wo"], {"ckv": ckv, "k_rope": k_rope}
+
+
+def mla_attention_tp(p: Params, spec: Params, x: torch.Tensor, cfg, tp, *,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """Training MLA over ``tp``'s model axis: ``[B, S, D]`` in and out,
+    by the reference's rules (``repro/parallel/sharding.py:89-110``).
+
+    The down-projections ``wq_a``/``wkv_a``/``wk_rope`` and both norms are
+    replicated: the latents ``cq``, ``ckv`` and the roped ``k_rope`` are
+    computed once and reach every rank through the conjugate identity, so
+    their gradients (and through them the down-projections' and the
+    norms') are summed over the model ranks once.  ``wq_b``/``wkv_b`` are
+    column-parallel by heads: model rank ``j`` computes heads ``j*H/m ..
+    (j+1)*H/m - 1`` from the latents, with the two-term softmax of
+    :func:`_mla_sdpa`; ``wo`` is row-parallel and all-reduced.  Where the
+    heads do not divide, the attention is whole on every rank, with no
+    collective."""
+    if model_dim(spec["wq_b"]) is None:
+        return mla_attention(p, x, cfg, positions)[0]
+    B, S, _ = x.shape
+    m = tp.m
+    hl = cfg.n_heads // m
+    qk, qr, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    cos, sin = make_rope(positions, qr, cfg.rope_theta)
+    cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    ckv, k_rope = _mla_latent(p, x, cos, sin, cfg)
+    q = tp_linear(tp.scatter(cq), p["wq_b"])           # [m, B, S, hl*(qk+qr)]
+    q = q.reshape(m * B, S, hl, qk + qr).transpose(1, 2)
+    kv = tp_linear(tp.scatter(ckv), p["wkv_b"])        # [m, B, S, hl*(qk+vh)]
+    kv = kv.reshape(m * B, S, hl, qk + vh).transpose(1, 2)
+    out = _mla_sdpa(q[..., :qk], apply_rope(q[..., qk:], cos, sin),
+                    kv[..., :qk], tp.scatter(k_rope).reshape(m * B, S, qr),
+                    kv[..., qk:], q_positions=positions,
+                    kv_positions=positions, sm_scale=1.0 / math.sqrt(qk + qr),
+                    q_chunk=cfg.attn_q_chunk)
+    out = out.transpose(1, 2).reshape(m, B, S, hl * vh)
+    return tp.reduce(tp_linear(out, p["wo"]))
 
 
 def _mla_decode_start(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],

@@ -24,9 +24,10 @@ The ``vlm`` family (llava-next-mistral-7b) is this decoder with the
 reference's anyres stub in front: ``frontend_embeds [B, n_img, D]``
 replace the first ``n_img`` token embeddings.  Given a
 :class:`~repro_torch.parallel.tensor.TensorParallel`, ``loss`` runs the
-dense family, the VLM and MoE with GQA over a model axis from sharded
-storage (:func:`lm_loss_tp`, ``layers.attention_tp``/``mlp_tp``, the
-experts gathered by ``layers.moe_layer``); ``loss_ranks`` runs every data
+dense family, the VLM and MoE (GQA or MLA attention) over a model axis
+from sharded storage (:func:`lm_loss_tp`, ``layers.attention_tp``/
+``mla_attention_tp``/``mlp_tp``, the experts gathered by
+``layers.moe_layer``, an MoE model's head blocks on their own specs); ``loss_ranks`` runs every data
 rank of an armed EP mesh in one graph, each on its own view of the
 parameters (the EP train step's).
 """
@@ -153,6 +154,9 @@ class DecoderLM:
         if cfg.sequence_parallel:
             x = L.sp_constrain(x)
         h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        if tp is not None and cfg.use_mla:
+            return x + L.mla_attention_tp(p["attn"], spec["attn"], h, cfg, tp,
+                                          positions=positions), {}
         if tp is not None:
             return x + L.attention_tp(p["attn"], spec["attn"], h, cfg, tp,
                                       positions=positions,
@@ -244,12 +248,12 @@ class DecoderLM:
                     ) -> List[Tuple[str, Params, Optional[Params]]]:
         """``(where, block, spec)`` of every layer in order: the head
         blocks, then the stacked ones (from model-axis storage under
-        ``tp``)."""
+        ``tp``, a head block's specs its own unstacked ones)."""
         if tp is None:
             return [(w, bp, None) for w, bp in self._layers(params)]
-        if self.n_head:
-            raise NotImplementedError("head blocks on a model axis")
-        return [("scan", bp, spec) for bp, spec in unbind_blocks(
+        head = [("head", bp, spec) for bp, spec in zip(
+            params.get("head_blocks", []), tp.pspecs.get("head_blocks", []))]
+        return head + [("scan", bp, spec) for bp, spec in unbind_blocks(
             params["blocks"], tp.pspecs["blocks"], self.n_scan)]
 
     def _features(self, params: Params, tokens: torch.Tensor,
@@ -304,8 +308,8 @@ class DecoderLM:
         runs over the model axis: the vocab-parallel lookup and cross
         entropy, column- and row-parallel blocks, MoE layers with their
         experts gathered over the model axis, whatever the specs leave
-        replicated computed whole.  The dense family, the VLM and MoE with
-        GQA attention (:func:`~repro_torch.parallel.tensor.require_tp_family`).
+        replicated computed whole.  The dense family, the VLM and MoE
+        (:func:`~repro_torch.parallel.tensor.require_tp_family`).
         """
         if tp is not None:
             require_tp_family(self.cfg)

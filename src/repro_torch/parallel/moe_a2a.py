@@ -36,9 +36,17 @@ back, which the gathers' own backward is) and the combine.  The aux loss
 is the mean of every shard's, over the data ranks and, under a model axis,
 over the columns too (ROADMAP.md §3: the reference's ``pmean`` over the
 EP axis alone leaves the columns' values apart under ``out_specs=P()``).
-A mesh with another axis than ``data`` and ``model`` is refused: over
-``pod`` the experts are replicated and their gradients need a pod-axis
-all-reduce of their own (ROADMAP.md §1 item 24).
+
+On a ``(pod, data, model)`` mesh the batch runs over ``(pod, data)`` and
+the experts are split over ``data`` and replicated over ``pod``, as the
+reference's ``dp = ("pod",)`` lays them out (``moe_a2a.py:66,199-203``):
+each pod's ``D`` data ranks run their own certified all-to-all, ``P`` of
+them one after another on the virtual mesh, and data rank ``j`` of every
+pod holds the same ``E/D`` experts (the train step sums their gradients
+over the pod axis).  The aux loss is the mean over every shard of every
+pod (ROADMAP.md §3: the reference's ``pmean`` over ``data`` leaves the
+pods' values apart).  Any axis other than ``pod``, ``data`` and
+``model`` is refused.
 
 :func:`moe_a2a` takes the global batch and one parameter tree (serving,
 and a layer on its own); :func:`moe_ranks` takes each data rank's rows and
@@ -164,14 +172,14 @@ class _TallyBackward(torch.autograd.Function):
     (:mod:`repro_torch.kernels.accounting`)."""
 
     @staticmethod
-    def forward(ctx, x, n_bytes):
-        ctx.n_bytes = n_bytes
+    def forward(ctx, x, n_bytes, groups):
+        ctx.n_bytes, ctx.groups = n_bytes, groups
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        accounting.collective("all-to-all", lambda: ctx.n_bytes)
-        return g, None
+        accounting.collective("all-to-all", lambda: ctx.n_bytes, ctx.groups)
+        return g, None, None
 
 
 def _in_backward() -> bool:
@@ -214,14 +222,15 @@ def _shift_perms(n: int, order: Optional[Tuple[int, ...]] = None):
 
 def _a2a_shift(x: torch.Tensor, n: int,
                order: Optional[Tuple[int, ...]] = None,
-               share: int = 1) -> torch.Tensor:
+               share: int = 1, groups: int = 1) -> torch.Tensor:
     """The all-to-all over the virtual mesh: ``x [n, n, ...]`` — rank
     ``i``'s piece ``j`` is addressed to rank ``j`` — to ``[n, n, ...]``
     with rank ``d``'s piece ``s`` received from rank ``s``.  It is
     reported to an open :class:`~repro_torch.kernels.accounting.
     KernelWork`, forward, recompute and backward alike, as one rank's
     result, its row over ``share`` (the model ranks whose columns a row
-    holds).
+    holds), one of ``groups`` (the pods whose all-to-alls run one after
+    another).
 
     The certified schedule of :func:`_lowered_a2a` runs through
     :func:`~repro_torch.kernels.schedule_runner.run_schedule` (its
@@ -236,9 +245,9 @@ def _a2a_shift(x: torch.Tensor, n: int,
     got = out.reshape(n, n, n, -1)[pick[:, None], pick[None, :], pick[:, None]]
     if accounting.counting():
         n_bytes = x[0].numel() // share * x.element_size()
-        accounting.collective("all-to-all", lambda: n_bytes)
+        accounting.collective("all-to-all", lambda: n_bytes, groups)
         if got.requires_grad:
-            got = _TallyBackward.apply(got, n_bytes)
+            got = _TallyBackward.apply(got, n_bytes, groups)
     return got.reshape(x.shape)
 
 
@@ -318,15 +327,15 @@ def _combine(p, got: torch.Tensor, routed, shape) -> torch.Tensor:
 
 
 def _record(B: int, S: int, D: int, itemsize: int, n_ep: int,
-            cfg: ModelConfig) -> None:
+            cfg: ModelConfig, shards: int) -> None:
     """Two EP all-to-alls a layer call (dispatch and return trip), each
-    moving the packed capacity buffer; ``B`` is the global batch.  The
-    reference's bytes: its record takes ``C`` from the rows of a data
-    rank whatever the model axis does with S.  Nothing in a backward
-    pass."""
+    moving the packed capacity buffer; ``B`` is the global batch over
+    ``shards`` batch shards (the pods' data ranks).  The reference's
+    bytes: its record takes ``C`` from the rows of a batch shard whatever
+    the model axis does with S.  Nothing in a backward pass."""
     rec = obs.recorder()
     if rec.enabled and not _in_backward():
-        a2a_bytes = float(n_ep * _capacity(B * S // n_ep, n_ep, cfg) * D
+        a2a_bytes = float(n_ep * _capacity(B * S // shards, n_ep, cfg) * D
                           * itemsize)
         rec.record("all-to-all", a2a_bytes)
         rec.record("all-to-all", a2a_bytes)
@@ -340,16 +349,16 @@ def _capacity(T: int, n_ep: int, cfg: ModelConfig) -> int:
 def _check_axes(mesh, ep_axis: str) -> None:
     sizes = dict(zip(mesh.axis_names, mesh.shape))
     others = {a: s for a, s in sizes.items()
-              if a not in (ep_axis, "model") and s > 1}
-    if "pod" in others:
-        raise NotImplementedError(
-            f"MoE over a pod axis ({others}): the experts are replicated "
-            f"over pods, so their gradients need a pod-axis all-reduce of "
-            f"their own, ROADMAP.md §1 item 24")
+              if a not in (ep_axis, "model", "pod") and s > 1}
     if others:
         raise NotImplementedError(
-            f"the EP all-to-all runs over the data axis and a model axis "
-            f"only, not {others}")
+            f"the EP all-to-all runs over the data axis, within each pod, "
+            f"and a model axis only, not {others}")
+
+
+def _pods(mesh) -> int:
+    """The mesh's pods (1 without a pod axis)."""
+    return dict(zip(mesh.axis_names, mesh.shape)).get("pod", 1)
 
 
 def _sharded(w: torch.Tensor, logical_dims: int) -> bool:
@@ -402,26 +411,51 @@ def whole_weights(p, tp) -> Dict[str, Any]:
 def moe_ranks(ps: Sequence[Dict[str, Any]], xs: Sequence[torch.Tensor],
               cfg: ModelConfig, tp=None, global_batch: Optional[int] = None
               ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """The armed EP layer over the data ranks of the virtual mesh: data
-    rank ``r``'s rows ``xs[r] [B_l, S, D]`` (replicated over the model
-    axis when ``tp``, a
+    """The armed EP layer over the data-parallel ranks of the virtual
+    mesh: rank ``r``'s rows ``xs[r] [B_l, S, D]`` (replicated over the
+    model axis when ``tp``, a
     :class:`~repro_torch.parallel.tensor.TensorParallel`, is given) and
     its view ``ps[r]`` of the layer's parameters (model-axis storage under
-    ``tp``); rank ``r`` uses its own router and shared experts and its
-    ``E/n_ep`` experts of ``ps[r]``'s (an expert leaf of ``ps[r]`` holds
-    all ``E`` experts, or rank ``r``'s alone).  Returns each rank's output and the
-    aux loss (the mean over every routed shard).  ``global_batch`` (the
-    rows of all ranks, by default) sizes the obs records."""
+    ``tp``).  On a pod mesh the ``P * D`` ranks are pod-major, rank ``p *
+    D + j`` being data rank ``j`` of pod ``p``, and each pod runs its own
+    all-to-all over its ``D`` data ranks (:func:`_moe_pod`).  Data rank
+    ``j`` uses its own router and shared experts and its ``E/D`` experts
+    of ``ps[r]``'s (an expert leaf of ``ps[r]`` holds all ``E`` experts,
+    or data rank ``j``'s alone).  Returns each rank's output and the aux
+    loss (the mean over every routed shard of every pod).
+    ``global_batch`` (the rows of all ranks, by default) sizes the obs
+    records."""
     mesh, ep_axis = _EP_STATE["mesh"], _EP_STATE["ep"]
     order = _EP_STATE["a2a_order"]
     _check_axes(mesh, ep_axis)
-    n = mesh.axis_size(ep_axis)
-    if len(xs) != n or len(ps) != n:
-        raise ValueError(f"{len(xs)} shards for {n} EP ranks")
+    n, pods = mesh.axis_size(ep_axis), _pods(mesh)
+    if len(xs) != pods * n or len(ps) != pods * n:
+        raise ValueError(f"{len(xs)} shards for {pods} pods x {n} EP ranks")
     m = tp.m if tp is not None else 1
     if m != dict(zip(mesh.axis_names, mesh.shape)).get("model", 1):
         raise ValueError(f"a model axis of {m} under the armed mesh's "
                          f"{dict(zip(mesh.axis_names, mesh.shape))}")
+    ys, aux = [], []
+    for g in range(pods):
+        got, got_aux = _moe_pod(ps[g * n:(g + 1) * n], xs[g * n:(g + 1) * n],
+                                cfg, tp, order, pods)
+        ys.extend(got)
+        aux.extend(got_aux)
+    Bl, S, D = xs[0].shape
+    _record(global_batch or Bl * n * pods, S, D, xs[0].element_size(), n, cfg,
+            n * pods)
+    return ys, torch.stack(aux).mean()
+
+
+def _moe_pod(ps: Sequence[Dict[str, Any]], xs: Sequence[torch.Tensor],
+             cfg: ModelConfig, tp, order, pods: int
+             ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """One pod's EP layer over its ``n`` data ranks (:func:`moe_ranks`):
+    each rank's output and every routed shard's aux loss.  ``pods``: the
+    pods whose all-to-alls run one after another, of which a rank takes
+    part in one."""
+    n = len(xs)
+    m = tp.m if tp is not None else 1
     E_loc = cfg.n_experts // n
     Bl, S, D = xs[0].shape
     cols = m if m > 1 and S % m == 0 else 1
@@ -441,8 +475,8 @@ def moe_ranks(ps: Sequence[Dict[str, Any]], xs: Sequence[torch.Tensor],
         aux.extend(t[3] for t in per)
 
     # -- the dispatch all-to-all over the data axis, every column --------
-    recv_x = _a2a_shift(torch.stack(send_x), n, order, cols)
-    recv_e = _a2a_shift(torch.stack(send_e), n, order, cols)
+    recv_x = _a2a_shift(torch.stack(send_x), n, order, cols, pods)
+    recv_e = _a2a_shift(torch.stack(send_e), n, order, cols, pods)
 
     # -- each rank's experts, at full d_ff, on what each column received -
     backs = []
@@ -458,7 +492,7 @@ def moe_ranks(ps: Sequence[Dict[str, Any]], xs: Sequence[torch.Tensor],
             for j in range(cols)], 1))
 
     # -- the return trip and the combine ---------------------------------
-    ret = _a2a_shift(torch.stack(backs), n, order, cols)
+    ret = _a2a_shift(torch.stack(backs), n, order, cols, pods)
     ys = []
     for r in range(n):
         shared = None
@@ -475,8 +509,7 @@ def moe_ranks(ps: Sequence[Dict[str, Any]], xs: Sequence[torch.Tensor],
         else:
             y = outs[0]
         ys.append(y)
-    _record(global_batch or Bl * n, S, D, xs[0].element_size(), n, cfg)
-    return ys, torch.stack(aux).mean()
+    return ys, aux
 
 
 def moe_a2a(p, x: torch.Tensor, cfg: ModelConfig, tp=None
@@ -491,8 +524,11 @@ def moe_a2a(p, x: torch.Tensor, cfg: ModelConfig, tp=None
     mesh, ep_axis = _EP_STATE["mesh"], _EP_STATE["ep"]
     _check_axes(mesh, ep_axis)
     if mesh.group is not None:
+        if _pods(mesh) > 1:
+            raise NotImplementedError(
+                "EP over a process group runs one data axis, not a pod axis")
         return _moe_a2a_group(p, x, cfg, mesh, _EP_STATE["a2a_order"])
-    n = mesh.axis_size(ep_axis)
+    n = mesh.axis_size(ep_axis) * _pods(mesh)
     split = x.shape[0] % n == 0
     shards = list(x.chunk(n)) if split else [x] * n
     ys, aux = moe_ranks([p] * n, shards, cfg, tp, x.shape[0])
@@ -579,5 +615,5 @@ def _moe_a2a_group(p, x: torch.Tensor, cfg: ModelConfig, mesh,
     by_rank = dict(got)
     aux_all = torch.stack([aux if r == me else aux.new_tensor(by_rank[r])
                            for r in range(n_ep)])
-    _record(Bl * n_ep, S, D, x.element_size(), n_ep, cfg)
+    _record(Bl * n_ep, S, D, x.element_size(), n_ep, cfg, n_ep)
     return y, aux_all.mean()

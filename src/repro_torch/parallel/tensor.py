@@ -71,18 +71,13 @@ __all__ = ["TensorParallel", "certified_all_gather",
            "shard_params", "unshard_params", "unbind_blocks", "tp_linear",
            "model_groups", "data_groups", "TP_FAMILIES", "require_tp_family"]
 
-#: model families whose forward runs tensor-parallel (MoE with GQA
-#: attention: its experts gathered over the model axis)
+#: model families whose forward runs tensor-parallel (MoE: its experts
+#: gathered over the model axis, its attention GQA's or MLA's)
 TP_FAMILIES = ("dense", "vlm", "moe")
 
 
 def require_tp_family(cfg) -> None:
     """Raise for a model a model axis cannot shard yet (ROADMAP.md §1)."""
-    if cfg.use_mla:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family!r}, MLA) on a model axis: the "
-            f"reference shards wq_a/wq_b/wkv_a/wkv_b/wk_rope, whose "
-            f"tensor-parallel attention waits for ROADMAP.md §1 item 23")
     items = {"ssm": "item 20", "hybrid": "item 21"}
     if cfg.family in items:
         raise NotImplementedError(

@@ -31,8 +31,9 @@ is :func:`repro_torch.data.synthetic.make_global_batch`'s: one block of
 rows a virtual rank, the step reading data-parallel rank ``k``'s rows
 from the rank that holds mesh slot ``(k, 0)``.
 
-:class:`EPTrainStep` is the MoE step on a ``(data,)`` or ``(data,
-model)`` mesh with expert parallelism armed over ``data``.  The EP
+:class:`EPTrainStep` is the MoE step on a ``(data,)``, ``(data,
+model)`` or ``(pod, data, model)`` mesh with expert parallelism armed
+over ``data``.  The EP
 all-to-all couples the data ranks, so one autograd graph covers all of
 them (:meth:`DecoderLM.loss_ranks
 <repro_torch.models.transformer.DecoderLM.loss_ranks>`): each rank reads
@@ -44,7 +45,12 @@ whose gradient lands in its slice of one buffer: the experts' gradient
 comes whole from the graph and never goes through the reducer.  The
 graph's loss is the sum of the ranks' losses, so that each view's
 gradient is its rank's; the experts' gradient is then ``d`` times the
-mean loss's and is divided by ``d``.  The update runs in place, a large
+mean loss's and is divided by ``d``.  On a pod axis the ``P * D`` ranks
+run in the one graph, each pod's ``D`` data ranks an all-to-all of their
+own; data rank ``j`` of every pod reads the same ``E/D`` experts, its
+pod's gradient landing in the pod's slice of the buffer, and the ``P``
+slices are summed by a certified all-reduce over the pod axis before the
+division by ``P * D``.  The update runs in place, a large
 leaf in slices of ``UPDATE_ELEMS`` elements (the same elementwise
 arithmetic), and the ZeRO-1 all-gather runs leaf by leaf in pieces, so
 that the step holds one copy of the state.  :class:`DenseMoETrainStep`,
@@ -74,7 +80,7 @@ from .train_step import TrainState, batch_on
 __all__ = ["DenseMoETrainStep", "EPTrainStep", "RankViewTrainStep",
            "ShardedLayout", "expert_leaves", "init_sharded_state",
            "layout_state", "make_ep_train_step", "make_sharded_train_step",
-           "param_shapes", "reckon_dense_moe_memory"]
+           "param_shapes", "reckon_dense_moe_memory", "reckon_ep_memory"]
 
 #: the in-place update's slice of a large leaf (f32 temporaries of 256 MB)
 UPDATE_ELEMS = 1 << 26
@@ -106,8 +112,12 @@ class ShardedLayout:
     pspecs: Any                    # param_pspecs
     m: int                         # model-axis size
     dp: int                        # data-parallel ranks (pod x data)
-    #: per leaf, the storage dim ZeRO-1 slices over dp, or None
+    #: per leaf, the storage dim ZeRO-1 slices, or None
     zdims: List[Optional[int]]
+    #: per leaf, the ranks its ZeRO-1 slices are over: the dp axes
+    #: ``zero1_spec`` adds (``dp``, or the pods for an expert leaf already
+    #: split over ``data``), 1 for a leaf with whole moments
+    zn: List[int]
 
     @classmethod
     def of(cls, model, mesh) -> "ShardedLayout":
@@ -118,14 +128,16 @@ class ShardedLayout:
             shd.zero1_spec(s, tuple(t.shape), mesh)
             for s, t in zip(tree_leaves(pspecs), tree_leaves(shapes))])
         dp = int(np.prod([sizes[a] for a in shd.dp_axes(mesh)]))
-        zdims = []
+        zdims, zn = [], []
         for ps, zs in zip(tree_leaves(pspecs), tree_leaves(zspecs)):
             moved = [i for i, (a, b) in enumerate(zip(ps, zs)) if a != b]
             # storage: a model-sharded leaf carries the model axis first
             # (a mesh without one keeps every leaf whole)
             lead = model_dim(ps) is not None and sizes.get("model", 1) > 1
             zdims.append(moved[0] + lead if moved else None)
-        return cls(mesh, pspecs, sizes.get("model", 1), dp, zdims)
+            zn.append(int(np.prod([sizes[a] for a in shd.spec_axes(
+                zs[moved[0]])])) if moved else 1)
+        return cls(mesh, pspecs, sizes.get("model", 1), dp, zdims, zn)
 
     @property
     def shares(self) -> List[int]:
@@ -156,14 +168,15 @@ def layout_state(params: Any, layout: ShardedLayout) -> TrainState:
     the dry run's stand-ins, nothing allocated)."""
     params = shard_params(params, layout.pspecs, layout.m)
 
-    def zeros(p, zd):
+    def zeros(p, zd, zn):
         shape = p.shape if zd is None else _zslice(
-            torch.empty(p.shape, device="meta"), zd, layout.dp).shape
+            torch.empty(p.shape, device="meta"), zd, zn).shape
         return torch.zeros(shape, dtype=torch.float32, device=p.device)
 
     leaves = tree_leaves(params)
-    m_ = tree_unflatten(params, [zeros(p, z) for p, z in zip(leaves, layout.zdims)])
-    v_ = tree_unflatten(params, [zeros(p, z) for p, z in zip(leaves, layout.zdims)])
+    m_, v_ = (tree_unflatten(params, [
+        zeros(p, zd, zn) for p, zd, zn in zip(leaves, layout.zdims, layout.zn)])
+        for _ in range(2))
     dev = leaves[0].device
     return TrainState(params, OptState(m_, v_, torch.zeros((), dtype=torch.int32,
                                                            device=dev)),
@@ -338,35 +351,56 @@ def _pieces(t: torch.Tensor, limit: int) -> List[torch.Tensor]:
 
 
 class RankViewTrainStep(ShardedTrainStep):
-    """The MoE step over per-rank leaf views on a ``(data,)`` or ``(data,
-    model)`` mesh: ``step(state, batch) -> (state', metrics)``, the state
-    :func:`init_sharded_state`'s.  One graph covers the data ranks, each
-    rank reading its own view of every leaf; ``expert`` flags (flatten
-    order) the leaves of which each rank reads its ``E/d`` experts (EP),
-    the others being replicated, their ``d`` gradients through the data
-    axis's reducer.  :class:`EPTrainStep` and :class:`DenseMoETrainStep`
-    are its two constructions, each checking its own preconditions.
+    """The MoE step over per-rank leaf views on a ``(data,)``, ``(data,
+    model)`` or ``(pod, data, model)`` mesh: ``step(state, batch) ->
+    (state', metrics)``, the state :func:`init_sharded_state`'s.  One
+    graph covers the ``P * D`` data-parallel ranks, each rank reading its
+    own view of every leaf; ``expert`` flags (flatten order) the leaves of
+    which each rank reads its ``E/D`` experts (EP: rank ``p * D + j``
+    reads data rank ``j``'s), the others being replicated, their ``P * D``
+    gradients through the data axes' reducer.  On a pod axis an expert
+    leaf's gradient buffer holds one slice a pod, which the pod axis's
+    own certified all-reduce (:attr:`pod_reducer`, built as the data
+    axes' reducer is: a ring over the ``P`` pod slots) sums; its ZeRO-1
+    slices are over the pods (``zero1_spec``), all-gathered over the pod
+    axis after the update.  :class:`EPTrainStep` and
+    :class:`DenseMoETrainStep` are its two constructions, each checking
+    its own preconditions.
 
-    ``counts`` tallies the collectives as :class:`ShardedTrainStep`'s, and
-    ``model_reducescatter`` (the experts' gradients over the model axis).
+    ``counts`` tallies the collectives as :class:`ShardedTrainStep`'s,
+    ``model_reducescatter`` (the experts' gradients over the model axis),
+    and on a pod axis ``pod_allreduce`` and ``pod_allgather``.
     """
 
     def __init__(self, model, opt_cfg, mesh, reducer, use_kernel_add: bool,
                  expert: List[bool]):
-        d = shd.mesh_axis_sizes(mesh).get("data", 1)
+        from .overlap_grads import OverlapGradReducer, certified_allreduce
+
+        sizes = shd.mesh_axis_sizes(mesh)
+        self.d, self.pods = sizes.get("data", 1), sizes.get("pod", 1)
         self.model, self.opt_cfg, self.mesh = model, opt_cfg, mesh
         self.layout = ShardedLayout.of(model, mesh)
         self.tp = (TensorParallel(mesh, self.layout.pspecs, use_kernel_add)
                    if self.layout.m > 1 else None)
         self.expert = expert
-        if reducer is None or reducer.n != d:
-            raise ValueError(f"the MoE step needs a reducer over the {d} "
+        dp = self.layout.dp
+        if reducer is None or reducer.n != dp:
+            raise ValueError(f"the MoE step needs a reducer over the {dp} "
                              f"data-parallel ranks")
         self.reducer = reducer
-        self.gather_schedule = certified_all_gather(d)
+        self.gather_schedule = certified_all_gather(dp)
         self.counts = {"model_allreduce": 0, "model_allgather": 0,
                        "model_reducescatter": 0, "data_allgather": 0,
                        "data_allreduce": 0}
+        self.pod_reducer = self.pod_gather = None
+        if self.pods > 1 and any(expert):
+            self.pod_reducer = OverlapGradReducer(
+                certified_allreduce(self.pods, reducer.bucket_bytes, "ring"),
+                bucket_bytes=reducer.bucket_bytes, mode=reducer.mode,
+                use_kernel_add=reducer.use_kernel_add,
+                transport=reducer.transport)
+            self.pod_gather = certified_all_gather(self.pods)
+            self.counts.update(pod_allreduce=0, pod_allgather=0)
 
     def replicated(self, tree: Any) -> List[Any]:
         """The leaves the data axis's all-reduce carries: all but the
@@ -376,32 +410,38 @@ class RankViewTrainStep(ShardedTrainStep):
     def value_and_grad(self, params: Any, batch: Dict[str, Any]
                        ) -> Tuple[torch.Tensor, Any]:
         """The loss (mean over the data-parallel ranks) and its gradient:
-        the replicated leaves' through the data axis's reducer, the
-        experts' from the one graph, divided by ``d``."""
+        the replicated leaves' through the data axes' reducer, the
+        experts' from the one graph (summed over the pods by the pod
+        axis's reducer), divided by the ``P * D`` ranks."""
         shards = self.dp_batches(batch)
-        d = len(shards)
+        n, pods = len(shards), self.pods
         leaves = tree_leaves(params)
-        # gradient buffers: [d, ...] for a replicated leaf, the expert
-        # leaf's own shape (each rank's slice its own experts')
-        bufs = {i: torch.zeros((*(() if e else (d,)), *p.shape), dtype=p.dtype,
+        # gradient buffers: [n, ...] for a replicated leaf; an expert leaf
+        # its own shape, a slice a pod on a pod axis (each rank's slice of
+        # its pod's its own experts')
+        lead = {False: (n,), True: (pods,) if pods > 1 else ()}
+        bufs = {i: torch.zeros((*lead[e], *p.shape), dtype=p.dtype,
                                device=p.device)
                 for i, (p, e) in enumerate(zip(leaves, self.expert))}
         views = []
-        for r in range(d):
+        for r in range(n):
+            pod, j = divmod(r, self.d)
             lv = []
             for i, p in enumerate(leaves):
                 if self.expert[i]:
-                    # rank r reads its E/d experts: a leaf of its own on
-                    # the same storage, its gradient a slice of the buffer
-                    v = self._experts_of(p.detach(), r, d).requires_grad_()
-                    v.grad = self._experts_of(bufs[i], r, d)
+                    # rank r reads data rank j's E/D experts: a leaf of
+                    # its own on the same storage, its gradient a slice of
+                    # its pod's buffer
+                    v = self._experts_of(p.detach(), j).requires_grad_()
+                    v.grad = self._experts_of(
+                        bufs[i][pod] if pods > 1 else bufs[i], j)
                 else:
                     v = p.detach().requires_grad_()
                     v.grad = bufs[i][r]
                 lv.append(v)       # backward accumulates in place
             views.append(tree_unflatten(params, lv))
         if self.tp is not None:
-            self.tp.groups = d
+            self.tp.groups = n
         try:
             with torch.enable_grad():
                 losses = self.model.loss_ranks(views, shards, tp=self.tp)
@@ -414,18 +454,28 @@ class RankViewTrainStep(ShardedTrainStep):
         mean, _ = self.reducer([bufs[i] for i in kept],
                                shares=[self.layout.shares[i] for i in kept])
         self.counts["data_allreduce"] += 1
-        it = iter(mean)
-        grads = [bufs[i].div_(d) if e else next(it)
-                 for i, e in enumerate(self.expert)]
+        grads = dict(zip(kept, mean))
+        experts = [i for i, e in enumerate(self.expert) if e]
+        if pods > 1 and experts:
+            # the pods' slices summed over the pod axis (their mean, then
+            # over the data ranks): one rank's row is its E/D experts
+            got, _ = self.pod_reducer(
+                [bufs.pop(i) for i in experts],
+                shares=[self.layout.shares[i] * self.d for i in experts])
+            self.counts["pod_allreduce"] += 1
+            grads.update({i: g.div_(self.d) for i, g in zip(experts, got)})
+        else:
+            grads.update({i: bufs[i].div_(n) for i in experts})
         del bufs
-        return torch.stack(losses).detach().mean(), tree_unflatten(params, grads)
+        return torch.stack(losses).detach().mean(), tree_unflatten(
+            params, [grads[i] for i in range(len(leaves))])
 
-    def _experts_of(self, t: torch.Tensor, r: int, d: int) -> torch.Tensor:
-        """Data rank ``r``'s ``E/d`` experts of an expert leaf (stacked
+    def _experts_of(self, t: torch.Tensor, j: int) -> torch.Tensor:
+        """Data rank ``j``'s ``E/D`` experts of an expert leaf (stacked
         ``[L, E, ...]``, or ``[m, L, E, ...]`` in model-axis storage)."""
         dim = 1 + (self.tp is not None)
-        e_loc = t.shape[dim] // d
-        return t.narrow(dim, r * e_loc, e_loc)
+        e_loc = t.shape[dim] // self.d
+        return t.narrow(dim, j * e_loc, e_loc)
 
     def _norm(self, grads: Any) -> torch.Tensor:
         """The clip's global norm, each leaf once, summed in slices of
@@ -442,23 +492,25 @@ class RankViewTrainStep(ShardedTrainStep):
     @torch.no_grad()
     def apply(self, state: TrainState, grads: Any) -> Tuple[TrainState, dict]:
         """Clip (the experts counted once), the ZeRO-1 AdamW on each
-        data-parallel rank's slice, in place, and the slices all-gathered
-        over the data axis, leaf by leaf."""
-        cfg, dp = self.opt_cfg, self.layout.dp
+        rank's slice, in place, and the slices all-gathered leaf by leaf:
+        over the data axes, or over the pod axis for an expert leaf whose
+        moments the pods slice."""
+        cfg = self.opt_cfg
         gnorm = self._norm(grads)
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
         count = state.opt.count + 1
         lr = cfg.schedule(count) if cfg.schedule is not None else cfg.lr
         b1c = 1.0 - cfg.b1 ** count.to(torch.float32)
         b2c = 1.0 - cfg.b2 ** count.to(torch.float32)
-        params, sliced = tree_leaves(state.params), {}
-        for i, (p, g, m_, v_, zd) in enumerate(zip(
+        params, sliced = tree_leaves(state.params), []
+        zd, zn = self.layout.zdims, self.layout.zn
+        for i, (p, g, m_, v_) in enumerate(zip(
                 params, tree_leaves(grads), tree_leaves(state.opt.m),
-                tree_leaves(state.opt.v), self.layout.zdims)):
-            if zd is not None:
-                zp, zg = _zslice(p, zd, dp), _zslice(g, zd, dp)
-                parts = [(zp[k], zg[k], m_[k], v_[k]) for k in range(dp)]
-                sliced.setdefault(p.dtype, []).append(i)
+                tree_leaves(state.opt.v))):
+            if zd[i] is not None:
+                zp, zg = _zslice(p, zd[i], zn[i]), _zslice(g, zd[i], zn[i])
+                parts = [(zp[k], zg[k], m_[k], v_[k]) for k in range(zn[i])]
+                sliced.append(i)
             else:
                 parts = [(p, g, m_, v_)]
             for part in parts:
@@ -466,30 +518,35 @@ class RankViewTrainStep(ShardedTrainStep):
                     new = adamw_update(cfg, a, b, c, e, scale, lr, b1c, b2c)
                     for dst, src in zip((a, c, e), new):
                         dst.copy_(src)
-        zd = self.layout.zdims
-        for i in (i for ids in sliced.values() for i in ids):
+        for i in sliced:
+            pod = self.expert[i] and self.pods > 1
+            share = self.layout.shares[i] * (self.d if pod else 1)
             params[i].copy_(_unslice(self._gather_leaf(
-                _zslice(params[i], zd[i], dp), self.layout.shares[i]), zd[i]))
+                _zslice(params[i], zd[i], zn[i]), share, pod), zd[i]))
         metrics = {"grad_norm": gnorm,
                    "lr": torch.as_tensor(lr, dtype=torch.float32,
                                          device=gnorm.device)}
         opt = OptState(state.opt.m, state.opt.v, count)
         return TrainState(state.params, opt, state.step + 1), metrics
 
-    def _gather_leaf(self, s: torch.Tensor, share: int) -> torch.Tensor:
-        """One leaf's ``[dp, ...]`` updated slices, gathered over the data
-        axis by the certified all-gather in pieces of at most
+    def _gather_leaf(self, s: torch.Tensor, share: int, pod: bool = False
+                     ) -> torch.Tensor:
+        """One leaf's ``[n, ...]`` updated slices, gathered by the
+        certified all-gather over the data axes (``n = P * D``) or, with
+        ``pod``, over the pod axis (``n = P``), in pieces of at most
         ``UPDATE_ELEMS`` elements a rank (the runner holds ``n + 1`` rows
-        of a piece a rank); ``share``: the leaf's
-        :attr:`ShardedLayout.shares`."""
-        dp = self.layout.dp
-        flat = s.reshape(dp, -1)
+        of a piece a rank); ``share``: the ranks of a real mesh whose
+        pieces one row holds (the leaf's :attr:`ShardedLayout.shares`,
+        times ``D`` for an expert leaf's pod slices)."""
+        sched, key = ((self.pod_gather, "pod_allgather") if pod else
+                      (self.gather_schedule, "data_allgather"))
+        flat = s.reshape(sched.n, -1)
         got = torch.empty_like(flat)
         for c in range(0, flat.shape[1], UPDATE_ELEMS):
             cols = slice(c, c + UPDATE_ELEMS)
             piece = flat[:, cols].contiguous()
-            got[:, cols] = all_gather_rows(piece, self.gather_schedule)
-            self.counts["data_allgather"] += 1
+            got[:, cols] = all_gather_rows(piece, sched)
+            self.counts[key] += 1
             accounting.collective("all-gather", lambda: piece.numel()
                                   // share * piece.element_size())
         return got.reshape(s.shape)
@@ -597,6 +654,28 @@ def reckon_dense_moe_memory(shapes: Any, d: int, bucket_bytes: float
     out = {"params": n, "weights": w, "moments": 8 * n, "gradients": d * w,
            "mean": w, "in_flight": in_flight}
     out["total"] = w + 8 * n + d * w + w + in_flight
+    return out
+
+
+def reckon_ep_memory(shapes: Any, d: int, pods: int = 1) -> Dict[str, int]:
+    """:class:`EPTrainStep`'s device bytes from the parameter shapes (a
+    reckoning, nothing measured; activations not counted): the weights,
+    the f32 AdamW moments, the experts' gradient buffers (one a pod: on a
+    pod axis each pod's ranks write their experts' gradients into a
+    buffer of their own), the replicated leaves' gradient on each of the
+    ``pods * d`` ranks, and the means the reducers return: the replicated
+    leaves', and on a pod axis the experts'."""
+    leaves = list(zip(tree_leaves(shapes), expert_leaves(shapes)))
+    n = sum(t.numel() for t, _ in leaves)
+    w = sum(t.numel() * t.element_size() for t, _ in leaves)
+    ex = sum(t.numel() * t.element_size() for t, e in leaves if e)
+    out = {"params": n, "weights": w, "moments": 8 * n,
+           "expert_gradients": pods * ex,
+           "replicated_gradients": pods * d * (w - ex),
+           "mean": w - ex + (ex if pods > 1 else 0)}
+    out["total"] = sum(out[k] for k in ("weights", "moments",
+                                        "expert_gradients",
+                                        "replicated_gradients", "mean"))
     return out
 
 

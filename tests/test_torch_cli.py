@@ -1,6 +1,7 @@
 """``python -m repro_torch`` on the CPU: serve, probe, plan and train (smoke configs)."""
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -283,21 +284,63 @@ def test_train_refuses_what_is_not_ported(tmp_path):
             main(["train", "--arch", arch, "--smoke", "--device", "cpu",
                   "--mesh", "1x2", "--reorder", "none",
                   "--ckpt-dir", str(tmp_path)])
-    # MoE trains (test_train_moe_over_the_ep_all_to_all, and where the data
+    # MoE trains (test_train_moe_over_the_ep_all_to_all, where the data
     # axis does not divide the experts
-    # test_train_moe_where_the_data_axis_does_not_divide_the_experts); MLA
-    # on a model axis and an MoE arch on a pod axis name their items
-    for arch, mesh, err, match in (
-            ("deepseek-v2-236b", "2x2", NotImplementedError, "item 23"),
-            ("dbrx-132b", "2x2x2", NotImplementedError, "item 24")):
-        with pytest.raises(err, match=match):
-            main(["train", "--arch", arch, "--smoke", "--device", "cpu",
-                  "--mesh", mesh, "--batch", "8",
-                  "--reorder", "none", "--ckpt-dir", str(tmp_path)])
+    # test_train_moe_where_the_data_axis_does_not_divide_the_experts, MLA
+    # on a model axis and MoE on a pod axis
+    # test_train_moe_with_mla_on_a_model_axis_and_on_a_pod_axis)
     # Whisper's loss needs audio the synthetic batches do not carry
     with pytest.raises(NotImplementedError, match="frontend_embeds"):
         main(["train", "--arch", "whisper-small", "--smoke", "--device", "cpu",
               "--reorder", "none", "--ckpt-dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("arch,mesh", [("deepseek-v2-236b", "2x2"),
+                                       ("dbrx-132b", "2x2x2")])
+def test_train_moe_with_mla_on_a_model_axis_and_on_a_pod_axis(
+        arch, mesh, monkeypatch, tmp_path):
+    """``train`` of deepseek-v2 (MLA, its dense head block) on a model
+    axis and of dbrx on a pod axis runs to its end at the capacity factor
+    E/K (``get_config`` patched, as ``chip_smoke.py`` cuts its configs),
+    where no choice drops on any mesh; each step's loss within rtol 5e-4
+    of ``--mesh 4``'s.  The meshes send every token to the same experts
+    and differ only in the aux loss's routing statistics, averaged over
+    other sets of tokens (a model column's half of S; deepseek's 2 shards
+    of 4 rows against 4 of 2): 1.2e-4 of the loss at most here.  On the
+    pod axis each step runs one pod-axis all-reduce of the experts'
+    gradients and all-gathers their 3 leaves' ZeRO-1 slices over it."""
+    from repro_torch import configs
+    from repro_torch.cli import main
+
+    base = configs.get_config
+
+    def no_drop(name):
+        cfg = base(name)
+        return dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+
+    monkeypatch.setattr(configs, "get_config", no_drop)
+    reports = {}
+    for m in (mesh, "4"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert main(["train", "--arch", arch, "--smoke", "--device", "cpu",
+                         "--mesh", m, "--batch", "8", "--seq", "16",
+                         "--steps", "2", "--reorder", "none", "--ckpt-dir",
+                         str(tmp_path / m)]) == 0
+        reports[m] = json.loads(out.getvalue().split("[train] report ")[1]
+                                .splitlines()[0])
+    got, want = reports[mesh], reports["4"]
+    assert got["ep"]["source_drops"] == got["ep"]["destination_drops"] == 0
+    assert want["ep"]["source_drops"] == want["ep"]["destination_drops"] == 0
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=5e-4)
+    tp = got["tp_collectives"]
+    assert (got["model"], got["dp"]) == (2, 2 if mesh == "2x2" else 4)
+    if mesh == "2x2x2":
+        assert got["ep"]["pods"] == 2 and got["ep"]["experts_per_rank"] == 2
+        assert (tp["pod_allreduce"], tp["pod_allgather"]) == (1.0, 3.0)
+    else:
+        assert "pod_allreduce" not in tp and tp["model_allreduce"] > 0
 
 
 def test_train_checks_the_smoke_config_it_runs(tmp_path):

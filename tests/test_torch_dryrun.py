@@ -24,6 +24,7 @@ from repro.configs import get_config as R_get_config  # noqa: E402
 from repro.launch import hlo_analysis as R_ha  # noqa: E402
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, shape_applicable  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.kernels.accounting import KernelWork  # noqa: E402
 from repro_torch.launch import dryrun as D  # noqa: E402
 from repro_torch.launch import hlo_analysis as T_ha  # noqa: E402
 from repro_torch.launch.mesh import make_mesh, make_production_mesh  # noqa: E402
@@ -82,10 +83,11 @@ def test_copied_formulas_equal_the_references(R_dry):
             assert rec == ref, (arch, shape_name)
 
 
-def _ref_rank_bytes(arch, shape_name):
+def _ref_rank_bytes(arch, shape_name, multi_pod=False):
     """The reference's per-device bytes of a train cell's state and batch
-    at ``(16, 16)``: each leaf of ``jax.eval_shape`` of the state divided
-    by the sizes of the axes its ``state_pspecs`` spec names."""
+    at ``(16, 16)`` (``(2, 16, 16)`` with ``multi_pod``): each leaf of
+    ``jax.eval_shape`` of the state divided by the sizes of the axes its
+    ``state_pspecs`` spec names."""
     from repro.models import get_model as R_get_model
     from repro.optim import OptState as R_OptState
     from repro.train.train_step import TrainState as R_TrainState
@@ -99,10 +101,11 @@ def _ref_rank_bytes(arch, shape_name):
     i32 = jax.ShapeDtypeStruct((), np.int32)
     state = R_TrainState(params=params, opt=R_OptState(m=f32, v=f32, count=i32),
                          step=i32)
-    mesh = SimpleNamespace(axis_names=("data", "model"),
-                           devices=np.empty((16, 16), object))
+    sizes = {"pod": 2, "data": 16, "model": 16} if multi_pod else \
+        {"data": 16, "model": 16}
+    mesh = SimpleNamespace(axis_names=tuple(sizes),
+                           devices=np.empty(tuple(sizes.values()), object))
     specs = R_state_pspecs(state, rcfg, mesh)
-    sizes = {"data": 16, "model": 16}
 
     def per_device(leaf, spec):
         n = int(np.prod(leaf.shape)) * np.dtype(leaf.dtype).itemsize
@@ -116,36 +119,43 @@ def _ref_rank_bytes(arch, shape_name):
     total = sum(per_device(leaf, spec) for leaf, spec in zip(
         jax.tree.leaves(state), jax.tree.leaves(specs, is_leaf=is_spec)))
     shape = R_SHAPES[shape_name]
-    # tokens and labels, int32 [B, S] split over the data axis
-    return total + 2 * shape.global_batch // 16 * shape.seq_len * 4
+    # tokens and labels, int32 [B, S] split over the data-parallel ranks
+    dp = sizes["data"] * sizes.get("pod", 1)
+    return total + 2 * shape.global_batch // dp * shape.seq_len * 4
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "dbrx-132b"])
-def test_one_ranks_train_state_at_the_production_mesh(arch):
+@pytest.mark.parametrize("arch,multi_pod", [
+    pytest.param("qwen2-0.5b", False, id="qwen2-0.5b"),
+    pytest.param("dbrx-132b", False, id="dbrx-132b"),
+    pytest.param("deepseek-v2-236b", False, id="deepseek-v2-236b"),
+    pytest.param("deepseek-v2-236b", True, id="deepseek-v2-236b-multi-pod")])
+def test_one_ranks_train_state_at_the_production_mesh(arch, multi_pod):
     """Rank 0's share of the state and batch the port's step takes at
-    ``(16, 16)``, read from the step's views, equals the reference's
-    pspec-derived bytes (qwen2-0.5b 0.1806 GB, dbrx-132b 6.896 GB a device
-    before the batch); deepseek-v2-236b waits for item 23."""
+    ``(16, 16)`` (and deepseek-v2's at ``(2, 16, 16)``, its experts'
+    moments sliced over the pods), read from the step's views, equals the
+    reference's pspec-derived bytes (qwen2-0.5b 0.1806 GB, dbrx-132b
+    6.896 GB a device before the batch)."""
     cfg = get_config(arch)
-    mesh = make_production_mesh(device="cpu")
+    mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
     build = build_train_step(cfg, mesh, "cpu", model=_meta_model(cfg))
     shape = SHAPES["train_4k"]
-    rows = (256, shape.global_batch // 16, shape.seq_len)
+    dp = build.layout["dp"]
+    rows = (mesh.size, shape.global_batch // dp, shape.seq_len)
     batch = {k: torch.empty(rows, dtype=torch.int32, device="meta")
              for k in ("tokens", "labels")}
     port = D._rank_state_bytes(build, build.state()) + \
         D._rank_batch_bytes(build, batch)
-    assert port == _ref_rank_bytes(arch, "train_4k")
-    assert build.kind == {"qwen2-0.5b": "tensor_parallel",
-                          "dbrx-132b": "ep"}[arch]
+    assert port == _ref_rank_bytes(arch, "train_4k", multi_pod)
+    assert build.kind == {"qwen2-0.5b": "tensor_parallel"}.get(arch, "ep")
 
 
 def test_the_80_cells_statuses():
     """Every cell of both production meshes is the reference's
-    ``shape_applicable`` but for the port's refusals, each naming its
-    item: rwkv6 (20), the hybrid (21), MLA (23) and MoE on a pod axis (24)
-    in training, Whisper's training (``encdec``), and MoE serving on a
-    model axis (22)."""
+    ``shape_applicable`` but for the port's 14 refusals, each naming its
+    item: rwkv6 (20) and the hybrid (21) in training, Whisper's training
+    (``encdec``), and MoE serving on a model axis (22).  The MoE family
+    trains on both meshes: deepseek-v2's MLA on the model axis, and both
+    MoE archs on the pod axis."""
     refused = {}
     for multi_pod in (False, True):
         for arch, shape_name in CELLS:
@@ -160,7 +170,6 @@ def test_the_80_cells_statuses():
                         else why) for cell, why in refused.items()}
     want = {("rwkv6-1.6b", "train_4k"): "item 20",
             ("recurrentgemma-9b", "train_4k"): "item 21",
-            ("deepseek-v2-236b", "train_4k"): "item 23",
             ("whisper-small", "train_4k"): "encdec",
             ("deepseek-v2-236b", "prefill_32k"): "item 22",
             ("deepseek-v2-236b", "decode_32k"): "item 22",
@@ -168,11 +177,11 @@ def test_the_80_cells_statuses():
             ("dbrx-132b", "decode_32k"): "item 22"}
     expect = {(a, s, mp): why for (a, s), why in want.items()
               for mp in (False, True)}
-    expect[("dbrx-132b", "train_4k", True)] = "item 24"
-    # MoE on a pod axis is refused before MLA's model axis
-    expect[("deepseek-v2-236b", "train_4k", True)] = "item 24"
-    assert items == expect
+    assert items == expect and len(expect) == 14
     assert sum(1 for _ in CELLS) * 2 == 80
+    for arch in ("deepseek-v2-236b", "dbrx-132b"):
+        for multi_pod in (False, True):
+            assert D.cell_status(arch, "train_4k", multi_pod) == ("ok", "")
 
 
 SMOKE_TRAIN = ShapeSpec("smoke_train", 16, 8, "train")
@@ -281,7 +290,12 @@ def test_the_collectives_one_rank_sends_by_hand(smoke_counts):
     The EP dbrx: per MoE layer, the tokens' dispatch and return and the
     expert ids' dispatch, in the forward and the block's recompute, and
     the two token all-to-alls' backward, each carrying one rank's ``n x
-    C`` pieces of its sequence column."""
+    C`` pieces of its sequence column.  The EP dbrx on ``(2, 2, 2)``, at
+    the same rows a data-parallel rank: besides what ``(2, 2)`` sends,
+    one pod-axis all-reduce of a rank's experts (its ``E/D`` of each
+    expert leaf, its model shard) and one pod-axis all-gather a leaf whose
+    moments ``zero1_spec`` slices over the pods (the calls that cover
+    every rank at once, the model axis's and the all-to-alls' apart)."""
     B, S = SMOKE_TRAIN.global_batch, SMOKE_TRAIN.seq_len
     sizes = {"data": 2, "model": 2}
     rows = B // sizes["data"]
@@ -313,6 +327,32 @@ def test_the_collectives_one_rank_sends_by_hand(smoke_counts):
     assert (got["count_by_type"]["all-to-all"],
             got["bytes_by_type"]["all-to-all"]) == \
         (8 * L, L * (6 * tokens + 2 * ids))
+
+    # the calls that cover every rank at once (groups 1: the data axes'
+    # and the pod axis's), kept apart from the model axis's and the
+    # all-to-alls', which a rank of each data-parallel group makes
+    calls = {}
+    pod_sizes = {"pod": 2, "data": 2, "model": 2}
+    for name, sz, rows in (("flat", sizes, B), ("pods", pod_sizes, 2 * B)):
+        with KernelWork() as kw:
+            D.measure_cell(cfg, ShapeSpec(name, S, rows, "train"),
+                           make_mesh(tuple(sz.values()), tuple(sz), "cpu"),
+                           "cpu")
+        calls[name] = {k: v for (k, groups), v in kw._coll.items()
+                       if groups == 1}
+    flat = _ref_smoke_leaves("dbrx-132b", sizes)
+    leaves = _ref_smoke_leaves("dbrx-132b", pod_sizes)
+    experts = sum(n for e, n, _ in leaves if e)
+    pod_sliced = [n for e, n, sliced in leaves if e and sliced]
+    zero = [n for e, n, sliced in leaves if sliced and not e]
+    zero_flat = [n for _, n, sliced in flat if sliced]
+    assert len(pod_sliced) == 3 and experts > 0
+    got, want = calls["pods"], calls["flat"]
+    assert got["all-reduce"] == [want["all-reduce"][0] + 1,
+                                 want["all-reduce"][1] + experts]
+    assert want["all-gather"] == [len(zero_flat), sum(zero_flat)]
+    assert got["all-gather"] == [len(zero) + len(pod_sliced),
+                                 sum(zero) + sum(pod_sliced)]
 
 
 def test_the_count_against_xlas_cost_analysis(R_dry):

@@ -143,20 +143,27 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b"])
-def test_non_ssm_families_name_their_roadmap_item(arch):
-    """MoE, the last family to be ported, gives the port's decoder; what
-    it still cannot do, ``train`` its MLA on a model axis, names its
-    ROADMAP item."""
-    from repro_torch.cli import main
+def test_moe_family_trains_on_every_production_mesh_kind(arch):
+    """MoE, the last family to be ported, gives the port's decoder, and
+    ``train`` lays it out on every kind of production mesh with nothing
+    refused: the EP step on a model axis (its MLA tensor-parallel) and on
+    a pod axis, the data-parallel MoE step where the data axis does not
+    divide the experts.  The runs: ``tests/test_torch_cli.py``."""
     from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_layout
     from repro_torch.models import get_model
     from repro_torch.models.transformer import DecoderLM
+    from repro_torch.parallel.tensor import require_tp_family
 
-    model = get_model(get_config(arch).smoke(), device="cpu")
+    cfg = get_config(arch)
+    model = get_model(cfg.smoke(), device="cpu")
     assert type(model) is DecoderLM and model.cfg.use_mla and model.n_head == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 23"):
-        main(["train", "--arch", arch, "--smoke", "--device", "cpu",
-              "--mesh", "2x2", "--reorder", "none"])
+    require_tp_family(cfg)
+    got = {shape: train_layout(cfg, shape, axes) for shape, axes in (
+        ((16, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model")),
+        ((3, 2), ("data", "model")))}
+    assert [(v["dp"], v["pods"], v["ep"]) for v in got.values()] == \
+        [(16, 1, True), (32, 2, True), (3, 1, False)]
 
 
 @pytest.mark.parametrize("arch,cls", [

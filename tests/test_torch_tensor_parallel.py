@@ -296,10 +296,39 @@ def test_jit_train_step_takes_the_references_signature(qwen):
 
 
 @pytest.mark.parametrize("arch,item", [("rwkv6-1.6b", "item 20"),
-                                       ("recurrentgemma-9b", "item 21"),
-                                       ("deepseek-v2-236b", "item 23")])
+                                       ("recurrentgemma-9b", "item 21")])
 def test_families_without_a_tp_forward_name_their_item(arch, item):
     model = get_model(get_config(arch).smoke(), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         make_sharded_train_step(model, AdamWConfig(),
                                 _mesh((1, 2), ("data", "model")))
+
+
+def test_deepseek_on_a_model_axis_equals_one_rank():
+    """The tensor-parallel step of the smoke deepseek-v2 on ``(1, 2)``:
+    MLA over the model axis (``layers.mla_attention_tp``), its dense head
+    block on its own specs and the MoE block's experts gathered whole (EP
+    does not arm on one data rank).  Its loss and unsharded gradients
+    equal the one-rank ``value_and_grad``'s on the same rows (rtol 1e-4 /
+    atol 1e-5; ``tests/test_torch_moe.py`` holds that one to
+    ``jax.grad``)."""
+    cfg = get_config("deepseek-v2-236b").smoke()
+    model = get_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = batch_on(host_batch(SyntheticLM(cfg.vocab_size, SEQ, ROWS, seed=0),
+                                0), model.device)
+    loss1, grads1 = value_and_grad(model, params, batch)
+    mesh = _mesh((1, 2), ("data", "model"))
+    step = make_sharded_train_step(model, AdamWConfig(), mesh)
+    pspecs = step.layout.pspecs
+    head = pspecs["head_blocks"][0]
+    assert (head["attn"]["wq_b"], head["attn"]["wo"], head["mlp"]["w1"]) == \
+        (shd.P(None, "model"), shd.P("model", None), shd.P(None, "model"))
+    rows = make_global_batch(SyntheticLM(cfg.vocab_size, SEQ, ROWS, seed=0),
+                             0, mesh, shd.batch_spec(mesh))
+    loss, grads = step.value_and_grad(shard_params(params, pspecs, 2), rows)
+    np.testing.assert_allclose(float(loss), float(loss1), rtol=1e-5)
+    for g, w in zip(tree_leaves(unshard_params(grads, pspecs)),
+                    tree_leaves(grads1)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4, atol=1e-5)
+    assert step.tp.counts["allreduce"] > 0
