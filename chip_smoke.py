@@ -127,7 +127,7 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
    profiled;
 8. the user's entry point: ``python -m repro_torch train`` in process
    (``repro_torch.cli.main``) at published widths cut to
-   ``TRAIN_CLI_DEPTH`` (12) of its 24 blocks — ``qwen2-0.5b``, an 8-rank
+   ``TRAIN_CLI_DEPTH`` (6) of its 24 blocks — ``qwen2-0.5b``, an 8-rank
    mesh planned through a ``Session`` on a scrambled simulated fabric,
    16 x 1024 tokens a step, 12 steps (the reference's 10-step warm-up of
    the learning rate, so the loss is seen to fall), the peer-memory ring a
@@ -166,7 +166,7 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
     the loss's central difference along that tensor's gradient against
     the gradient's own prediction (``GRAD_RTOL``); then the user's entry
     point, ``python -m repro_torch train --arch rwkv6-1.6b`` cut to
-    ``SSM_TRAIN_DEPTH`` (8) of its 24 blocks over the planned 8-rank mesh
+    ``SSM_TRAIN_DEPTH`` (2) of its 24 blocks over the planned 8-rank mesh
     (64 x 16 tokens a rank, 14 steps), checked and
     measured as phase 8: an entry-point smoke at a short sequence, not a
     measure of training throughput.
@@ -314,6 +314,30 @@ is no CPU fall-back, and without CUDA it stops before printing a result):
     all-reduce left out) outside; the pod all-reduce's ``peer_ring``
     launches and bytes counted.
 
+23. the recurrent families on a model axis: (a) one ``rwkv6-1.6b`` block
+    (time mix and channel mix) at published widths, bf16, on
+    ``RWKV_TP_ROWS`` x ``RWKV_TP_SEQ`` tokens over a model axis of
+    ``REC_TP_M`` (``Rwkv6LM._block_tp``: the mixes column-parallel by
+    heads, the decay split to each rank's heads, the WKV recurrence on all
+    ranks' heads at once) against the block on one rank, forward and
+    backward: the output and every gradient within ``REC_TP_BOUND`` of
+    their largest entry, the control (the decay's gradient rank 0's slice
+    alone, no all-gather) outside; the model-axis all-reduces, all-gathers
+    and their ``fused_add`` launches held to the count reckoned from the
+    code; both timed with CUDA events; (b) ``python -m repro_torch train
+    --arch rwkv6-1.6b --mesh 2x4 --reorder simulate`` in process at
+    ``RWKV_TRAIN_DEPTH`` blocks, the command's default 8 x 64 tokens,
+    ``REC_STEPS`` steps, its checkpoint not written: the losses finite,
+    ``peer_ring``, ``fused_add`` and the model-axis collectives equal to
+    the dry run's count of the same step, the peak within ``MEM_BAND`` of
+    the dry run's reckoning and the control outside; (c) one
+    ``recurrentgemma-9b`` group (R, R, A) on ``HYBRID_TP_ROWS`` x
+    ``HYBRID_TP_SEQ`` tokens, past its 2048-token window, as (a) (the
+    control: the conjugate identities' gradients rank 0's alone); (d) its
+    train command as (b), at ``HYBRID_TRAIN_DEPTH`` blocks (a group and the
+    R, R tail) where the dry run's reckoning fits ``REC_BUDGET`` of the
+    card, else ``HYBRID_TRAIN_SHALLOW``.
+
 Phase 4 also holds the smoke ``recurrentgemma-9b`` (a group and a tail,
 at P > W and P == W) and ``whisper-small`` in f32 on the card: flash
 prefill == xla prefill, greedy tokens equal.
@@ -418,8 +442,10 @@ WKV_CASES = [(2, 32, 2, 8, 8, 8), (1, 64, 4, 16, 16, 16), (2, 16, 1, 8, 16, 16),
 # TRAIN_CLI_DEPTH of qwen2-0.5b's 24 blocks, phase 12's at SSM_TRAIN_DEPTH
 # of rwkv6-1.6b's 24 (its step is the exact recurrence, a loop over tokens
 # a block); phase 16's scenario at BENCH_REPS timed calls a step (the
-# reference's 5), phase 18's published-depth runs at 2 steps
-TRAIN_CLI_DEPTH, SSM_TRAIN_DEPTH, BENCH_REPS = 12, 8, 3
+# reference's 5), phase 18's published-depth runs at 2 steps.  Phase 23
+# took them from 12 and 8 blocks to 6 and 2 (rwkv6's train command also
+# runs there, on a model axis)
+TRAIN_CLI_DEPTH, SSM_TRAIN_DEPTH, BENCH_REPS = 6, 2, 3
 TRAIN_CLI = ["train", "--arch", TRAIN_ARCH, "--mesh", str(RANKS),
              "--batch", str(RANKS * ROWS_PER_RANK), "--seq", str(SEQ),
              "--steps", "12", "--reorder", "simulate",
@@ -601,6 +627,26 @@ MESH_MLA_CLI = ["train", "--arch", MLA_ARCH, "--mesh", MESH_MLA_MESH,
 POD_MESH, POD_FLAT_MESH = (2, 2, 2), (4, 2)
 POD_ROWS, POD_SEQ = 8, 256
 POD_GRAD_BOUND, POD_UPDATE_BOUND = 0.03, 0.3
+# tensor parallelism for the recurrent families (phase 23).  (a) One
+# rwkv6-1.6b block (time mix and channel mix) at published widths, bf16, on
+# RWKV_TP_ROWS x RWKV_TP_SEQ tokens over a model axis of REC_TP_M against
+# the block on one rank; (c) one recurrentgemma-9b group (R, R, A) on
+# HYBRID_TP_ROWS x HYBRID_TP_SEQ tokens, past its 2048-token window, the
+# same way.  Outputs and gradients relative to their largest entry, as
+# MLA_TP_BOUND, but looser: the ranks' bf16 partials summed in bf16 (a bf16
+# step is 2^-8 of the top) through up to three blocks' backward (the smoke
+# group in bf16 on the CPU read 0.031 at a model axis of 4; the controls
+# read 0.8 to 1.3).  rwkv6's bonus u is drawn nonzero (its init is zeros,
+# which makes the first token's GroupNorm see no variance).  (b), (d): the
+# train command on each arch at published widths on REC_MESH, the
+# command's default 8 x 64 tokens, REC_STEPS steps, its checkpoint not
+# written; rwkv6 at RWKV_TRAIN_DEPTH blocks, the hybrid at
+# HYBRID_TRAIN_DEPTH (a group and the R, R tail) where the dry run's
+# reckoning fits REC_BUDGET of the card, else at HYBRID_TRAIN_SHALLOW
+REC_TP_M, REC_TP_BOUND = 8, 0.05
+RWKV_TP_ROWS, RWKV_TP_SEQ, HYBRID_TP_ROWS, HYBRID_TP_SEQ = 2, 512, 1, 4096
+REC_MESH, REC_STEPS, REC_BUDGET, REC_BATCH, REC_SEQ = "2x4", 2, 0.85, 8, 64
+RWKV_TRAIN_DEPTH, HYBRID_TRAIN_DEPTH, HYBRID_TRAIN_SHALLOW = 2, 5, 3
 
 
 def _say(msg: str) -> None:
@@ -6070,6 +6116,357 @@ def train_moe_every_mesh(seed: int, card: str) -> dict:
     return res
 
 
+def _axis_vs_rank(label: str, params, pspecs, x, one_rank_fn, axis_fn,
+                  seed: int, control, upstream, reckoned: dict) -> dict:
+    """``one_rank_fn(params, x)`` on one rank against ``axis_fn(storage, x,
+    tp)`` over a model axis of ``REC_TP_M`` (``params`` in model-axis
+    storage by ``pspecs``), forward and backward on one cotangent: the
+    output and the gradients of the input and of every parameter, each
+    relative to its largest entry; then the same with ``control`` (a
+    context that breaks one model-axis collective) for the ``upstream``
+    gradients it reaches; the model-axis collective runs and their
+    ``fused_add`` launches of the sound run against ``reckoned``; both
+    timed with CUDA events."""
+    import torch
+
+    from repro_torch.kernels import ring_collective as rc
+    from repro_torch.launch import make_mesh
+    from repro_torch.parallel import tensor as tpm
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    m = REC_TP_M
+    mesh = make_mesh((1, m), ("data", "model"), device="cuda")
+    storage = tpm.shard_params(params, pspecs, m)
+    n = len(tree_leaves(params))
+    names = [k for k, *_ in _named_leaves(tree_unflatten(params, list(range(n))))]
+    order = [i for *_, i in _named_leaves(tree_unflatten(params, list(range(n))))]
+    cot = torch.randn(x.shape, generator=_seeded(seed + 23), device="cuda")
+
+    def grads_of(tree, leaves, xg, y, unshard):
+        (y.float() * cot).sum().backward()
+        g = tree_unflatten(tree, [t.grad for t in leaves])
+        flat = tree_leaves(tpm.unshard_params(g, pspecs) if unshard else g)
+        return dict({names[j]: flat[i] for j, i in enumerate(order)},
+                    input=xg.grad)
+
+    def one_rank():
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        xg = x.clone().requires_grad_()
+        y = one_rank_fn(tree_unflatten(params, leaves), xg)
+        return y.detach(), grads_of(params, leaves, xg, y, False)
+
+    def on_axis(tp):
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(storage)]
+        xg = x.clone().requires_grad_()
+        y = axis_fn(tree_unflatten(storage, leaves), xg, tp)
+        return y.detach(), grads_of(storage, leaves, xg, y, True)
+
+    y1, want = one_rank()
+    tp = tpm.TensorParallel(mesh, pspecs)
+    torch.cuda.synchronize()
+    rc.fused_add.launches = 0
+    ym, got = on_axis(tp)
+    torch.cuda.synchronize()
+    launches, counts = rc.fused_add.launches, dict(tp.counts)
+    rel = {"output": _rel(ym, y1)}
+    rel.update({f"{k}_grad": _rel(got[k], want[k]) for k in want})
+    del got, ym
+    with control():
+        _, bad = on_axis(tpm.TensorParallel(mesh, pspecs))
+    ctl = {k: _rel(bad[k], want[k]) for k in upstream}
+    del bad
+    ms = {"one_rank": _time_ms(one_rank, 3, warmup=1),
+          f"model_axis_{m}": _time_ms(lambda: on_axis(tp), 3, warmup=1)}
+    res = {"tokens": list(x.shape[:2]), "model_axis": m, "relative": rel,
+           "worst": max(rel.values()), "control": ctl,
+           "control_worst": max(ctl.values()), "bound": REC_TP_BOUND,
+           "collective_runs": {k: v for k, v in counts.items() if v},
+           "fused_add": launches, "reckoned": reckoned, "fwd_bwd_ms": ms}
+    _say(f"{label}: model axis {m} vs one rank on {list(x.shape[:2])} tokens, "
+         f"relative {json.dumps({k: float(f'{v:.3g}') for k, v in rel.items()})} "
+         f"(bound {REC_TP_BOUND}; control "
+         f"{json.dumps({k: float(f'{v:.3g}') for k, v in ctl.items()})}); "
+         f"runs {res['collective_runs']}, fused_add {launches} (reckoned "
+         f"{reckoned}); fwd+bwd ms {ms}")
+    _held_apart(f"{label} on a model axis vs one rank", res["worst"],
+                REC_TP_BOUND, res["control_worst"])
+    if res["collective_runs"] != {k: v for k, v in reckoned.items()
+                                  if k != "fused_add" and v} or \
+            launches != reckoned["fused_add"]:
+        raise AssertionError(f"{label}: runs {counts}, fused_add {launches}, "
+                             f"reckoned {reckoned}")
+    del storage, want, y1
+    _free()
+    return res
+
+
+def _patched_backward(fn_cls, backward):
+    """A context that swaps an autograd Function's backward (a control)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = fn_cls.__dict__["backward"]
+        fn_cls.backward = staticmethod(backward)
+        try:
+            yield
+        finally:
+            fn_cls.backward = orig
+    return ctx
+
+
+def _rwkv_tp_block(seed: int) -> dict:
+    """Phase 23 (a): one rwkv6-1.6b block at published widths, bf16, on
+    ``RWKV_TP_ROWS`` x ``RWKV_TP_SEQ`` tokens: ``Rwkv6LM._block_tp`` over a
+    model axis of ``REC_TP_M`` against ``Rwkv6LM._block`` on one rank.  The
+    control takes the decay's gradient from rank 0's slice alone, with no
+    all-gather (every rank's columns read rank 0's)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor as tpm
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=1)
+    model = get_model(cfg, device="cuda")
+    gen = _seeded(seed + 21)
+    dtype = model.dtype
+    block = L.init_from_spec(gen, model.param_spec()["blocks"], dtype)
+    bp = L.unbind_layers(block, 1)[0]
+    bp = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+              else v.clone()) for k, v in bp.items()}
+    bp["time_mix"]["u"] = (0.3 * torch.randn(bp["time_mix"]["u"].shape,
+                                             generator=gen, device="cuda")
+                           ).to(dtype)
+    x = torch.randn((RWKV_TP_ROWS, RWKV_TP_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(dtype)
+    mesh = make_mesh((1, REC_TP_M), ("data", "model"), device="cuda")
+    pspecs = shd.param_pspecs(bp, cfg, mesh)
+
+    def rank0_only(ctx, g):       # no all-gather: rank 0's columns everywhere
+        g0 = g[:1].expand_as(g)
+        return g0.movedim(0, ctx.dim).flatten(ctx.dim, ctx.dim + 1), None, None
+
+    m = REC_TP_M
+    # forward: the time mix's wo and the channel mix's wv all-reduced;
+    # backward: the stacked k/v/r/g mixes' and x_k's conjugate identities
+    # all-reduced, the decay's split all-gathered; m - 1 fused_add reduce
+    # steps an all-reduce (an all-gather adds nothing)
+    reckoned = {"allreduce": 2 + 2, "allgather": 1, "fused_add": 4 * (m - 1)}
+    res = _axis_vs_rank(
+        f"{SSM_ARCH} block", bp, pspecs, x,
+        lambda p, xg: model._block(p, xg)[0],
+        lambda p, xg, tp: model._block_tp(p, pspecs, xg, tp), seed,
+        _patched_backward(tpm._Split, rank0_only),
+        ("time_mix.w0", "time_mix.wA", "time_mix.wB", "input"), reckoned)
+    del bp, block, x
+    _free()
+    return res
+
+
+def _hybrid_tp_group(seed: int) -> dict:
+    """Phase 23 (c): one recurrentgemma-9b group (R, R, A) at published
+    widths, bf16, on ``HYBRID_TP_ROWS`` x ``HYBRID_TP_SEQ`` tokens (the
+    window exercised): ``RecurrentGemmaLM._group_fwd`` over a model axis of
+    ``REC_TP_M`` against the group on one rank.  The control drops the
+    conjugate identities' sum (each column-parallel input's gradient model
+    rank 0's alone)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor as tpm
+
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                              n_layers=len(get_config(HYBRID_ARCH).block_pattern),
+                              attention_impl="xla")
+    model = get_model(cfg, device="cuda")
+    gen = _seeded(seed + 22)
+    groups = L.init_from_spec(gen, model.param_spec()["groups"], model.dtype)
+    gp = L.unbind_layers(groups, 1)[0]
+    gp = {k: {n: (dict(v) if isinstance(v, dict) else v) for n, v in b.items()}
+          for k, b in gp.items()}
+    x = torch.randn((HYBRID_TP_ROWS, HYBRID_TP_SEQ, cfg.d_model),
+                    generator=gen, device="cuda").to(model.dtype)
+    positions = torch.arange(HYBRID_TP_SEQ, device="cuda")
+    mesh = make_mesh((1, REC_TP_M), ("data", "model"), device="cuda")
+    pspecs = shd.param_pspecs(gp, cfg, mesh)
+    m = REC_TP_M
+    # forward: each block's temporal mix (w_out or the attention's wo) and
+    # MLP all-reduced, 3 x 2; backward: a conjugate identity each
+    # (R: its normed input and its MLP's; A: the queries' input, the one
+    # KV head's k and v, the MLP's), 2 + 2 + 4
+    reckoned = {"allreduce": 6 + 8, "allgather": 0, "fused_add": 14 * (m - 1)}
+    res = _axis_vs_rank(
+        f"{HYBRID_ARCH} group", gp, pspecs, x,
+        lambda p, xg: model._group_fwd(p, xg, positions),
+        lambda p, xg, tp: model._group_fwd(p, xg, positions, tp, pspecs),
+        seed, _patched_backward(tpm._Scatter, lambda ctx, g: (g[0], None)),
+        ("R0.norm", "R1.norm", "A2.norm", "input"), reckoned)
+    del gp, groups, x
+    _free()
+    return res
+
+
+def _rec_count(cfg, bucket_bytes: float) -> dict:
+    """The dry run's count (on ``meta``) of one step of the phase 23
+    command on ``cfg``, its data axis's buckets of ``bucket_bytes``: the
+    reckoned device bytes (arguments and the step's peak storage, all
+    ranks), the control without the step's temporaries, the kernel calls
+    and the step's collectives."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun, make_mesh, parse_mesh
+    from repro_torch.launch.specs import _meta_model
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models.layers import clear_sequence_parallel
+
+    shape = ShapeSpec("rec_tp", REC_SEQ, REC_BATCH, "train")
+    try:
+        build = build_train_step(cfg, make_mesh(*parse_mesh(REC_MESH), "cuda"),
+                                 "cuda", model=_meta_model(cfg),
+                                 bucket_bytes=bucket_bytes)
+        rows = (build.layout["n"], REC_BATCH // build.layout["dp"], REC_SEQ)
+        batch = {k: torch.empty(rows, dtype=torch.int32, device="meta")
+                 for k in ("tokens", "labels")}
+        got = dryrun.account(build.step, (build.state(), batch), build, shape)
+        counts = dict(build.sharded.counts)
+    finally:
+        clear_sequence_parallel()
+    c = got["count"]
+    return {"depth": cfg.n_layers, "bucket_bytes": bucket_bytes,
+            "reckoned": got["arg_total"] + c.peak_new,
+            "control": got["arg_total"] + got["out_new_total"],
+            "kernel_calls": dict(c.kernel_calls), "counts": counts,
+            "trace_s": c.trace_s}
+
+
+def _rec_train(arch: str, depth: int, card: str) -> dict:
+    """Phase 23 (b), (d): ``python -m repro_torch train --arch <arch>
+    --mesh REC_MESH --reorder simulate`` in process at published widths,
+    ``depth`` blocks, ``REC_STEPS`` steps, its checkpoint not written: the
+    losses finite; ``peer_ring``, ``fused_add`` and the step's model-axis
+    collectives equal to the dry run's count of the same step (its
+    buckets the plan's); the card's peak over the command within
+    ``MEM_BAND`` of the dry run's reckoning, the control (without the
+    step's temporaries) outside."""
+    import math
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.train import trainer as trainer_mod
+
+    base, cut = _patched_config(arch, n_layers=depth)
+    save = trainer_mod.AsyncCheckpointer.save
+
+    def no_write(self, step, tree, extras=None):
+        self.last = {"step": int(step), "path": None, "bytes": 0,
+                     "snapshot_s": 0.0, "write_s": 0.0}
+
+    _free()
+    before = torch.cuda.memory_allocated()
+    configs.get_config = cut
+    trainer_mod.AsyncCheckpointer.save = no_write
+    try:
+        run = _tp_run(["train", "--arch", arch, "--mesh", REC_MESH,
+                       "--reorder", "simulate", "--steps", str(REC_STEPS)])
+    finally:
+        configs.get_config = base
+        trainer_mod.AsyncCheckpointer.save = save
+    _free()
+    rep = run["report"]
+    dry = _rec_count(cut(arch), float(rep["bucket_bytes"]))
+    steps = len(rep["losses"])
+    want = {k: steps * dry["kernel_calls"].get(k, 0)
+            for k in ("peer_ring", "fused_add")}
+    model_counts = {k: v for k, v in rep["tp_collectives"].items()
+                    if k.startswith("model_")}
+    want_counts = {k: v for k, v in dry["counts"].items()
+                   if k.startswith("model_")}
+    peak = run["peak_mem_gb"] * 1e9 - before
+    res = {"arch": arch, "depth": depth, "mesh": REC_MESH,
+           "losses": rep["losses"],
+           "step_ms_host_clock": [v * 1e3 for v in rep["step_s"]],
+           "launches": run["launches"], "launches_reckoned": want,
+           "bucket_bytes": rep["bucket_bytes"],
+           "model_collectives_per_step": model_counts,
+           "model_collectives_reckoned": want_counts, "peak_bytes": peak,
+           "reckoned_bytes": dry["reckoned"], "control_bytes": dry["control"],
+           "trace_s": dry["trace_s"], "wall_s": run["wall_s"], "card": card}
+    if steps != REC_STEPS or not all(math.isfinite(v) for v in rep["losses"]):
+        raise AssertionError(f"{arch} train: losses {rep['losses']}")
+    for k, v in want.items():
+        if run["launches"][k] != v or v < steps:
+            raise AssertionError(f"{arch} train: {k} {run['launches'][k]}, "
+                                 f"the dry run {v}")
+    if model_counts != want_counts:
+        raise AssertionError(f"{arch} train: model-axis collectives a step "
+                             f"{model_counts}, the dry run {want_counts}")
+    _say(f"{arch} train --mesh {REC_MESH} at {depth} blocks: losses "
+         f"{[round(v, 4) for v in rep['losses']]}, step ms (host clock) "
+         f"{[round(v, 1) for v in res['step_ms_host_clock']]}; peer_ring "
+         f"{run['launches']['peer_ring']}, fused_add "
+         f"{run['launches']['fused_add']}, model-axis collectives a step "
+         f"{model_counts}, as the dry run counts them (trace "
+         f"{dry['trace_s']:.1f} s) [{card}]")
+    _in_band(f"(23) {arch} --mesh {REC_MESH} at {depth} blocks", peak,
+             dry["reckoned"], dry["control"])
+    return res
+
+
+def train_recurrent_model_axis(seed: int, card: str) -> dict:
+    """Phase 23: the recurrent families on a model axis: (a) one rwkv6
+    block, (b) rwkv6's train command on a ``(data, model)`` mesh, (c) one
+    hybrid group, (d) the hybrid's train command, at the depth the dry
+    run's reckoning fits."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import DEFAULT_BUCKET_BYTES
+
+    t_phase = time.monotonic()
+    a = _rwkv_tp_block(seed)
+    b = _rec_train(SSM_ARCH, RWKV_TRAIN_DEPTH, card)
+    _free()
+    c = _hybrid_tp_group(seed)
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    fit = {}
+    for depth in (HYBRID_TRAIN_DEPTH, HYBRID_TRAIN_SHALLOW):
+        fit[depth] = _rec_count(dataclasses.replace(
+            get_config(HYBRID_ARCH), n_layers=depth),
+            float(DEFAULT_BUCKET_BYTES))["reckoned"]
+        if fit[depth] <= REC_BUDGET * card_bytes:
+            break
+    _say(f"hybrid train: the dry run reckons {fit} bytes by depth against "
+         f"{REC_BUDGET} of the card's {card_bytes}")
+    if fit[depth] > REC_BUDGET * card_bytes:
+        raise AssertionError(f"hybrid train: no depth fits the card: {fit}")
+    d = _rec_train(HYBRID_ARCH, depth, card)
+    res = {"rwkv_block": a, "rwkv_train": b, "hybrid_group": c,
+           "hybrid_train": d, "hybrid_reckoned_by_depth": fit,
+           "phase_s": round(time.monotonic() - t_phase, 1), "card": card}
+    _say("recurrent model axis " + json.dumps(res, default=float))
+    return res
+
+
+#: the host seconds between ``_lap`` marks in ``main``, by the part each ends
+_LAPS: dict = {}
+
+
+def _lap(label: str) -> None:
+    now = time.monotonic()
+    _LAPS[label] = round(now - _LAPS.pop("_t", now), 1)
+    _LAPS["_t"] = now
+
+
 def _seeded(seed: int):
     import torch
 
@@ -6108,6 +6505,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     t_start = time.monotonic()
+    _LAPS["_t"] = t_start
 
     import torch
 
@@ -6140,6 +6538,7 @@ def main(argv=None) -> int:
     ep_plan = compile_ep_plan()
     layout = train_layout()
     planned = planned_layout(plan, layout)
+    _lap('build and plans')
     kernels = [check_wkv_kernel(args.seed),
                check_wkv_scan_kernel(args.seed),
                check_fused_add_kernel(args.seed, layout),
@@ -6160,6 +6559,7 @@ def main(argv=None) -> int:
              f"{time.monotonic() - t0:.1f} s")
     finally:
         shutil.rmtree(ref_dir, ignore_errors=True)
+    _lap('kernel checks, pipeline and group (3, 3b)')
     compressed = check_compression(args.seed, card, layout)
     _free()
     solver = check_solver_eval(args.seed, card)
@@ -6168,6 +6568,7 @@ def main(argv=None) -> int:
     check_small_families(args.seed)
     check_virtual_mesh(args.seed)
     check_small_train(args.seed, plan)
+    _lap('compression, solver, small checks (3c, 3d, 4)')
     served = serve_full_width(args.seed, card)
     _free()
     served_dense = serve_dense_full_width(args.seed, card)
@@ -6189,8 +6590,10 @@ def main(argv=None) -> int:
          "plan_fingerprint": plan.fingerprint.digest,
          "buckets": len(planned["buckets"]), "bucket_bytes": red.bucket_bytes})
     _free()
+    _lap('serving and training (phases 5 to 7)')
     trained_cli = _cut_cli(TRAIN_ARCH, TRAIN_CLI_DEPTH, card, TRAIN_CLI)
     _free()
+    _lap('train command (phase 8)')
     hybrid = serve_two_ways(HYBRID_ARCH, args.seed, card, HYBRID_BATCH,
                             HYBRID_PROMPT, HYBRID_NEW, "flash_fwd_mma")
     _free()
@@ -6216,10 +6619,13 @@ def main(argv=None) -> int:
     vlm["flash_layer"] = time_flash_layer(
         VLM_ARCH, (VLM_BATCH, vcfg.n_heads, vcfg.n_kv_heads, VLM_PROMPT,
                    vcfg.head_dim), True, 0, args.seed)
+    _lap('hybrid, whisper, vlm (phases 9 to 11)')
     check_ssm_gradient(args.seed, card)
     _free()
+    _lap('ssm gradient (phase 12)')
     trained_ssm = _cut_cli(SSM_ARCH, SSM_TRAIN_DEPTH, card, TRAIN_SSM_CLI)
     _free()
+    _lap('ssm train command (phase 12)')
     mla = serve_mla_full_width(args.seed, card)
     _free()
     moe = serve_two_ways(MOE_ARCH, args.seed, card, MOE_BATCH, MOE_PROMPT,
@@ -6232,19 +6638,30 @@ def main(argv=None) -> int:
         MOE_ARCH, (MOE_BATCH, mcfg.n_heads, mcfg.n_kv_heads, MOE_PROMPT,
                    mcfg.head_dim), True, 0, args.seed)
     _free()
+    _lap('moe serving (phases 13 to 15)')
     bench_overlap = bench_overlap_full_width(args.seed, card, layout["shapes"])
     _free()
+    _lap('bench overlap (phase 16)')
     host_cmds = host_commands(card)
+    _lap('host commands (phase 17)')
     trained_tp = train_tp_full_width(card)
     _free()
+    _lap('tp train (phase 18)')
     trained_moe = train_moe_full_width(args.seed, card)
     _free()
+    _lap('moe train (phase 19)')
     trained_moe_dense = train_moe_dense_fallback(args.seed, card)
     _free()
+    _lap('moe dense fallback (phase 20)')
     dry = dry_run_phase(args.seed, card)
     _free()
+    _lap('dry run (phase 21)')
     every_mesh = train_moe_every_mesh(args.seed, card)
     _free()
+    _lap('moe every mesh (phase 22)')
+    recurrent = train_recurrent_model_axis(args.seed, card)
+    _free()
+    _lap('recurrent model axis (phase 23)')
     # each kernel's launches come from the path it carries; the peer ring's
     # from the user's entry point (the hand-wired planned run's beside it)
     paths = {"wkv_chunked": served, "wkv_scan": served, "fused_add": trained,
@@ -6275,6 +6692,14 @@ def main(argv=None) -> int:
         if k["name"] == "peer_ring":
             k["launches_pod_allreduce"] = every_mesh["pod_step"][
                 "pod_allreduce"]["launches"]
+        if k["name"] == "fused_add":
+            k["launches_recurrent_tp_layers"] = {
+                SSM_ARCH: recurrent["rwkv_block"]["fused_add"],
+                HYBRID_ARCH: recurrent["hybrid_group"]["fused_add"]}
+        if k["name"] in ("fused_add", "peer_ring"):
+            k["launches_recurrent_train"] = {
+                SSM_ARCH: recurrent["rwkv_train"]["launches"][k["name"]],
+                HYBRID_ARCH: recurrent["hybrid_train"]["launches"][k["name"]]}
         if k["name"] in ("fused_add", "peer_ring"):
             k["launches_tp_train"] = {
                 label: run["launches"][k["name"]]
@@ -6309,7 +6734,10 @@ def main(argv=None) -> int:
         "tp_train": trained_tp["phase_s"],
         "moe_train": trained_moe["phase_s"],
         "moe_dense_train": trained_moe_dense["phase_s"],
-        "dry_run": dry["phase_s"], "moe_every_mesh": every_mesh["phase_s"]}))
+        "dry_run": dry["phase_s"], "moe_every_mesh": every_mesh["phase_s"],
+        "recurrent_model_axis": recurrent["phase_s"]}))
+    _say("seconds between marks (host clock; each label the part that "
+         "ended there): " + json.dumps(_LAPS))
     _say(f"the whole script: {time.monotonic() - t_start:.1f} s (host clock)")
 
     print(json.dumps({"kernels": kernels}))

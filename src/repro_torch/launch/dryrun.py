@@ -647,19 +647,21 @@ def _full_units(cfg) -> int:
     return cfg.n_layers - cfg.n_dense_layers
 
 
-def _depth_diff(cfg, shape, mesh, verbose: bool,
-                device: Any = "cuda") -> Dict[str, float]:
-    """Per-device totals from the per-layer marginal cost: the cell at
-    depths 1 and 2 of :func:`_depth_variant`, extrapolated to
-    :func:`_full_units` (the reference's semantics and keys).  The port
-    counts every layer at full depth as well, so this is the cheap
-    estimate that count checks."""
-    results = []
-    for n in (1, 2):
-        got = measure_cell(_depth_variant(cfg, n), shape, mesh, device)
-        c, div = got["count"], got["div"]
-        results.append({"flops": c.flops / div, "bytes": c.bytes / div,
-                        "coll": got["coll"]["total_bytes"]})
+def depth_point(cfg, shape, mesh, n: int, device: Any = "cuda"
+                ) -> Dict[str, float]:
+    """One rank's FLOPs, bytes and collective bytes of the cell at depth
+    ``n`` of :func:`_depth_variant` (one point of :func:`_depth_diff`)."""
+    got = measure_cell(_depth_variant(cfg, n), shape, mesh, device)
+    c, div = got["count"], got["div"]
+    return {"flops": c.flops / div, "bytes": c.bytes / div,
+            "coll": got["coll"]["total_bytes"]}
+
+
+def depth_extrapolate(cfg, results, verbose: bool = False
+                      ) -> Dict[str, float]:
+    """The reference's per-device totals from the points at depths 1 and
+    2: the first plus the marginal unit times the rest of
+    :func:`_full_units`."""
     u_full = _full_units(cfg)
     out = {}
     for key in ("flops", "bytes", "coll"):
@@ -673,6 +675,17 @@ def _depth_diff(cfg, shape, mesh, verbose: bool,
               f"coll={out['coll_total']:.3e}/dev "
               f"(marginal flops {out['flops_marginal']:.3e} x {u_full} units)")
     return out
+
+
+def _depth_diff(cfg, shape, mesh, verbose: bool,
+                device: Any = "cuda") -> Dict[str, float]:
+    """Per-device totals from the per-layer marginal cost: the cell at
+    depths 1 and 2 of :func:`_depth_variant`, extrapolated to
+    :func:`_full_units` (the reference's semantics and keys).  The port
+    counts every layer at full depth as well, so this is the cheap
+    estimate that count checks."""
+    return depth_extrapolate(cfg, [depth_point(cfg, shape, mesh, n, device)
+                                   for n in (1, 2)], verbose)
 
 
 def _model_flops(cfg, shape) -> float:

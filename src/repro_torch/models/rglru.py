@@ -27,6 +27,16 @@ whole groups stacked along a leading dimension under ``"groups"``
 (``{"R0", "R1", "A2"}``), the ``n_layers % len(pattern)`` remaining blocks
 as a list under ``"tail"``.  The embedding is scaled by ``sqrt(d_model)``
 in ``forward``, ``prefill`` and ``decode_step``.
+
+Given a :class:`~repro_torch.parallel.tensor.TensorParallel`, ``loss``
+runs over its model axis from model-axis storage, laid out by the
+reference's rules: the vocabulary of the embedding and the head; the
+recurrent block's ``w_gate``/``w_in``/``w_a``/``w_x`` column-parallel by
+channel behind one conjugate identity, its conv, biases and ``lam`` with
+them, ``w_out`` row-parallel; the MLP as ``layers.mlp_tp``; the local
+attention as ``layers.attention_tp`` (the MQA's one KV head whole).  The
+conv and the RG-LRU run every rank's channels in one call, the rank axis
+folded into the channels.
 """
 
 from __future__ import annotations
@@ -40,9 +50,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.tensor import model_dim, tp_linear, unbind_blocks
 
 from . import layers as L
-from .transformer import lm_loss
+from .transformer import embed_tp, lm_loss, lm_loss_tp_params
 
 __all__ = ["C_RGLRU", "RecurrentGemmaLM", "rglru_recurrence"]
 
@@ -225,9 +236,9 @@ class RecurrentGemmaLM:
         return L.unbind_layers(params["groups"], self.n_groups)
 
     # -- blocks -----------------------------------------------------------
-    def _rec_block_fwd(self, p: Params, x: torch.Tensor, h0=None, conv_state=None):
-        cfg = self.cfg
-        h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+    def _rec_mix(self, p: Params, h: torch.Tensor, h0=None, conv_state=None):
+        """The recurrent block's temporal mix of the normed ``h``: ``(out,
+        new_h, new_conv)``."""
         gate = F.gelu(h @ p["w_gate"], approximate="tanh")
         u = h @ p["w_in"]
         u, new_conv = _causal_conv1d(u, p["conv_w"], p["conv_b"], conv_state)
@@ -235,7 +246,13 @@ class RecurrentGemmaLM:
         i_gate = torch.sigmoid(h @ p["w_x"] + p["b_x"])
         lam = F.softplus(p["lam"].float())
         y, new_h = rglru_recurrence(u, r_gate, i_gate, lam, h0)
-        x = x + (gate * y) @ p["w_out"]
+        return (gate * y) @ p["w_out"], new_h, new_conv
+
+    def _rec_block_fwd(self, p: Params, x: torch.Tensor, h0=None, conv_state=None):
+        cfg = self.cfg
+        h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+        out, new_h, new_conv = self._rec_mix(p, h, h0, conv_state)
+        x = x + out
         m = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
         return x + L.mlp(p["mlp"], m), new_h, new_conv
 
@@ -248,50 +265,118 @@ class RecurrentGemmaLM:
         m = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
         return x + L.mlp(p["mlp"], m), kv
 
-    def _group_fwd(self, gp: Params, x: torch.Tensor, positions) -> torch.Tensor:
+    def _block(self, kind: str, p: Params, x: torch.Tensor, positions,
+               tp=None, spec: Optional[Params] = None) -> torch.Tensor:
+        """One training block: on one rank, or with ``tp`` over its model
+        axis from model-axis storage and the block's ``spec``."""
+        if tp is not None:
+            return self._block_tp(kind, p, spec, x, positions, tp)
+        if kind == "R":
+            return self._rec_block_fwd(p, x)[0]
+        return self._attn_block_fwd(p, x, positions)[0]
+
+    def _group_fwd(self, gp: Params, x: torch.Tensor, positions, tp=None,
+                   spec: Optional[Params] = None) -> torch.Tensor:
         if self.cfg.sequence_parallel:
             x = L.sp_constrain(x)
         for i, kind in enumerate(self.pattern):
-            p = gp[f"{kind}{i}"]
-            if kind == "R":
-                x, _, _ = self._rec_block_fwd(p, x)
-            else:
-                x, _ = self._attn_block_fwd(p, x, positions)
+            name = f"{kind}{i}"
+            x = self._block(kind, gp[name], x, positions, tp,
+                            None if spec is None else spec[name])
         return x
 
+    # -- tensor parallelism -------------------------------------------------
+    def _rec_mix_tp(self, p: Params, h: torch.Tensor, tp) -> torch.Tensor:
+        """The temporal mix over ``tp``'s model axis: the normed ``h``
+        through one conjugate identity into the column-parallel
+        ``w_gate``/``w_in``/``w_a``/``w_x``; the conv and the RG-LRU on
+        every rank's channels at once (rank-major channels are the
+        logical order); ``w_out`` row-parallel and all-reduced."""
+        m = tp.m
+        B, S, d = h.shape
+        hm = tp.scatter(h)                                  # [m, B, S, D]
+
+        def fold(t):              # [m, B, S, D/m] -> [B, S, D], rank-major
+            return t.permute(1, 2, 0, 3).reshape(B, S, d)
+
+        gate = F.gelu(tp_linear(hm, p["w_gate"]), approximate="tanh")
+        u = fold(tp_linear(hm, p["w_in"]))
+        u, _ = _causal_conv1d(u, p["conv_w"].permute(1, 0, 2).reshape(-1, d),
+                              p["conv_b"].reshape(d))
+        r_gate = torch.sigmoid(fold(tp_linear(hm, p["w_a"])) + p["b_a"].reshape(d))
+        i_gate = torch.sigmoid(fold(tp_linear(hm, p["w_x"])) + p["b_x"].reshape(d))
+        lam = F.softplus(p["lam"].reshape(d).float())
+        y, _ = rglru_recurrence(u, r_gate, i_gate, lam)
+        y = y.reshape(B, S, m, d // m).permute(2, 0, 1, 3)
+        return tp.reduce(tp_linear(gate * y, p["w_out"]))
+
+    def _block_tp(self, kind: str, p: Params, spec: Params, x: torch.Tensor,
+                  positions, tp) -> torch.Tensor:
+        """One block over ``tp``'s model axis from its storage and specs;
+        what a spec leaves replicated runs whole, with no collective."""
+        cfg = self.cfg
+        h = L.rms_norm(x, p["norm"], cfg.norm_eps)
+        if kind == "A":
+            x = x + L.attention_tp(p["attn"], spec["attn"], h, cfg, tp,
+                                   positions=positions, window=cfg.attn_window)
+        elif model_dim(spec["w_in"]) is None:
+            x = x + self._rec_mix(p, h)[0]
+        else:
+            x = x + self._rec_mix_tp(p, h, tp)
+        m = L.rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+        return x + L.mlp_tp(p["mlp"], spec["mlp"], m, tp)
+
     # -- training ---------------------------------------------------------
+    def _features(self, params: Params, tokens: torch.Tensor, tp=None
+                  ) -> torch.Tensor:
+        """The final-norm features ``[B, S, D]``; ``remat="block"``
+        checkpoints each group.  With ``tp`` over its model axis from
+        model-axis storage (the stacked groups on their per-layer specs,
+        the tail on its own)."""
+        cfg = self.cfg
+        if tp is None:
+            x = self._embed(params, tokens)
+            groups = [(gp, None) for gp in self._groups(params)]
+            tail = [(p, None) for p in params.get("tail", [])]
+        else:
+            x = embed_tp(params["embed"], tokens, tp) * math.sqrt(cfg.d_model)
+            groups = unbind_blocks(params["groups"], tp.pspecs["groups"],
+                                   self.n_groups)
+            tail = list(zip(params.get("tail", []), tp.pspecs.get("tail", [])))
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        remat = cfg.remat == "block" and torch.is_grad_enabled()
+        for gp, spec in groups:
+            if remat:
+                x = checkpoint(self._group_fwd, gp, x, positions, tp, spec,
+                               use_reentrant=False)
+            else:
+                x = self._group_fwd(gp, x, positions, tp, spec)
+        for i, (p, spec) in enumerate(tail):
+            x = self._block(self.pattern[i], p, x, positions, tp, spec)
+        return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
     def forward(self, params: Params, tokens: torch.Tensor,
                 frontend_embeds: Optional[torch.Tensor] = None,
                 return_features: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens [B, S] -> (logits [B, S, V] or the final-norm features,
         aux loss 0); ``remat="block"`` checkpoints each group."""
-        cfg = self.cfg
-        x = self._embed(params, tokens)
-        positions = torch.arange(tokens.shape[1], device=x.device)
-        remat = cfg.remat == "block" and torch.is_grad_enabled()
-        for gp in self._groups(params):
-            if remat:
-                x = checkpoint(self._group_fwd, gp, x, positions,
-                               use_reentrant=False)
-            else:
-                x = self._group_fwd(gp, x, positions)
-        for i, p in enumerate(params.get("tail", [])):
-            if self.pattern[i] == "R":
-                x, _, _ = self._rec_block_fwd(p, x)
-            else:
-                x, _ = self._attn_block_fwd(p, x, positions)
-        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = self._features(params, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_features:
             return x, aux
         return x @ params["lm_head"], aux
 
-    def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Mean next-token cross entropy; never builds the whole logits."""
-        feats, _ = self.forward(params, batch["tokens"], return_features=True)
-        return lm_loss(feats, params["lm_head"], batch["labels"],
-                       self.cfg.loss_chunk_size)
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor],
+             tp=None) -> torch.Tensor:
+        """Mean next-token cross entropy; never builds the whole logits.
+        With ``tp`` over its model axis from model-axis storage (the
+        module docstring)."""
+        feats = self._features(params, batch["tokens"], tp)
+        chunk = self.cfg.loss_chunk_size
+        if tp is not None:
+            return lm_loss_tp_params(feats, params, batch["labels"], chunk, tp)
+        return lm_loss(feats, params["lm_head"], batch["labels"], chunk)
 
     # -- serving ----------------------------------------------------------
     def init_cache(self, batch: int, s_max: int = 0, dtype=None) -> Params:

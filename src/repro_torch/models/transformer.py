@@ -46,7 +46,8 @@ from repro_torch.parallel.tensor import (
 
 from . import layers as L
 
-__all__ = ["DecoderLM", "lm_loss", "lm_loss_tp"]
+__all__ = ["DecoderLM", "embed_tp", "lm_loss", "lm_loss_tp",
+           "lm_loss_tp_params"]
 
 Params = Dict[str, Any]
 
@@ -114,29 +115,6 @@ class DecoderLM:
         return ([("head", bp) for bp in params.get("head_blocks", [])]
                 + [("scan", bp)
                    for bp in L.unbind_layers(params["blocks"], self.n_scan)])
-
-    # -- tensor parallelism ------------------------------------------------
-    def _tp_embed(self, table: torch.Tensor, tokens: torch.Tensor, tp
-                  ) -> torch.Tensor:
-        """Vocab-parallel lookup: rank ``j`` holds rows ``j*V/m ..`` of
-        ``table [m, V/m, D]`` and contributes them, zeros elsewhere; the
-        ranks' rows are all-reduced."""
-        m, vl = table.shape[0], table.shape[1]
-        rank = torch.arange(m, device=tokens.device)[:, None, None]
-        loc = tokens[None] - rank * vl
-        ok = (loc >= 0) & (loc < vl)
-        rows = table[rank, loc.clamp(0, vl - 1)]               # [m, B, S, D]
-        return tp.reduce(torch.where(ok[..., None], rows, rows.new_zeros(())))
-
-    def _tp_head(self, params: Params, tp) -> Tuple[torch.Tensor, bool]:
-        """The unembedding and whether it is vocab-sharded: ``[m, D, V/m]``
-        (tied: each rank's embedding rows, transposed) or ``[D, V]``."""
-        name = "embed" if self.cfg.tie_embeddings else "lm_head"
-        sharded = model_dim(tp.pspecs[name]) is not None
-        w = params[name]
-        if not self.cfg.tie_embeddings:
-            return w, sharded
-        return (w.transpose(1, 2) if sharded else w.T), sharded
 
     # -- blocks -----------------------------------------------------------
     def _ffn(self, p: Params, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -235,10 +213,8 @@ class DecoderLM:
         """Token embeddings; for the ``vlm`` family the anyres stub
         (``transformer.py:105-113``): the image embeddings replace the
         first ``n_img`` slots."""
-        if tp is not None and model_dim(tp.pspecs["embed"]) is not None:
-            x = self._tp_embed(params["embed"], tokens, tp)
-        else:
-            x = params["embed"][tokens]
+        x = (params["embed"][tokens] if tp is None else
+             embed_tp(params["embed"], tokens, tp))
         if self.cfg.family == "vlm" and frontend_embeds is not None:
             n_img = frontend_embeds.shape[1]
             x = torch.cat([frontend_embeds.to(x.dtype), x[:, n_img:]], dim=1)
@@ -292,10 +268,8 @@ class DecoderLM:
         chunk = self.cfg.loss_chunk_size
         if tp is None:
             return lm_loss(feats, self._head(params), labels, chunk)
-        head, sharded = self._tp_head(params, tp)
-        if sharded:
-            return lm_loss_tp(feats, head, labels, chunk, tp)
-        return lm_loss(feats, head, labels, chunk)
+        return lm_loss_tp_params(feats, params, labels, chunk, tp,
+                                 self.cfg.tie_embeddings)
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
              tp=None) -> torch.Tensor:
@@ -500,3 +474,40 @@ def lm_loss_tp(features: torch.Tensor, head: torch.Tensor,
                                    head, labels[:, i:i + chunk], tp,
                                    use_reentrant=False)
     return total / (B * S)
+
+
+# ---------------------------------------------------------------------------
+# the vocabulary over a model axis: every family's embedding and head
+# ---------------------------------------------------------------------------
+
+def embed_tp(table: torch.Tensor, tokens: torch.Tensor, tp) -> torch.Tensor:
+    """The token embeddings ``[B, S, D]`` from ``tp``'s storage of
+    ``table``: vocab-parallel where the spec of ``embed`` shards the
+    vocabulary (rank ``j`` holds rows ``j*V/m ..`` of ``table [m, V/m,
+    D]`` and contributes them, zeros elsewhere; the ranks' rows are
+    all-reduced), else the replicated lookup."""
+    if model_dim(tp.pspecs["embed"]) is None:
+        return table[tokens]
+    m, vl = table.shape[0], table.shape[1]
+    rank = torch.arange(m, device=tokens.device)[:, None, None]
+    loc = tokens[None] - rank * vl
+    ok = (loc >= 0) & (loc < vl)
+    rows = table[rank, loc.clamp(0, vl - 1)]               # [m, B, S, D]
+    return tp.reduce(torch.where(ok[..., None], rows, rows.new_zeros(())))
+
+
+def lm_loss_tp_params(features: torch.Tensor, params: Params,
+                      labels: torch.Tensor, chunk: int, tp,
+                      tie_embeddings: bool = False) -> torch.Tensor:
+    """:func:`lm_loss` from ``tp``'s storage of a model's parameters: the
+    unembedding is ``lm_head`` (or, tied, the embedding transposed), and
+    where its spec shards the vocabulary the loss is
+    :func:`lm_loss_tp`'s, else the replicated :func:`lm_loss`."""
+    name = "embed" if tie_embeddings else "lm_head"
+    sharded = model_dim(tp.pspecs[name]) is not None
+    head = params[name]
+    if tie_embeddings:
+        head = head.transpose(1, 2) if sharded else head.T
+    if sharded:
+        return lm_loss_tp(features, head, labels, chunk, tp)
+    return lm_loss(features, head, labels, chunk)

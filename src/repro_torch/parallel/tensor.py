@@ -72,21 +72,19 @@ __all__ = ["TensorParallel", "certified_all_gather",
            "model_groups", "data_groups", "TP_FAMILIES", "require_tp_family"]
 
 #: model families whose forward runs tensor-parallel (MoE: its experts
-#: gathered over the model axis, its attention GQA's or MLA's)
-TP_FAMILIES = ("dense", "vlm", "moe")
+#: gathered over the model axis, its attention GQA's or MLA's; ssm: the
+#: RWKV6 time mix by heads; hybrid: the RG-LRU block by channel and the
+#: local attention by heads)
+TP_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def require_tp_family(cfg) -> None:
-    """Raise for a model a model axis cannot shard yet (ROADMAP.md §1)."""
-    items = {"ssm": "item 20", "hybrid": "item 21"}
-    if cfg.family in items:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family!r}) on a model axis: tensor parallelism "
-            f"for this family waits for ROADMAP.md §1 {items[cfg.family]}")
+    """Raise for a model that has no tensor-parallel forward (``encdec``:
+    Whisper's encoder and cross-attention run only on one rank)."""
     if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family!r}) has no tensor-parallel forward; "
-            f"the dense family and the VLM do")
+            f"the dense, VLM, MoE, ssm and hybrid families do")
 
 
 def model_dim(spec: P) -> Optional[int]:
@@ -363,8 +361,9 @@ class TensorParallel:
 
     def split(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Rank ``j``'s slice ``j`` of the replicated ``x`` along ``dim``:
-        ``[m, ...]`` with ``dim`` cut by ``m``."""
-        return _Split.apply(x, self, dim)
+        ``[m, ...]`` with ``dim`` cut by ``m`` (a negative ``dim`` counts
+        from the end of ``x``'s dimensions)."""
+        return _Split.apply(x, self, dim % x.dim())
 
     def gather_each(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Storage ``[m, *local]`` sharded on local dimension ``dim``,

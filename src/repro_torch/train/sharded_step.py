@@ -20,8 +20,10 @@ GSPMD from ``state_pspecs`` and ``batch_pspecs``, written out:
 4. ZeRO-1: each data-parallel rank holds its slice of the AdamW moments
    (:func:`~repro_torch.parallel.sharding.zero1_spec`: the first
    unsharded dimension the dp size divides) and updates that slice of
-   the parameters (``optim/adamw.py``'s arithmetic); the slices go back
-   together by a certified all-gather over the data axis.
+   the parameters (``optim/adamw.py``'s arithmetic, in slices of
+   ``UPDATE_ELEMS`` elements, the moments in place and the parameters
+   into new tensors); the slices go back together by a certified
+   all-gather over the data axis.
 
 The state holds the parameters in model-axis storage
 (:func:`~repro_torch.parallel.tensor.shard_params`) and the moments as
@@ -102,6 +104,18 @@ def _zslice(t: torch.Tensor, dim: int, dp: int) -> torch.Tensor:
 
 def _unslice(s: torch.Tensor, dim: int) -> torch.Tensor:
     return s.movedim(0, dim).flatten(dim, dim + 1)
+
+
+def _pieces(t: torch.Tensor, limit: int) -> List[torch.Tensor]:
+    """Views of ``t`` of at most ``limit`` elements (slices of leading
+    dimensions; a tensor of the same shape gives the same slices)."""
+    if t.numel() <= limit or t.dim() == 0:
+        return [t]
+    if t.shape[0] == 1:
+        return _pieces(t[0], limit)
+    rows = max(1, limit // (t.numel() // t.shape[0]))
+    return [q for s in range(0, t.shape[0], rows)
+            for q in _pieces(t[s:s + rows], limit)]
 
 
 @dataclasses.dataclass
@@ -257,7 +271,9 @@ class ShardedTrainStep:
     @torch.no_grad()
     def apply(self, state: TrainState, grads: Any) -> Tuple[TrainState, dict]:
         """Clip, ZeRO-1 AdamW on each data-parallel rank's slice, and the
-        slices all-gathered over the data axis."""
+        slices all-gathered over the data axis.  The update runs in pieces
+        of ``UPDATE_ELEMS`` (no f32 copy of a whole leaf): the moments in
+        place, each parameter into a new tensor."""
         cfg, dp = self.opt_cfg, self.layout.dp
         gnorm = self.tp.global_norm(grads)
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -265,51 +281,56 @@ class ShardedTrainStep:
         lr = cfg.schedule(count) if cfg.schedule is not None else cfg.lr
         b1c = 1.0 - cfg.b1 ** count.to(torch.float32)
         b2c = 1.0 - cfg.b2 ** count.to(torch.float32)
-        params, new_p, new_m, new_v = tree_leaves(state.params), [], [], []
+        zdims, new_p = self.layout.zdims, []
         sliced: Dict[torch.dtype, List[int]] = {}
-        for i, (p, g, m_, v_, zd) in enumerate(zip(
-                params, tree_leaves(grads), tree_leaves(state.opt.m),
-                tree_leaves(state.opt.v), self.layout.zdims)):
-            if zd is not None:
-                p, g = _zslice(p, zd, dp), _zslice(g, zd, dp)
+        for i, (p, g, m_, v_) in enumerate(zip(
+                tree_leaves(state.params), tree_leaves(grads),
+                tree_leaves(state.opt.m), tree_leaves(state.opt.v))):
+            q = torch.empty_like(p)
+            views = (p, g, q)
+            if zdims[i] is not None:
+                views = tuple(_zslice(t, zdims[i], dp) for t in views)
                 sliced.setdefault(p.dtype, []).append(i)
-            p, m_, v_ = adamw_update(cfg, p, g, m_, v_, scale, lr, b1c, b2c)
-            new_p.append(p)
-            new_m.append(m_)
-            new_v.append(v_)
+            for a, b, out, c, e in zip(*(_pieces(t, UPDATE_ELEMS)
+                                         for t in (*views, m_, v_))):
+                for dst, src in zip((out, c, e), adamw_update(
+                        cfg, a, b, c, e, scale, lr, b1c, b2c)):
+                    dst.copy_(src)
+            new_p.append(q)
         for ids in sliced.values():
-            whole = self._gather([new_p[i] for i in ids],
-                                 [self.layout.shares[i] for i in ids])
-            for i, t in zip(ids, whole):
-                new_p[i] = _unslice(t, self.layout.zdims[i]).contiguous()
+            self._gather([_zslice(new_p[i], zdims[i], dp) for i in ids],
+                         [self.layout.shares[i] for i in ids])
         metrics = {"grad_norm": gnorm,
                    "lr": torch.as_tensor(lr, dtype=torch.float32,
                                          device=gnorm.device)}
-        opt = OptState(tree_unflatten(state.opt.m, new_m),
-                       tree_unflatten(state.opt.v, new_v), count)
+        opt = OptState(state.opt.m, state.opt.v, count)
         return TrainState(tree_unflatten(state.params, new_p), opt,
                           state.step + 1), metrics
 
-    def _gather(self, slices: List[torch.Tensor], shares: List[int]
-                ) -> List[torch.Tensor]:
-        """Every data-parallel rank's ``[dp, ...]`` slices, gathered by one
-        certified all-gather over the data axis (one payload a dtype);
-        ``shares``: :attr:`ShardedLayout.shares` of the slices' leaves."""
+    def _gather(self, slices: List[torch.Tensor], shares: List[int]) -> None:
+        """Every data-parallel rank's ``[dp, ...]`` slices (views of the new
+        parameters), gathered in place by one certified all-gather over the
+        data axis (one payload a dtype), which the runner runs in column
+        pieces of ``UPDATE_ELEMS`` a rank (the virtual mesh holds every
+        rank's gathered copy of a piece); ``shares``:
+        :attr:`ShardedLayout.shares` of the slices' leaves."""
         if self.gather_schedule is None:
-            return slices
+            return
         dp = self.layout.dp
         flat = torch.cat([s.reshape(dp, -1) for s in slices], dim=1)
-        got = all_gather_rows(flat, self.gather_schedule)
+        for c in range(0, flat.shape[1], UPDATE_ELEMS):
+            cols = slice(c, c + UPDATE_ELEMS)
+            flat[:, cols] = all_gather_rows(flat[:, cols].contiguous(),
+                                            self.gather_schedule)
         self.counts["data_allgather"] += 1
         accounting.collective("all-gather", lambda: sum(
             s.numel() // k for s, k in zip(slices, shares))
             * flat.element_size())
-        out, off = [], 0
+        off = 0
         for s in slices:
             w = s[0].numel()
-            out.append(got[:, off:off + w].reshape(s.shape))
+            s.copy_(flat[:, off:off + w].reshape(s.shape))
             off += w
-        return out
 
     def __call__(self, state: TrainState, batch: Dict[str, Any]):
         before = dict(self.tp.counts)
@@ -336,18 +357,6 @@ def expert_leaves(params: Any) -> List[bool]:
         lambda keys, _: "moe" in keys and "shared" not in keys
         and keys[-1] in ("w1", "w3", "w2"), params)
     return [bool(f) for f in tree_leaves(flags)]
-
-
-def _pieces(t: torch.Tensor, limit: int) -> List[torch.Tensor]:
-    """Views of ``t`` of at most ``limit`` elements (slices of leading
-    dimensions; a tensor of the same shape gives the same slices)."""
-    if t.numel() <= limit or t.dim() == 0:
-        return [t]
-    if t.shape[0] == 1:
-        return _pieces(t[0], limit)
-    rows = max(1, limit // (t.numel() // t.shape[0]))
-    return [q for s in range(0, t.shape[0], rows)
-            for q in _pieces(t[s:s + rows], limit)]
 
 
 class RankViewTrainStep(ShardedTrainStep):

@@ -278,12 +278,22 @@ def test_train_refuses_what_is_not_ported(tmp_path):
         assert (report["model"], report["dp"]) == \
             ((2, 2) if mesh == "2x2" else (1, 4))
     np.testing.assert_allclose(losses["2x2"], losses["4"], rtol=1e-5)
-    # rwkv6 and the hybrid on a model axis name their items
-    for arch, item in (("rwkv6-1.6b", "item 20"), ("recurrentgemma-9b", "item 21")):
-        with pytest.raises(NotImplementedError, match=item):
-            main(["train", "--arch", arch, "--smoke", "--device", "cpu",
-                  "--mesh", "1x2", "--reorder", "none",
-                  "--ckpt-dir", str(tmp_path)])
+    # rwkv6 and the hybrid train on a model axis too: the same losses as
+    # the data-parallel step over as many ranks
+    for arch in ("rwkv6-1.6b", "recurrentgemma-9b"):
+        losses = {}
+        for mesh in ("2x2", "4"):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                assert main(["train", "--arch", arch, "--smoke", "--device",
+                             "cpu", "--mesh", mesh, "--reorder", "none",
+                             "--batch", "4", "--seq", "16", "--steps", "2",
+                             "--ckpt-dir", str(tmp_path / arch / mesh)]) == 0
+            report = json.loads(out.getvalue().split("[train] report ")[1])
+            losses[mesh] = report["losses"]
+            assert (report["model"], report["dp"]) == \
+                ((2, 2) if mesh == "2x2" else (1, 4))
+        np.testing.assert_allclose(losses["2x2"], losses["4"], rtol=1e-5)
     # MoE trains (test_train_moe_over_the_ep_all_to_all, where the data
     # axis does not divide the experts
     # test_train_moe_where_the_data_axis_does_not_divide_the_experts, MLA

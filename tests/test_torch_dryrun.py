@@ -151,11 +151,11 @@ def test_one_ranks_train_state_at_the_production_mesh(arch, multi_pod):
 
 def test_the_80_cells_statuses():
     """Every cell of both production meshes is the reference's
-    ``shape_applicable`` but for the port's 14 refusals, each naming its
-    item: rwkv6 (20) and the hybrid (21) in training, Whisper's training
-    (``encdec``), and MoE serving on a model axis (22).  The MoE family
-    trains on both meshes: deepseek-v2's MLA on the model axis, and both
-    MoE archs on the pod axis."""
+    ``shape_applicable`` but for the port's 10 refusals, each naming its
+    item: Whisper's training (``encdec``) and MoE serving on a model axis
+    (22).  Every other family trains on both meshes: deepseek-v2's MLA on
+    the model axis, both MoE archs on the pod axis, and rwkv6 and the
+    hybrid tensor-parallel."""
     refused = {}
     for multi_pod in (False, True):
         for arch, shape_name in CELLS:
@@ -168,18 +168,17 @@ def test_the_80_cells_statuses():
     items = {cell: next((f"item {k}" for k in (20, 21, 22, 23, 24)
                          if f"item {k}" in why), "encdec" if "encdec" in why
                         else why) for cell, why in refused.items()}
-    want = {("rwkv6-1.6b", "train_4k"): "item 20",
-            ("recurrentgemma-9b", "train_4k"): "item 21",
-            ("whisper-small", "train_4k"): "encdec",
+    want = {("whisper-small", "train_4k"): "encdec",
             ("deepseek-v2-236b", "prefill_32k"): "item 22",
             ("deepseek-v2-236b", "decode_32k"): "item 22",
             ("dbrx-132b", "prefill_32k"): "item 22",
             ("dbrx-132b", "decode_32k"): "item 22"}
     expect = {(a, s, mp): why for (a, s), why in want.items()
               for mp in (False, True)}
-    assert items == expect and len(expect) == 14
+    assert items == expect and len(expect) == 10
     assert sum(1 for _ in CELLS) * 2 == 80
-    for arch in ("deepseek-v2-236b", "dbrx-132b"):
+    for arch in ("deepseek-v2-236b", "dbrx-132b", "rwkv6-1.6b",
+                 "recurrentgemma-9b"):
         for multi_pod in (False, True):
             assert D.cell_status(arch, "train_4k", multi_pod) == ("ok", "")
 

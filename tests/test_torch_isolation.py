@@ -166,6 +166,32 @@ def test_moe_family_trains_on_every_production_mesh_kind(arch):
         [(16, 1, True), (32, 2, True), (3, 1, False)]
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
+def test_recurrent_families_lay_out_on_every_production_mesh_kind(arch):
+    """rwkv6 (``ssm``) and the hybrid give the port's models, and
+    ``train`` lays them out on every kind of production mesh with nothing
+    refused: the tensor-parallel step on a model axis, over a pod axis too.
+    The runs: ``tests/test_torch_tp_recurrent.py`` and
+    ``tests/test_torch_cli.py``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_layout
+    from repro_torch.models import get_model
+    from repro_torch.models.rglru import RecurrentGemmaLM
+    from repro_torch.models.rwkv6 import Rwkv6LM
+    from repro_torch.parallel.tensor import TP_FAMILIES, require_tp_family
+
+    cfg = get_config(arch)
+    model = get_model(cfg.smoke(), device="cpu")
+    assert type(model) is (Rwkv6LM if arch == "rwkv6-1.6b" else RecurrentGemmaLM)
+    assert cfg.family in TP_FAMILIES
+    require_tp_family(cfg)
+    got = {shape: train_layout(cfg, shape, axes) for shape, axes in (
+        ((16, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model")),
+        ((3, 2), ("data", "model")))}
+    assert [(v["m"], v["dp"], v["pods"], v["moe"]) for v in got.values()] == \
+        [(16, 16, 1, False), (16, 32, 2, False), (2, 3, 1, False)]
+
+
 @pytest.mark.parametrize("arch,cls", [
     ("recurrentgemma-9b", "rglru.RecurrentGemmaLM"),
     ("whisper-small", "whisper.WhisperLM"),

@@ -295,13 +295,30 @@ def test_jit_train_step_takes_the_references_signature(qwen):
     assert callable(fn) and not hasattr(fn, "layout")
 
 
-@pytest.mark.parametrize("arch,item", [("rwkv6-1.6b", "item 20"),
-                                       ("recurrentgemma-9b", "item 21")])
-def test_families_without_a_tp_forward_name_their_item(arch, item):
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b",
+                                  "whisper-small"])
+def test_families_without_a_tp_forward_name_their_item(arch):
+    """Every family with a tensor-parallel forward builds the step on a
+    model axis and runs it (rwkv6 and the hybrid are held to JAX's in
+    ``tests/test_torch_tp_recurrent.py``); Whisper (``encdec``), which has
+    none, is refused in words."""
     model = get_model(get_config(arch).smoke(), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        make_sharded_train_step(model, AdamWConfig(),
-                                _mesh((1, 2), ("data", "model")))
+    mesh = _mesh((1, 2), ("data", "model"))
+    if arch == "whisper-small":
+        with pytest.raises(NotImplementedError,
+                           match="'encdec'.* no tensor-parallel forward"):
+            make_sharded_train_step(model, AdamWConfig(), mesh)
+        return
+    step = make_sharded_train_step(model, AdamWConfig(), mesh)
+    params = model.init(torch.Generator().manual_seed(0))
+    ds = SyntheticLM(model.cfg.vocab_size, SEQ, ROWS, seed=0)
+    loss, grads = step.value_and_grad(
+        shard_params(params, step.layout.pspecs, step.layout.m),
+        make_global_batch(ds, 0, mesh, shd.batch_spec(mesh)))
+    assert np.isfinite(float(loss)) and step.tp.counts["allreduce"] > 0
+    assert [tuple(g.shape) for g in tree_leaves(grads)] == [
+        tuple(p.shape) for p in tree_leaves(
+            shard_params(params, step.layout.pspecs, step.layout.m))]
 
 
 def test_deepseek_on_a_model_axis_equals_one_rank():
